@@ -1,0 +1,103 @@
+"""CLI: one multimodal chat turn without a UI (port of `vitron_tpu/apps/cli.py`).
+
+  python -m vitron_tpu_torch.apps.cli --demo --device cuda --prompt "what is this?"
+  python -m vitron_tpu_torch.apps.cli --demo --device cpu --image img.npy --bbox 10 10 80 90 \
+      --prompt "describe the region"
+
+`--demo` runs the tiny random-weight model with a whitespace tokenizer; the
+image is a uint8 [H, W, 3] array saved with numpy (`--image x.npy`) or, if
+none is given, random pixels from `--seed`. The device is explicit: asking
+for `cuda` on a machine without a CUDA device is an error, never a switch to
+the CPU. Loading real checkpoints is not ported yet (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import zlib
+
+import numpy as np
+
+
+class DemoTokenizer:
+    """Deterministic whitespace tokenizer: id = crc32(word) % 200 + 10
+    (crc32, unlike hash(), is the same in every process)."""
+
+    bos_token_id = 1
+    eos_token_id = 2
+
+    def __call__(self, s):
+        class Encoded:
+            pass
+
+        enc = Encoded()
+        enc.input_ids = [1] + [zlib.crc32(w.encode()) % 200 + 10 for w in s.split()]
+        return enc
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"tok{t}" for t in ids)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Vitron PyTorch/CUDA CLI inference")
+    p.add_argument("--device", required=True, help="torch device, e.g. cuda or cpu")
+    p.add_argument("--demo", action="store_true",
+                   help="random tiny weights, whitespace tokenizer (no checkpoints)")
+    p.add_argument("--image", help="uint8 [H, W, 3] image saved with numpy (.npy)")
+    p.add_argument("--prompt", required=True)
+    p.add_argument("--bbox", type=float, nargs=4, metavar=("X1", "Y1", "X2", "Y2"),
+                   help="region of interest in image pixels")
+    p.add_argument("--temperature", type=float, default=0.2)
+    p.add_argument("--top-p", type=float, default=0.7)
+    p.add_argument("--max-new-tokens", type=int, default=16)
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def build_demo_system(device, seed: int = 0):
+    import torch
+
+    from vitron_tpu_torch.models import vitron_model
+    from vitron_tpu_torch.runtime.engine import VitronEngine
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    cfg = vitron_model.VitronConfig.tiny()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = vitron_model.init_params(gen, cfg, device)
+    return VitronSystem(VitronEngine(params, cfg, DemoTokenizer(), device=device))
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda but no CUDA device is available", file=sys.stderr)
+        return 2
+    if not args.demo:
+        print("error: checkpoint loading is not ported yet (ROADMAP A7); use --demo",
+              file=sys.stderr)
+        return 2
+    from vitron_tpu_torch.runtime.generation import SamplingConfig
+
+    system = build_demo_system(device, args.seed)
+    if args.image:
+        image = np.load(args.image)
+    else:
+        image = np.random.RandomState(args.seed).randint(0, 256, (336, 448, 3), np.uint8)
+    sampling = SamplingConfig(temperature=args.temperature, top_p=args.top_p,
+                              max_new_tokens=args.max_new_tokens, greedy=args.greedy)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    result = system.chat(args.prompt, image=image, region_box=args.bbox,
+                         sampling=sampling, gen=gen)
+    print(f"[status] {result['status']}")
+    if result.get("task"):
+        print(f"[task]   {result['task']}")
+    print(f"[reply]  {result['reply']['raw']}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
