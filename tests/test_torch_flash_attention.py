@@ -110,8 +110,8 @@ def test_kernel_matches_plain(cuda, name, d, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_other_head_dims(cuda):
-    q = torch.zeros((1, 4, 2, 40), device=cuda)
-    with pytest.raises(NotImplementedError, match="head dim 40"):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(NotImplementedError, match="head dim 48"):
         fa.flash_attention(q, q, q)
 
 

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 The sources are `vitron_tpu_torch/csrc/*.cu` (with their `*.cuh` headers)
-and nothing else. They are compiled by `nvcc` for Hopper (`sm_90a`) into one
+and nothing else. Each `.cu` is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all started together, and the objects are linked into one
 shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/vitron_tpu_torch/<hash>/libvitron_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c csrc/<name>.cu -o build/vitron_tpu_torch/<hash>/<name>.o    (one per source)
+    nvcc -shared -o build/vitron_tpu_torch/<hash>/libvitron_kernels.so *.o
 
 The output directory is keyed by a hash of the sources and flags, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. Every C
@@ -22,13 +24,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vitron_tpu_torch"
 LIB_NAME = "libvitron_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +43,15 @@ _SIGNATURES = {
     # use_shift, shift, is_bf16, stream
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _F, _I, _P],
+    # x, w1, b1, w2, b2, out, part, M, C, F, splits, chunks per split, is_bf16, stream
+    "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, part, B, R, C, splits, is_bf16, stream
+    "vt_group_norm_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # nvcc wall time of this process's build
+compile_seconds: Dict[str, float] = {}  # per-source nvcc wall time of that build
 
 
 def _sources() -> List[Path]:
@@ -70,25 +77,47 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds: Dict[str, List[str]]) -> Dict[str, float]:
+    """Run the commands side by side; raise with the stderr of any that fails
+    (after all have ended). Returns each command's wall seconds."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True) for name, cmd in cmds.items()}
+    seconds, errors = {}, []
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name} (exit {proc.returncode}): "
+                          f"{' '.join(cmds[name])}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
 def library_path() -> Path:
     """Path of the built library, building it first if needed."""
-    global build_seconds
+    global build_seconds, compile_seconds
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = {src.stem: out_dir / f".{src.stem}.{tag}.o" for src in sorted(CSRC.glob("*.cu"))}
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        compile_seconds = _run({name: [nvcc, *NVCC_FLAGS, "-c", str(CSRC / f"{name}.cu"),
+                                       "-o", str(obj)] for name, obj in objs.items()})
+        _run({"link": [nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())]})
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, lib)  # atomic: a concurrent build in another process sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
-    build_seconds = time.perf_counter() - t0
-    os.replace(tmp, lib)  # atomic: a concurrent build in another process sees all or nothing
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -12,10 +12,11 @@ GQA maps query head n to kv head n // (N // K). A query row that sees no
 valid key comes out as zeros (the kernel's finalize acc / max(l, 1e-30)),
 not as the mean of v that `reference_attention` gives.
 
-`flash_attention` launches the kernel for CUDA tensors (D in {64, 128},
-float32/bfloat16) and takes the plain version only for CPU tensors; other
-head dims (40/80/160 for the diffusion slice) raise. The backward (B5) is
-not ported. `launches` counts kernel launches.
+`flash_attention` launches the kernel for CUDA tensors (float32/bfloat16,
+D in KERNEL_HEAD_DIMS: 64/128 for the LLM, 40/80/160 for the SD UNet and
+512 for the VAE's single-head mid attention) and takes the plain version
+only for CPU tensors; other head dims raise. The backward (B5) is not
+ported. `launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from vitron_tpu_torch.kernels import _build
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
 NEG_INF = torch.finfo(torch.float32).min
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 
 
 def reference_attention(q, k, v, kv_mask=None, q_offset=None, scale=None, causal=True):
@@ -117,8 +118,8 @@ def flash_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None, q_offset: i
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention: head dim {d} has no CUDA kernel yet (64 and 128 do; "
-            "40/80/160 come with the diffusion slice, ROADMAP B2)")
+            f"flash_attention: head dim {d} has no CUDA kernel (it takes "
+            f"{KERNEL_HEAD_DIMS})")
     if kv_mask is not None and kv_mask.dtype != torch.bool:
         raise TypeError(f"flash_attention: kv_mask dtype {kv_mask.dtype} is not bool")
     if not all(x.is_contiguous() for x in tensors):
