@@ -14,31 +14,54 @@ Phases (any failure exits non-zero and prints no `ok` line):
 4. kernel vs plain at the GLIGEN path's shapes: flash_attention (bf16,
    non-causal, shift 0, D 40/80/512 with the ragged fuser lengths),
    geglu_ff (the four UNet sites, float32 and bf16), group_norm_sums (two
-   UNet sites and the VAE's full resolution, float32 and bf16; also run
-   twice for identical bits).
-5. the chat slice at full width: VitronSystem.chat on Vicuna-7B with random
+   UNet sites, the VAE's full resolution and the SEEM pixel decoder's four
+   levels, float32 and bf16; also run twice for identical bits; device
+   times from CUDA-graph replay, beside torch.var_mean).
+5. kernel vs plain at FocalNet-L's shapes: depthwise_conv2d (the 16
+   (stage, k) sites at 512^2 and a ragged shape, float32 and bf16), device
+   times from CUDA-graph replay, beside F.conv2d(groups=C).
+   Every kernel row of phases 3-5 prints its bound (bytes once at
+   3.35 TB/s or FLOP at the peak for the type, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time.
+6. the chat slice at full width: VitronSystem.chat on Vicuna-7B with random
    packed-int4 projections and lm_head + bf16 ViT-L/14 tower, projector and
    region extractor; a 336x448 image, a bbox, 128 greedy tokens, twice;
    kernel launch counts, request / prefill / decode times, peak memory.
-6. the chat path on the CPU and the card: a 2-layer full-width float32
+7. the chat path on the CPU and the card: a 2-layer full-width float32
    model, one prefill of the same request on both, last-position logits
    compared.
-7. task A at full width: a fixed protocol reply routed by
-   `VitronSystem.route` to the port's `handle_a`: SD v1.4 GLIGEN UNet, SD
-   VAE, CLIP-L text, float32, 512^2, 30 grounding slots, 50 PLMS steps,
-   guidance 7.5, alpha (0.3, 0, 0.7); twice (identical, non-constant
-   images); launch counts of all three kernels against the block plan;
-   request time, ms per CFG UNet call, VAE decode ms, peak memory.
-8. task C at full width: the 9-channel inpainting UNet through handle_c's
+8. task B at full width: `SeemConfig()` registered with bf16 towers; text,
+   stroke and 'segment all' replies routed by `VitronSystem.route` on a
+   480x640 image, each twice (identical outputs, non-constant masks, and
+   for 'segment all' identical, non-constant class and mask logits);
+   depthwise and group-norm launches against the config (96 and 7 per
+   encode_image); request times, peak memory; then a torch.profiler trace
+   of a text request with ranges around encode_image and the decoder (host
+   and kernel time of each, device busy and idle share, time by kernel).
+9. task E at full width: a stroke tracked over 8 frames of 480x640, twice;
+   9 encode_image's launches.
+10. task A at full width: a fixed protocol reply routed to the port's
+   `handle_a`: SD v1.4 GLIGEN UNet, SD VAE, CLIP-L text, float32, 512^2, 30
+   grounding slots, 50 PLMS steps, guidance 7.5, alpha (0.3, 0, 0.7);
+   twice (identical, non-constant images); launch counts of all three
+   kernels against the block plan; request time, ms per CFG UNet call, VAE
+   decode ms, peak memory.
+11. task C at full width: the 9-channel inpainting UNet through handle_c's
    region branch, TASK_C_STEPS PLMS steps (fewer than A's 50, to save
-   time), guidance 30; launch counts.
-9. the bf16 CFG UNet step at bench.py's `bench_sd_unet` shape (SD v1.4, no
+   time), guidance 30; launch counts. Then through its SEEM branch: two
+   ';'-separated phrases, no region, no sketch; 2 encode_image's launches
+   plus GLIGEN's.
+12. the bf16 CFG UNet step at bench.py's `bench_sd_unet` shape (SD v1.4, no
    grounding, bf16 params, [2, 64, 64, 4] latents, [2, 77, 768] context):
    `sd_unet_cfg_steps_per_s`.
-10. the diffusion path on the CPU and the card: one full-width float32
+13. the diffusion path on the CPU and the card: one full-width float32
    grounded CFG UNet call at reduced depth and latent size (one level,
    32x32 latents: four transformer blocks whose self-attention and fuser
    sites take the flash kernel on the card), compared with the CPU.
+14. SEEM on the CPU and the card: one full-width float32 segment_text at
+   reduced depth (FocalNet depths 1/1/1/1 with all four focal levels, 2
+   encoder, decoder and language layers, 256^2): mask logits, the matched
+   query and the flipped cross-attention-mask bits.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -69,7 +92,16 @@ TASK_A_REPLY = ("<module>A</module><instruction>a red car on a street</instructi
 TASK_C_REPLY = ("<module>C</module><instruction>a green bus</instruction>"
                 "<region>[0.25,0.1,0.75,0.6]</region>")
 TASK_C_STEPS = 10
+TASK_B_REPLY = "<module>B</module><instruction>the red car</instruction>"
+TASK_B_PANOPTIC_REPLY = "<module>B</module><instruction></instruction>"
+TASK_E_REPLY = "<module>E</module><instruction>track the red car</instruction>"
+TASK_C_SEEM_REPLY = "<module>C</module><instruction>the red car; a dog</instruction>"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# peak rates of the bound (H100 SXM data sheet, dense, at 700 W): bf16 on the
+# tensor cores for the bf16 matrix products, float32 on the CUDA cores for
+# everything else (float32 products run in full float32: TF32 is off)
+PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+DW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 BBOX = [60.0, 40.0, 300.0, 260.0]
 PROMPT = "What is the object in the marked region doing?"
 NEW_TOKENS = 128
@@ -105,9 +137,54 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() in ms: `calls` calls captured in a CUDA graph
+    and replayed, so the host's launch cost (~20-40 us a call from Python,
+    more than a small kernel runs) stays out of the reading."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def row(err, rel, ms, plain_ms, nbytes, flops, peak, library_ms=None) -> dict:
+    """One kernel-vs-plain measurement with its bound: the least time for
+    `nbytes` (each input read once, each output written once) at 3.35 TB/s
+    and for `flops` at the `peak` rate, whichever is larger."""
+    return {"err": err, "rel": rel, "ms": ms, "plain_ms": plain_ms,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / PEAK_FLOPS[peak] * 1e3, "library_ms": library_ms}
+
+
+def bound_text(r: dict) -> str:
+    b = max(r["bytes_ms"], r["ops_ms"])
+    by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    return f"bound {b:.4f} ms ({by}), library {lib}"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def tree_map(fn, tree):
@@ -117,6 +194,17 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def sdpa_ms(torch, q, k, v, attn_mask=None) -> float:
+    """CUDA-event time of F.scaled_dot_product_attention on the same
+    [B, S, N, D] inputs (the library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=attn_mask, enable_gqa=gqa), iters=10)
 
 
 def phase_kernels(torch, card: str):
@@ -139,11 +227,14 @@ def phase_kernels(torch, card: str):
             ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), flush=flush)
             plain_ms = cuda_ms(torch, lambda: i4.int4_matmul_plain(x, q4, s), flush=flush)
             gbs = q4.numel() / (ms * 1e-3) / 1e9
+            # no single PyTorch call takes this int4 packing: no library time
+            r = row(err, rel, ms, plain_ms, nbytes(x, q4, s, got.to(torch.bfloat16)),
+                    2 * m * k * n, "bf16_tensor")
             print(f"int4_matmul M={m} K={k} N={n}: rel_err={rel:.3e} abs_err={err:.3e} "
                   f"kernel {ms:.4f} ms ({gbs:.0f} GB/s packed) plain {plain_ms:.4f} ms "
-                  f"[{card}]", flush=True)
+                  f"{bound_text(r)} [{card}]", flush=True)
             check(rel <= INT4_TOL, f"int4_matmul M={m} K={k} N={n} rel err {rel} > {INT4_TOL}")
-            rows["int4"].append((err, rel, ms, plain_ms))
+            rows["int4"].append(r)
 
     b, d = 1, 128
     cases = [  # name, S, T, N, KH, q_offset, valid slots
@@ -164,11 +255,15 @@ def phase_kernels(torch, card: str):
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, kv_mask=mask, q_offset=off))
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, kv_mask=mask,
                                                                    q_offset=off))
+        visible = fa._visible(b, s_len, t_len, dev, mask, off, True)[:, 0, 0]  # [B, S, T]
+        lib_ms = sdpa_ms(torch, q, k, v, visible[:, None])
+        r = row(err, rel, ms, plain_ms, nbytes(q, k, v, mask, got.to(torch.bfloat16)),
+                4 * d * nh * int(visible.sum()), "bf16_tensor", lib_ms)
         print(f"flash_attention {name} S={s_len} T={t_len} N={nh} K={kh} D={d} "
               f"q_offset={off}: abs_err={err:.3e} rel_err={rel:.3e} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms [{card}]", flush=True)
+              f"plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
         check(err <= FLASH_TOL, f"flash_attention {name} abs err {err} > {FLASH_TOL}")
-        rows["flash"].append((err, rel, ms, plain_ms))
+        rows["flash"].append(r)
     del flush
     return rows
 
@@ -195,12 +290,15 @@ def phase_diffusion_kernels(torch, card: str):
         rel = err / want.abs().max().item()
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **call), iters=10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=10)
-        tflops = 4 * b * heads * s_len * s_len * d / (ms * 1e-3) / 1e12
+        flops = 4 * b * heads * s_len * s_len * d
+        tflops = flops / (ms * 1e-3) / 1e12
+        r = row(err, rel, ms, plain_ms, 4 * nbytes(q), flops, "bf16_tensor",
+                sdpa_ms(torch, q, k, v))
         print(f"flash_attention gligen [{b},{s_len},{heads},{d}] bf16 non-causal shift 0: "
               f"abs_err={err:.3e} kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+              f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
         check(err <= FLASH_TOL, f"flash_attention D={d} S={s_len} abs err {err} > {FLASH_TOL}")
-        rows["flash_gligen"].append((err, rel, ms, plain_ms))
+        rows["flash_gligen"].append(r)
         del q, k, v, got, want
 
     for m, c in ((8192, 320), (2048, 640), (512, 1280), (128, 1280)):
@@ -220,13 +318,16 @@ def phase_diffusion_kernels(torch, card: str):
             plain_ms = cuda_ms(torch, lambda: gf.geglu_ff_plain(*args))
             tflops = 24 * m * c * c / (ms * 1e-3) / 1e12
             name = str(dtype).split(".")[-1]
+            # two products and a gelu: no single PyTorch call, no library time
+            r = row(err, rel, ms, plain_ms, nbytes(*args) + nbytes(got.to(dtype)),
+                    6 * m * c * f, "bf16_tensor" if dtype == bf16 else "fp32")
             print(f"geglu_ff M={m} C={c} F={f} {name}: rel_err={rel:.3e} abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {plain_ms:.4f} ms [{card}]",
-                  flush=True)
+                  f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {plain_ms:.4f} ms "
+                  f"{bound_text(r)} [{card}]", flush=True)
             check(rel <= GEGLU_TOL[name], f"geglu_ff M={m} C={c} {name} rel err {rel}")
-            rows["geglu"].append((err, rel, ms, plain_ms))
+            rows["geglu"].append(r)
 
-    for shape in ((2, 4096, 320), (2, 1024, 640), (1, 262144, 128)):
+    for shape in GN_SHAPES:
         x32 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
         for dtype in (torch.float32, bf16):
             x = x32.to(dtype)
@@ -235,17 +336,357 @@ def phase_diffusion_kernels(torch, card: str):
             want = gn.group_norm_sums_plain(x)
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
-            ms = cuda_ms(torch, lambda: gn.group_norm_sums(x))
-            plain_ms = cuda_ms(torch, lambda: gn.group_norm_sums_plain(x))
+            ms = graph_ms(torch, lambda: gn.group_norm_sums(x))
+            plain_ms = graph_ms(torch, lambda: gn.group_norm_sums_plain(x))
+            # the same per-channel statistics in one call: sum = R mean,
+            # sum of squares = R (var + mean^2)
+            lib_ms = graph_ms(torch, lambda: torch.var_mean(x, dim=1, correction=0))
             gbs = x.numel() * x.element_size() / (ms * 1e-3) / 1e9
             name = str(dtype).split(".")[-1]
+            r = row(err, rel, ms, plain_ms, nbytes(x, got), 3 * x.numel(), "fp32", lib_ms)
             print(f"group_norm_sums {list(shape)} {name}: rel_err={rel:.3e} kernel {ms:.4f} ms "
                   f"({gbs:.0f} GB/s) plain {plain_ms:.4f} ms, same bits twice="
-                  f"{bool(torch.equal(got, again))} [{card}]", flush=True)
+                  f"{bool(torch.equal(got, again))} {bound_text(r)} (graph-replayed device "
+                  f"times) [{card}]", flush=True)
             check(rel <= GN_TOL, f"group_norm_sums {shape} {name} rel err {rel} > {GN_TOL}")
             check(bool(torch.equal(got, again)), f"group_norm_sums {shape} not deterministic")
-            rows["gn"].append((err, rel, ms, plain_ms))
+            rows["gn"].append(r)
     return rows
+
+
+# group-norm sums [B, R, C]: two UNet sites, the VAE at full resolution, and
+# the SEEM pixel decoder's four levels at 512^2 (res5 to res2, conv_dim 512)
+GN_SHAPES = ((2, 4096, 320), (2, 1024, 640), (1, 262144, 128),
+             (1, 256, 512), (1, 1024, 512), (1, 4096, 512), (1, 16384, 512))
+# FocalNet-L at the served 512x512 input: (x shape, k) of every depthwise
+# site (stage i has 2/2/18/2 blocks, each k = 3/5/7/9) and a ragged shape
+DW_SHAPES = ([((1, 128 >> i, 128 >> i, 192 << i), k) for i in range(4) for k in (3, 5, 7, 9)]
+             + [((2, 37, 53, 200), 5)])
+
+
+def phase_seem_kernels(torch, card: str):
+    """The depthwise kernel against its plain version at FocalNet-L's shapes,
+    float32 and bf16; CUDA-event times of the kernel, the plain version and
+    F.conv2d(groups=C) on the channels-last view (the library yardstick)."""
+    import torch.nn.functional as F
+
+    from vitron_tpu_torch.kernels import depthwise_conv as dw
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = {"dw": []}
+    for shape, k in DW_SHAPES:
+        c = shape[-1]
+        x32 = torch.randn(shape, generator=g, device=dev)
+        w32 = torch.randn((k, k, c), generator=g, device=dev) / k
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            got = dw.depthwise_conv2d(x, w)
+            want = dw.depthwise_conv2d_plain(x, w)
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.float().abs().max().item()
+            ms = graph_ms(torch, lambda: dw.depthwise_conv2d(x, w))
+            plain_ms = graph_ms(torch, lambda: dw.depthwise_conv2d_plain(x, w), calls=2)
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor: channels_last
+            wc = w.permute(2, 0, 1)[:, None].contiguous()
+            lib_ms = graph_ms(torch, lambda: F.conv2d(xc, wc, padding=k // 2, groups=c))
+            name = str(dtype).split(".")[-1]
+            r = row(err, rel, ms, plain_ms, nbytes(x, w, got), 2 * k * k * x.numel(), "fp32",
+                    lib_ms)
+            print(f"depthwise_conv2d {list(shape)} k={k} {name}: abs_err={err:.3e} "
+                  f"rel_err={rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms {bound_text(r)} (graph-replayed device times) "
+                  f"[{card}]", flush=True)
+            check(rel <= DW_TOL[name], f"depthwise_conv2d {shape} k={k} {name} rel err {rel}")
+            rows["dw"].append(r)
+    return rows
+
+
+def seem_counts(cfg) -> dict:
+    """Kernel launches of one SEEM encode_image, from the config: the
+    depthwise kernel at every focal level of every FocalNet block, group norm
+    at res5's output and at the lateral and output of each lower level."""
+    return {"depthwise_conv2d": sum(d * l for d, l in zip(cfg.backbone.depths,
+                                                          cfg.backbone.focal_levels)),
+            "group_norm_sums": 2 * len(cfg.pixel.in_channels) - 1}
+
+
+def seem_kernels():
+    from vitron_tpu_torch.kernels import depthwise_conv as dw
+    from vitron_tpu_torch.kernels import group_norm as gn
+
+    return {"depthwise_conv2d": dw, "group_norm_sums": gn}
+
+
+def build_seem_params(torch, cfg, device, seed: int):
+    """SEEM params from a seed, every all-zero leaf (biases, logit_scale)
+    filled as for GLIGEN and the FocalNet layerscale gammas drawn from
+    U(0.5, 1.5): at their 1e-4 init a block's output falls below bf16's
+    resolution against the residual, and the depthwise kernel's output would
+    not reach the masks."""
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.models.seem import model as seem_model
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = fill_zero_leaves(seem_model.init_params(g, cfg, device), g)
+    for stage in params["backbone"]["stages"]:
+        for blk in stage["blocks"]:
+            for key in ("gamma_1", "gamma_2"):
+                blk[key] = 0.5 + torch.rand(blk[key].shape, generator=g, device=device)
+    return params
+
+
+def seem_system(torch, cfg, params, pipe=None):
+    """A VitronSystem serving SEEM as registered for deployment (bf16
+    backbone and pixel decoder), with GLIGEN beside it when given."""
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    system = VitronSystem(None)
+    system.register_seem(params, cfg, StubClipTokenizer(cfg.lang.vocab_size),
+                         compute_dtype="bfloat16")
+    if pipe is not None:
+        system.register_gligen(pipe)
+    return system
+
+
+def stroke_mask(h: int, w: int) -> np.ndarray:
+    m = np.zeros((h, w), bool)
+    m[h * 3 // 10: h * 7 // 10, w * 3 // 10: w * 2 // 3] = True
+    return m
+
+
+def phase_task_b(torch, card: str, system, cfg):
+    """Text, stroke and 'segment all' through VitronSystem.route, each twice
+    (identical outputs), with the depthwise and group-norm launches of one
+    encode_image per request. 'Segment all' is also held on what the model
+    computes before the host thresholds it: segment_panoptic's class and
+    mask logits, identical twice and non-constant (random weights leave
+    every class score under panoptic_inference's 0.8, so no segment is
+    kept)."""
+    from vitron_tpu_torch.models.seem import model as seem_model
+
+    per = seem_counts(cfg)
+    kernels = seem_kernels()
+    image = np.random.RandomState(3).randint(0, 256, (480, 640, 3), np.uint8)
+    sketch = stroke_mask(480, 640)
+    total = {name: 0 for name in kernels}
+    logits = []
+    segment_panoptic = seem_model.segment_panoptic
+
+    def recorded_panoptic(*args, **kw):
+        out = segment_panoptic(*args, **kw)
+        logits.append(tuple(t.cpu() for t in out))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    seem_model.segment_panoptic = recorded_panoptic
+    try:
+        for name, reply, sk in (("text", TASK_B_REPLY, None), ("stroke", TASK_B_REPLY, sketch),
+                                ("panoptic", TASK_B_PANOPTIC_REPLY, None)):
+            outs = []
+            for i in range(2):
+                for mod in kernels.values():
+                    mod.launches = 0
+                out, t_req = timed_route(torch, system, reply, image=image, sketch_mask=sk)
+                got = expect_launches(kernels, per, f"task B {name} run {i + 1}")
+                total = {k: total[k] + got[k] for k in total}
+                check(out["status"] == "ok" and out["task"] == "image_segmentation",
+                      f"task B {name}: status {out['status']}, {out.get('error')}")
+                if name == "panoptic":
+                    res = out["panoptic"]
+                    cls, masks = logits[-1]
+                    what = (f"{len(out['segments'])} segments, class logits {tuple(cls.shape)} "
+                            f"std {cls.std():.4f}, mask logits {tuple(masks.shape)} std "
+                            f"{masks.std():.4f}")
+                    check(res.shape == (480, 640) and cls.std() > 0 and masks.std() > 0,
+                          "task B panoptic: constant class or mask logits")
+                else:
+                    res = out["mask"]
+                    what = f"mask {res.shape} covers {res.mean():.3f}"
+                    check(res.shape == (480, 640) and bool(res.any()) and not bool(res.all()),
+                          f"task B {name}: the mask is constant")
+                outs.append((res, out["overlay"]))
+                print(f"task B {name} run {i + 1}: request {t_req:.3f} s, {what} [{card}]",
+                      flush=True)
+            check(all(np.array_equal(a, b) for a, b in zip(*outs)),
+                  f"task B {name}: two identical requests gave other outputs")
+    finally:
+        seem_model.segment_panoptic = segment_panoptic
+    check(len(logits) == 2 and all(torch.equal(a, b) for a, b in zip(*logits)),
+          "task B panoptic: two identical requests gave other class or mask logits")
+    print(f"task B: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    return total
+
+
+def seem_breakdown(torch, card: str, system, image):
+    """Where a task-B text request's time goes: a torch.profiler trace of the
+    routed request with a range around encode_image and one around the SEEM
+    decoder. Each range's host time and the device time of the kernels it
+    launched; the device time summed by kernel gives the device's busy
+    share of the unprofiled request."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vitron_tpu_torch.models.seem import decoder as dec
+    from vitron_tpu_torch.models.seem import model as seem_model
+
+    spans = {"seem.encode_image": (seem_model, "encode_image"), "seem.decoder": (dec, "forward")}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in spans.items()}
+
+    def ranged(name):
+        def call(*args, **kw):
+            with record_function(name):
+                return saved[name](*args, **kw)
+        return call
+
+    _, t_req = timed_route(torch, system, TASK_B_REPLY, image=image)
+    for name, (mod, attr) in spans.items():
+        setattr(mod, attr, ranged(name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, t_prof = timed_route(torch, system, TASK_B_REPLY, image=image)
+    finally:
+        for name, (mod, attr) in spans.items():
+            setattr(mod, attr, saved[name])
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    # the ranges also appear on the device timeline: not kernels
+    kernels = [e for e in events if e.device_type == cuda and e.key not in spans]
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    busy = sum(dev_ms.values())
+    dw_ms = sum(v for k, v in dev_ms.items() if "dw_kernel" in k)
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    ranges = []
+    for name in spans:
+        e = next((e for e in events if e.key == name and e.device_type != cuda), None)
+        check(e is not None, f"task B breakdown: no '{name}' range in the trace")
+        ranges.append(f"{name} host {e.cpu_time_total / 1e3:.2f} ms, its kernels "
+                      f"{e.device_time_total / 1e3:.2f} ms")
+    print(f"task B breakdown: text request {t_req * 1e3:.1f} ms unprofiled, "
+          f"{t_prof * 1e3:.1f} ms profiled; {'; '.join(ranges)} (profiled, bf16 towers, "
+          f"512^2); device busy {busy:.2f} ms = {busy / (t_req * 1e3):.3f} of the unprofiled "
+          f"request (idle share {1 - busy / (t_req * 1e3):.3f}); depthwise kernel "
+          f"{dw_ms:.3f} ms in {sum(e.count for e in kernels if 'dw_kernel' in e.key)} "
+          f"launches [{card}]", flush=True)
+    print("task B device time by kernel (ms): " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top),
+          flush=True)
+
+
+def phase_task_e(torch, card: str, system, cfg, frames: int = 8):
+    """Video tracking of a stroke over `frames` 480x640 frames (1.6 s at the
+    reference's 5 fps), twice: one encode_image per frame plus the reference
+    frame's."""
+    per = seem_counts(cfg)
+    want = {k: (frames + 1) * v for k, v in per.items()}
+    kernels = seem_kernels()
+    video = np.random.RandomState(4).randint(0, 256, (frames, 480, 640, 3), np.uint8)
+    runs = []
+    for i in range(2):
+        for mod in kernels.values():
+            mod.launches = 0
+        out, t_req = timed_route(torch, system, TASK_E_REPLY, video=video,
+                                 sketch_mask=stroke_mask(480, 640))
+        launches = expect_launches(kernels, want, f"task E run {i + 1}")
+        check(out["status"] == "ok" and out["task"] == "video_tracking",
+              f"task E: status {out['status']}, {out.get('error')}")
+        masks = out["masks"]
+        side = cfg.input_size // 4
+        check(masks.shape == (frames, side, side) and out["overlay_frames"].shape ==
+              (frames, 480, 640, 3), f"task E shapes {masks.shape}")
+        check(bool(masks.any()) and not bool(masks.all()), "task E: the masks are constant")
+        runs.append(masks)
+        print(f"task E run {i + 1}: {frames} frames 480x640, request {t_req:.3f} s "
+              f"({t_req / frames * 1e3:.1f} ms per frame), masks cover {masks.mean():.3f} "
+              f"[{card}]", flush=True)
+    check(np.array_equal(runs[0], runs[1]), "task E: two identical requests gave other masks")
+    return launches
+
+
+def phase_task_c_seem(torch, card: str, pipe, seem_params, cfg):
+    """C with two ';'-separated phrases and neither a region nor a sketch:
+    SEEM segments each phrase (two encode_image), then the 9-channel GLIGEN
+    inpaint at TASK_C_STEPS steps."""
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenPipeline
+    gcfg = dataclasses.replace(pipe.cfg, steps=TASK_C_STEPS)
+    short = GligenPipeline(gcfg, pipe.unet_params, pipe.vae_params, pipe.text_params,
+                           inpaint_unet_params=pipe.inpaint_unet_params, tokenizer=pipe.tokenizer)
+    system = seem_system(torch, cfg, seem_params, short)
+    ucfg9 = dataclasses.replace(gcfg.unet, in_channels=9)
+    unet = unet_counts(ucfg9, gcfg.latent_size, gcfg.max_objs, gcfg.text.max_length)
+    enc, dec = vae_counts(gcfg.vae, gcfg.latent_size)
+    want = {k: (gcfg.steps + 1) * unet[k] + enc[k] + dec[k] for k in unet}
+    want["depthwise_conv2d"] = 0
+    for k, v in seem_counts(cfg).items():
+        want[k] += 2 * v
+    kernels = {**diffusion_kernels(), **seem_kernels()}
+    image = np.random.RandomState(5).randint(0, 256, (480, 640, 3), np.uint8)
+    for mod in kernels.values():
+        mod.launches = 0
+    out, t_req = timed_route(torch, system, TASK_C_SEEM_REPLY, image=image)
+    launches = expect_launches(kernels, want, "task C (SEEM branch)")
+    img = out["image"]
+    check(out["status"] == "ok" and out["task"] == "image_editing",
+          f"task C (SEEM): status {out['status']}, {out.get('error')}")
+    check(img.shape == (gcfg.image_size, gcfg.image_size, 3) and int(img.max()) != int(img.min()),
+          f"task C (SEEM) image {img.shape}")
+    print(f"task C (SEEM branch: 2 phrases segmented, {gcfg.steps} PLMS steps): request "
+          f"{t_req:.3f} s, image mean {img.mean():.2f} std {img.std():.2f} [{card}]", flush=True)
+    return launches
+
+
+def phase_seem_cpu_vs_card(torch, card: str):
+    """One full-width float32 segment_text at reduced depth (FocalNet depths
+    1/1/1/1 with all four focal levels, 2 encoder, 2 decoder and 2 language
+    layers, a 256x256 image) on the CPU and on the card: the mask logits, the
+    matched query and the flipped cross-attention-mask bits."""
+    from vitron_tpu_torch.models.seem import decoder as dec
+    from vitron_tpu_torch.models.seem import focalnet, language, pixel_decoder
+    from vitron_tpu_torch.models.seem import model as seem_model
+
+    cfg = seem_model.SeemConfig(
+        backbone=focalnet.FocalNetConfig.focall(depths=(1, 1, 1, 1)),
+        pixel=pixel_decoder.PixelDecoderConfig(num_enc_layers=2),
+        decoder=dec.SeemDecoderConfig(dec_layers=2), lang=language.LangConfig(num_layers=2),
+        input_size=256)
+    cpu = torch.device("cpu")
+    params = build_seem_params(torch, cfg, cpu, seed=8)
+    image = torch.from_numpy(np.random.RandomState(6).randint(0, 256, (256, 256, 3), np.uint8))
+    ids = np.zeros((1, cfg.lang.context_length), np.int64)
+    ids[0, :5] = [49406, 320, 736, 1615, 49407]
+    ids = torch.from_numpy(ids)
+    decoded = []
+    forward = dec.forward
+
+    def recorded_forward(*args, **kw):  # keeps the decoder output to find the match
+        decoded.append(forward(*args, **kw))
+        return decoded[-1]
+
+    res = {}
+    dec.forward = recorded_forward
+    try:
+        for name, device in (("cpu", cpu), ("cuda", torch.device("cuda"))):
+            p = params if device == cpu else tree_map(lambda a: a.to(device), params)
+            t0 = time.perf_counter()
+            with dec.recording_attn_masks() as masks:
+                mask, _ = seem_model.segment_text(p, cfg, image.to(device), ids.to(device),
+                                                  (ids != 0).to(device))
+            pred = decoded[-1]["pred_masks"][0]
+            matched = [q for q in range(pred.shape[0]) if torch.equal(pred[q], mask)]
+            res[name] = (mask.float().cpu(), [m.cpu() for m in masks], matched)
+            print(f"seem cpu-vs-card: {name} segment_text {time.perf_counter() - t0:.1f} s, "
+                  f"matched query {matched}", flush=True)
+    finally:
+        dec.forward = forward
+    (m_cpu, a_cpu, q_cpu), (m_gpu, a_gpu, q_gpu) = res["cpu"], res["cuda"]
+    rel = (m_gpu - m_cpu).abs().max().item() / m_cpu.abs().max().item()
+    flips = sum(int((a != b).sum()) for a, b in zip(a_cpu, a_gpu))
+    print(f"seem cpu-vs-card: full-width float32 segment_text (depth 1/1/1/1, 256x256): mask "
+          f"logits rel_err={rel:.3e} (limit {CPU_GPU_TOL}), matched query {q_cpu} / {q_gpu}, "
+          f"attention-mask bits flipped {flips} of {sum(a.numel() for a in a_cpu)} [{card}]",
+          flush=True)
+    check(len(q_cpu) == 1 and q_cpu == q_gpu, f"SEEM CPU and card match other queries: "
+          f"{q_cpu} / {q_gpu}")
+    check(rel <= CPU_GPU_TOL, f"SEEM CPU and card disagree: rel {rel}")
 
 
 def unet_counts(ucfg, latent: int, n_objs: int, n_ctx: int) -> dict:
@@ -316,10 +757,10 @@ def build_gligen(torch, cfg, device, seed: int):
                           tokenizer=StubClipTokenizer(cfg.text.vocab_size))
 
 
-def timed_route(torch, system, reply, image=None):
+def timed_route(torch, system, reply, **media):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = system.route(reply, image=image)
+    out = system.route(reply, **media)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -653,12 +1094,27 @@ def main() -> int:
     with torch.no_grad():
         rows = phase_kernels(torch, card)
         rows.update(phase_diffusion_kernels(torch, card))
+        rows.update(phase_seem_kernels(torch, card))
         chat = phase_slice(torch, card)
         phase_cpu_vs_card(torch, card)
         from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
         from vitron_tpu_torch.models.diffusion.unet2d import UNetConfig
+        from vitron_tpu_torch.models.seem.model import SeemConfig
 
         dev = torch.device("cuda")
+        seem_cfg = SeemConfig()
+        t0 = time.perf_counter()
+        seem_params = build_seem_params(torch, seem_cfg, dev, seed=0)
+        system = seem_system(torch, seem_cfg, seem_params)
+        torch.cuda.synchronize()
+        print(f"seem: FocalNet-L + FPN pixel decoder (bf16) + SEEM decoder + language "
+              f"encoder (float32) random weights built on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        task_b = phase_task_b(torch, card, system, seem_cfg)
+        seem_breakdown(torch, card, system,
+                       np.random.RandomState(3).randint(0, 256, (480, 640, 3), np.uint8))
+        task_e = phase_task_e(torch, card, system, seem_cfg)
+        del system
         t0 = time.perf_counter()
         pipe = build_gligen(torch, GligenConfig(), dev, seed=0)
         torch.cuda.synchronize()
@@ -666,24 +1122,32 @@ def main() -> int:
               f"random weights built on the card in {time.perf_counter() - t0:.1f} s", flush=True)
         task_a = phase_task_a(torch, card, pipe)
         task_c = phase_task_c(torch, card, pipe)
-        del pipe
+        task_c_seem = phase_task_c_seem(torch, card, pipe, seem_params, seem_cfg)
+        del pipe, seem_params
         torch.cuda.empty_cache()
         phase_sd_unet_bf16(torch, card, UNetConfig.sd_v1(), dev)
         phase_unet_cpu_vs_card(torch, card, UNetConfig.sd_v1(
             channel_mult=(1,), num_res_blocks=1, attention_resolutions=(1,)), dev)
+        phase_seem_cpu_vs_card(torch, card)
 
     def entry(name, source, replaces, key, launches, paths):
         r = rows[key]
+        bytes_ms, ops_ms = sum(x["bytes_ms"] for x in r), sum(x["ops_ms"] for x in r)
+        lib = [x["library_ms"] for x in r]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_by_path": paths,
-                "max_abs_err": max(x[0] for x in r),
-                "max_rel_err": max(x[1] for x in r), "ms": sum(x[2] for x in r),
-                "plain_ms": sum(x[3] for x in r),
+                "max_abs_err": max(x["err"] for x in r),
+                "max_rel_err": max(x["rel"] for x in r), "ms": sum(x["ms"] for x in r),
+                "plain_ms": sum(x["plain_ms"] for x in r),
+                "bound_ms": sum(max(x["bytes_ms"], x["ops_ms"]) for x in r),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None if None in lib else sum(lib),
                 "ms_is": f"sum over the {len(r)} main-path shapes above"}
 
     def paths(name):
         return {"chat": chat.get(name, 0), "task_a": task_a.get(name, 0),
-                "task_c": task_c.get(name, 0)}
+                "task_c": task_c.get(name, 0), "task_b": task_b.get(name, 0),
+                "task_e": task_e.get(name, 0), "task_c_seem": task_c_seem.get(name, 0)}
 
     rows["flash"] += rows.pop("flash_gligen")
     print(json.dumps({"kernels": [
@@ -699,6 +1163,9 @@ def main() -> int:
         entry("group_norm_sums", "vitron_tpu_torch/csrc/group_norm.cu",
               "vitron_tpu/kernels/group_norm.py:75", "gn", task_a["group_norm_sums"],
               paths("group_norm_sums")),
+        entry("depthwise_conv2d", "vitron_tpu_torch/csrc/depthwise_conv.cu",
+              "vitron_tpu/kernels/depthwise_conv.py:66", "dw", task_b["depthwise_conv2d"],
+              paths("depthwise_conv2d")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,208 @@
+"""The port stands alone: no module of `vitron_tpu_torch/` and nothing in
+`chip_smoke.py` imports `vitron_tpu` (the JAX package) or `jax`, at module
+level or inside a function; every port module imports with both made
+unimportable; and the host modules the port keeps its own copies of
+(constants, conversation templates, protocol, tokenization, sketch, the
+splice planner, the router) agree with their JAX-package originals.
+"""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from vitron_tpu_torch import constants as tconst
+from vitron_tpu_torch.apps.cli import DemoTokenizer
+from vitron_tpu_torch.mm import conversation as tconv
+from vitron_tpu_torch.mm import protocol as tproto
+from vitron_tpu_torch.mm import sketch as tsketch
+from vitron_tpu_torch.mm import splice as tsplice
+from vitron_tpu_torch.mm import tokenization as ttok
+from vitron_tpu_torch.runtime import router as trouter
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "vitron_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    """Every module named by an import statement anywhere in the file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "vitron_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_jax_package_import(path):
+    bad = [f"{path.name}:{line} imports {name}" for line, name in _imported_modules(path)
+           if _forbidden(name)]
+    assert not bad, bad
+
+
+def test_the_scan_sees_function_level_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\n\ndef g():\n    from vitron_tpu.mm import splice\n"
+                 "    import jax.numpy as jnp\n")
+    assert [n for _, n in _imported_modules(f) if _forbidden(n)] == ["vitron_tpu.mm", "jax.numpy"]
+
+
+def test_every_port_module_imports_without_jax():
+    modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                     for p in (REPO / "vitron_tpu_torch").rglob("*.py"))
+    modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    script = ("import importlib, sys\n"
+              "sys.modules['vitron_tpu'] = sys.modules['jax'] = None\n"
+              f"for m in {modules!r}:\n"
+              "    importlib.import_module(m)\n"
+              "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'vitron_tpu')\n"
+              "       and sys.modules[m] is not None]\n"
+              "assert not bad, bad\n"
+              "print('ok', len(" + repr(modules) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().startswith("ok")
+
+
+# ------------------------------------------------------- the vendored copies
+
+# the smoke's replies, and malformed ones
+REPLIES = [getattr(chip_smoke, name) for name in sorted(dir(chip_smoke))
+           if name.endswith("_REPLY")] + [
+    "<module>E</module><instruction>track: the dog</instruction> and more",
+    "plain chat, no tags",
+    "<module>B</module><instruction>unclosed",
+    "<module></module><instruction>a</instruction><instruction>b: c</instruction>",
+    "<region>[1, 2, 3]</region><region>[5,6,7,8]</region> <b>x</b>",
+]
+
+
+def test_constants_match_jax_package():
+    from vitron_tpu import constants as jconst
+
+    names = [n for n in dir(jconst) if n.isupper()]
+    assert names and names == [n for n in dir(tconst) if n.isupper()]
+    for n in names:
+        assert getattr(tconst, n) == getattr(jconst, n), n
+
+
+@pytest.mark.parametrize("reply", REPLIES)
+def test_protocol_and_router_match_jax_package(reply):
+    from vitron_tpu.mm import protocol as jproto
+    from vitron_tpu.runtime import router as jrouter
+
+    assert tproto.parse_model_output(reply) == jproto.parse_model_output(reply)
+    assert tproto.TASK_NAMES == jproto.TASK_NAMES
+    region = tproto.find_region_instruction_content(reply)
+    assert trouter.parse_region_boxes(region) == jrouter.parse_region_boxes(region)
+    tr, jr = trouter.BackendRegistry(), jrouter.BackendRegistry()
+    for reg in (tr, jr):
+        reg.register("B", lambda req: {"module": req.module, "instructions": req.instructions,
+                                       "region": req.region})
+    want = jrouter.route_model_output(jr, reply)
+    got = trouter.route_model_output(tr, reply)
+    for d in (got, want):
+        d.pop("seconds", None)
+    assert got == want
+
+
+def test_region_boxes_match_jax_package():
+    from vitron_tpu.runtime import router as jrouter
+
+    for region in (None, "", "[0.1,0.2,0.6,0.8]", "[1;2;3;4] [x,1,2,3] [5, 6, 7, 8]",
+                   "[[0.1,0.2,0.3,0.4]]", "[1,2,3,4,5]"):
+        assert trouter.parse_region_boxes(region) == jrouter.parse_region_boxes(region)
+
+
+@pytest.mark.parametrize("name", sorted(tconv.conv_templates))
+def test_conversation_prompts_match_jax_package(name):
+    from vitron_tpu.mm import conversation as jconv
+
+    prompts = []
+    for templates in (tconv.conv_templates, jconv.conv_templates):
+        for last in ("It moved.", None):  # a finished turn, and one for the model
+            conv = templates[name].copy()
+            conv.append_message(conv.roles[0], "<image>\nWhat is in the <objs> region?")
+            if conv.sep_style.name != "PLAIN":  # plain has no sep2 for a reply
+                conv.append_message(conv.roles[1], "A dog.")
+                conv.append_message(conv.roles[0], "And now?")
+                conv.append_message(conv.roles[1], last)
+            prompts.append((conv.get_prompt(), conv.sep, conv.sep2))
+    half = len(prompts) // 2
+    assert prompts[:half] == prompts[half:]
+
+
+def test_tokenization_matches_jax_package():
+    from vitron_tpu.mm import tokenization as jtok
+
+    tok = DemoTokenizer()
+    for prompt in ("<image>\nwhat is <objs> doing?", "no media at all",
+                   "<image><image> two <objs> and <objs>", "<objs> first"):
+        assert (ttok.tokenizer_image_region_token(prompt, tok)
+                == jtok.tokenizer_image_region_token(prompt, tok))
+        assert ttok.tokenizer_image_token(prompt, tok) == jtok.tokenizer_image_token(prompt, tok)
+    for region, size, target in (([60.0, 40.0, 300.0, 260.0], (448, 336), (224, 224)),
+                                 ([0, 0, 10, 10], (10, 20), (336, 336))):
+        assert (ttok.preprocess_region(region, size, target)
+                == jtok.preprocess_region(region, size, target))
+    img = np.random.RandomState(0).randint(0, 256, (5, 9, 3), np.uint8)
+    np.testing.assert_array_equal(ttok.expand2square_array(img, (1, 2, 3)),
+                                  jtok.expand2square_array(img, (1, 2, 3)))
+    ids = tok("a b c ###").input_ids
+    ts, js = ttok.KeywordStopper(["###"], tok, 0), jtok.KeywordStopper(["###"], tok, 0)
+    for n in range(1, len(ids) + 1):
+        assert ts.should_stop(ids[:n]) == js.should_stop(ids[:n])
+
+
+@pytest.mark.parametrize("layout", ["image", "video", "region", "text_only", "mixed"])
+def test_plan_splice_matches_jax_package(layout):
+    from vitron_tpu.mm import splice as jsplice
+
+    I, O = tconst.IMAGE_TOKEN_INDEX, tconst.OBJS_TOKEN_INDEX
+    rows, kinds, kw = {
+        "image": ([[1, 5, I, 6, 7]], ["image"], {}),
+        "video": ([[1] + [I] * 4 + [9, 9]], ["video"], {"num_video_frames": 4}),
+        "region": ([[1, I, 5, O, 6], [1, 2, I, O]], ["image", "image"],
+                   {"labels": [[-100, 3, 4, 5, 6], [1, 2, 3, 4]]}),
+        "text_only": ([[1, 2, 3], [4, 5]], ["image"], {"padding_side": "left"}),
+        "mixed": ([[1, I, 2, I, I, O, 3]], ["image", "video"],
+                  {"num_video_frames": 2, "max_len": 20}),
+    }[layout]
+    got = tsplice.plan_splice(rows, kinds, 32, image_len=3, **kw)
+    want = jsplice.plan_splice(rows, kinds, 32, image_len=3, **kw)
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name), getattr(want, f.name), f.name)
+
+
+def test_sketch_helpers_match_jax_package():
+    from vitron_tpu.mm import sketch as jsketch
+
+    m = np.zeros((20, 30), bool)
+    m[5:10, 8:16] = True
+    m[12, 2] = True
+    for mask in (m, np.zeros((4, 4), bool)):
+        assert tsketch.mask_to_bbox(mask) == jsketch.mask_to_bbox(mask)
+    np.testing.assert_array_equal(tsketch.bbox_to_mask([2, 3, 9.7, 15], (20, 30)),
+                                  jsketch.bbox_to_mask([2, 3, 9.7, 15], (20, 30)))
+    states = []
+    for mod in (tsketch, jsketch):
+        st = mod.ImageBoxState((20, 30))
+        st.add_stroke(m)
+        st.add_box([1, 1, 4, 4])
+        states.append((st.boxes[:], st.merged_mask()))
+    assert states[0][0] == states[1][0]
+    np.testing.assert_array_equal(states[0][1], states[1][1])
+    assert tsketch.order_pick_k(list(range(10)), 4) == jsketch.order_pick_k(list(range(10)), 4)

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, out, part, B, R, C, splits, is_bf16, stream
     "vt_group_norm_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, K, TH, TW, is_bf16, stream
+    "vt_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

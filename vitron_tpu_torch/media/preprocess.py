@@ -10,14 +10,15 @@ resample whose kernel is widened by the downscale factor (antialiasing).
 `F.interpolate` uses another cubic (a = -0.75) and no antialias for
 bicubic, so the resample is ported as such: the per-axis weight matrices
 are built in numpy exactly as JAX builds them (float32) and applied with
-two einsums.
+two einsums. `_resize_hw` also serves SEEM's resizes (images, stroke and
+attention masks), with `antialias=False` where the JAX code turns it off.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from vitron_tpu.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, VISION_IMAGE_SIZE
+from vitron_tpu_torch.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, VISION_IMAGE_SIZE
 
 
 def uniform_frame_indices(num_total: int, num_frames: int) -> np.ndarray:
@@ -38,12 +39,13 @@ def _triangle(x: np.ndarray) -> np.ndarray:
 _KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
 
 
-def _weight_mat(in_size: int, out_size: int, method: str) -> np.ndarray:
+def _weight_mat(in_size: int, out_size: int, method: str, antialias: bool = True) -> np.ndarray:
     """[in_size, out_size] float32 resample weights, as
-    jax.image.compute_weight_mat(antialias=True) builds them."""
+    jax.image.compute_weight_mat builds them (a shrink widens the kernel by
+    the scale only with antialias)."""
     f32 = np.float32
     inv = 1.0 / (out_size / in_size)  # a Python float, as in JAX
-    inv_scale, kernel_scale = f32(inv), f32(max(inv, 1.0))
+    inv_scale, kernel_scale = f32(inv), f32(max(inv, 1.0) if antialias else 1.0)
     sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
     w = _KERNELS[method](x).astype(f32)
@@ -54,14 +56,15 @@ def _weight_mat(in_size: int, out_size: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(f32)
 
 
-def _resize_hw(img: torch.Tensor, nh: int, nw: int, method: str) -> torch.Tensor:
+def _resize_hw(img: torch.Tensor, nh: int, nw: int, method: str,
+               antialias: bool = True) -> torch.Tensor:
     """Separable resample of [..., H, W, C] to [..., nh, nw, C]."""
     h, w = img.shape[-3], img.shape[-2]
     if h != nh:
-        wh = torch.from_numpy(_weight_mat(h, nh, method)).to(img.device, img.dtype)
+        wh = torch.from_numpy(_weight_mat(h, nh, method, antialias)).to(img.device, img.dtype)
         img = torch.einsum("...hwc,hH->...Hwc", img, wh)
     if w != nw:
-        ww = torch.from_numpy(_weight_mat(w, nw, method)).to(img.device, img.dtype)
+        ww = torch.from_numpy(_weight_mat(w, nw, method, antialias)).to(img.device, img.dtype)
         img = torch.einsum("...hwc,wW->...hWc", img, ww)
     return img
 

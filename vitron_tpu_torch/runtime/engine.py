@@ -2,8 +2,8 @@
 
 Port of `vitron_tpu/runtime/engine.py`: conversation prompt -> sentinel
 tokenization -> splice plan -> generate -> structured-output parse. The
-prompt, tokenization, planning and parsing helpers are the JAX package's
-own numpy host modules, imported as they are.
+prompt, tokenization, planning and parsing helpers are the port's own
+copies of the JAX package's numpy host modules.
 """
 from __future__ import annotations
 
@@ -13,17 +13,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vitron_tpu.constants import (
+from vitron_tpu_torch.constants import (
     IMAGE_FEATURE_LENGTH,
     IMAGE_TOKEN_INDEX,
     NUM_VIDEO_FRAMES,
     OBJS_TOKEN_INDEX,
     REGION_FEATURE_LENGTH,
 )
-from vitron_tpu.mm.conversation import conv_templates
-from vitron_tpu.mm.protocol import parse_model_output
-from vitron_tpu.mm.splice import SplicePlan, plan_splice
-from vitron_tpu.mm.tokenization import KeywordStopper, tokenizer_image_region_token
+from vitron_tpu_torch.mm.conversation import conv_templates
+from vitron_tpu_torch.mm.protocol import parse_model_output
+from vitron_tpu_torch.mm.splice import SplicePlan, plan_splice
+from vitron_tpu_torch.mm.tokenization import KeywordStopper, tokenizer_image_region_token
 from vitron_tpu_torch.runtime.generation import Generator, SamplingConfig, has_packed_int4
 
 PAD_BUCKET = 128  # prefill length is rounded up to a multiple of this

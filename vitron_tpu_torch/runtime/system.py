@@ -1,33 +1,170 @@
-"""VitronSystem: the multimodal assistant's chat turn, end to end.
+"""VitronSystem: the multimodal assistant's chat turn and task backends.
 
-Port of the chat half of `vitron_tpu/runtime/system.py` (:444-513):
-`prepare` (media preprocessing + prompt assembly on the host), then
-`chat_prepared` (the model, then protocol routing). Routing uses the JAX
-package's `BackendRegistry`. Of the task backends, A (image generation) and
-C (image editing) are ported (`register_gligen`, :252-347); a tool call for
-a backend not registered is answered as unavailable, as the JAX system
-answers it. C's SEEM-chained branch waits for the SEEM backend.
+Port of `vitron_tpu/runtime/system.py`: `prepare` (media preprocessing +
+prompt assembly on the host), then `chat_prepared` (the model, then protocol
+routing through the port's `runtime/router.py`). Of the task backends, B
+(image segmentation) and E (video tracking) run on SEEM (`register_seem`,
+:57-250), A (image generation) and C (image editing) on GLIGEN
+(`register_gligen`, :252-347); C's edit mask comes from SEEM when no sketch
+and no region is given. A tool call for a backend not registered is answered
+as unavailable, as the JAX system answers it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from vitron_tpu.mm.sketch import mask_to_bbox
-from vitron_tpu.mm.tokenization import preprocess_region
-from vitron_tpu.runtime.router import (BackendRegistry, TaskRequest, parse_region_boxes,
-                                       route_model_output)
-from vitron_tpu_torch.media.preprocess import preprocess_image, preprocess_video
+from vitron_tpu_torch.media import visualize as vz
+from vitron_tpu_torch.media.preprocess import _resize_hw, preprocess_image, preprocess_video
+from vitron_tpu_torch.mm.sketch import mask_to_bbox
+from vitron_tpu_torch.mm.tokenization import preprocess_region
 from vitron_tpu_torch.runtime.engine import MediaItem, VitronEngine
 from vitron_tpu_torch.runtime.generation import SamplingConfig
+from vitron_tpu_torch.runtime.router import (BackendRegistry, TaskRequest, parse_region_boxes,
+                                             route_model_output)
+
+
+def _resize_linear(x, h: int, w: int) -> torch.Tensor:
+    """[..., H, W] float32 (numpy or tensor) -> [..., h, w], as
+    jax.image.resize(..., "linear") with its default antialiasing."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return _resize_hw(x[..., None], h, w, "linear")[..., 0]
 
 
 class VitronSystem:
     def __init__(self, engine: VitronEngine):
         self.engine = engine
         self.registry = BackendRegistry()
+        # speech-to-text hook for audio-referred segmentation: any object
+        # with .transcribe(audio) -> {"text": str}; none is ported yet
+        self.asr = None
+        self._seem_text_mask = None
+
+    def register_seem(self, seem_params, seem_cfg, tokenizer, compute_dtype: str = "float32"):
+        """B image_segmentation, E video_tracking, and the mask half of C
+        image_editing (app.py:114-155, 158-212, 243-273) on a SEEM param tree.
+
+        compute_dtype="bfloat16" serves the backbone + pixel decoder in bf16
+        (weights cast once here; decoder and language stay float32)."""
+        from vitron_tpu_torch.models.seem import decoder as seem_dec
+        from vitron_tpu_torch.models.seem import language as seem_lang
+        from vitron_tpu_torch.models.seem import model as seem_model
+        from vitron_tpu_torch.models.seem import postprocess as pp
+
+        if compute_dtype != "float32":
+            seem_cfg = dataclasses.replace(seem_cfg, compute_dtype=compute_dtype)
+            seem_params = seem_model.cast_tower_params(seem_params, getattr(torch, compute_dtype))
+        device = seem_params["lang"]["token_emb"].device
+        size = seem_cfg.input_size
+        ctx_len = seem_cfg.lang.context_length
+
+        def model_input(pixels) -> torch.Tensor:
+            """uint8 [..., H, W, 3] -> [..., size, size, 3] uint8 on the device:
+            the antialiased linear resize, truncated back to uint8."""
+            x = torch.as_tensor(np.asarray(pixels), dtype=torch.float32, device=device)
+            return _resize_hw(x, size, size, "linear").to(torch.uint8)
+
+        def tokens(text: str):
+            ids = seem_lang.tokenize(tokenizer, [text], ctx_len)
+            return (torch.as_tensor(ids, device=device),
+                    torch.as_tensor((np.asarray(ids) != 0).astype(np.int64), device=device))
+
+        def stroke_points(sketch_mask):
+            stroke = _resize_linear(np.asarray(sketch_mask, np.float32), size, size) > 0.5
+            pts, valid = seem_dec.sample_stroke_points(
+                stroke.numpy(), seem_cfg.decoder.max_spatial_len, np.random.RandomState(0))
+            return torch.as_tensor(pts, device=device), torch.as_tensor(valid, device=device)
+
+        def upsampled(mask, hw) -> np.ndarray:
+            return seem_model.upsample_mask(mask, hw).cpu().numpy()
+
+        bank_cache: list = []
+
+        def class_bank() -> torch.Tensor:
+            """COCO class bank (133 classes + a 'background' no-object row),
+            embedded once (demo_code/app.py:69-71)."""
+            if not bank_cache:
+                ids, n_t = seem_lang.class_prompt_ids(
+                    tokenizer, list(pp.COCO_PANOPTIC_CLASSES) + ["background"], seem_cfg.lang)
+                bank_cache.append(seem_lang.class_embeddings_from_ids(
+                    seem_params["lang"], seem_cfg.lang, torch.as_tensor(ids, device=device), n_t))
+            return bank_cache[0]
+
+        def text_mask(image: np.ndarray, phrase: str) -> np.ndarray:
+            mask, _ = seem_model.segment_text(seem_params, seem_cfg, model_input(image),
+                                              *tokens(phrase))
+            return upsampled(mask, image.shape[:2])
+
+        def annotated(image, mask, label):
+            """Overlay as the reference Visualizer draws it (draw_binary_mask
+            + class text)."""
+            img = np.asarray(image)
+            if img.dtype != np.uint8:
+                img = np.clip(img, 0, 255).astype(np.uint8)
+            return vz.draw_binary_mask(img, np.asarray(mask), color=vz.COLORS[0], text=label,
+                                       alpha=0.5)
+
+        def handle_b(req: TaskRequest) -> Dict[str, Any]:
+            if req.image is None:
+                return {"status": "error", "error": "image_segmentation needs an image"}
+            if req.extra.get("audio") is not None and not req.extra.get("audio_transcript"):
+                # raw audio -> transcript through the installed ASR hook
+                # (reference interactive.py:105-109)
+                if self.asr is None:
+                    return {"status": "error",
+                            "error": "audio input but no ASR hook installed (set system.asr)"}
+                req.extra["audio_transcript"] = self.asr.transcribe(req.extra["audio"])["text"]
+            hw = req.image.shape[:2]
+            if req.sketch_mask is not None:
+                mask, _ = seem_model.segment_stroke(seem_params, seem_cfg, model_input(req.image),
+                                                    *stroke_points(req.sketch_mask))
+                up = upsampled(mask, hw)
+                return {"mask": up, "overlay": annotated(req.image, up, None)}
+            if req.extra.get("audio_transcript"):
+                # the transcript routes through the decoder's audio token group
+                transcript = req.extra["audio_transcript"]
+                mask, _ = seem_model.segment_audio(seem_params, seem_cfg, model_input(req.image),
+                                                   *tokens(transcript))
+                up = upsampled(mask, hw)
+                return {"mask": up, "transcript": transcript,
+                        "overlay": annotated(req.image, up, transcript)}
+            phrase = ((req.instructions or [req.text or ""])[0] or "").strip()
+            if not phrase:
+                # 'segment all': no referring text and no stroke runs the
+                # panoptic pass (app.py:131-136, task=[])
+                logits, masks = seem_model.segment_panoptic(seem_params, seem_cfg,
+                                                             model_input(req.image), class_bank())
+                masks = _resize_hw(masks[..., None], size, size, "linear")[..., 0]
+                pan, segments = pp.panoptic_inference(logits.cpu().numpy(), masks.cpu().numpy(),
+                                                      pp.COCO_THING_IDS)
+                h, w = hw
+                yi = (np.arange(h) * pan.shape[0]) // h
+                xi = (np.arange(w) * pan.shape[1]) // w
+                pan_up = pan[yi[:, None], xi[None, :]]
+                img8 = np.clip(np.asarray(req.image), 0, 255).astype(np.uint8)
+                overlay, labels = vz.draw_panoptic(img8, pan_up, segments,
+                                                   class_names=pp.COCO_PANOPTIC_CLASSES)
+                return {"panoptic": pan_up, "segments": segments, "labels": labels,
+                        "overlay": overlay}
+            m = text_mask(req.image, phrase)
+            return {"mask": m, "overlay": annotated(req.image, m, phrase)}
+
+        def handle_e(req: TaskRequest) -> Dict[str, Any]:
+            if req.video is None or req.sketch_mask is None:
+                return {"status": "error", "error": "video_tracking needs a video and a stroke"}
+            frames = np.stack([np.asarray(f) for f in req.video]).astype(np.float32)
+            fr = model_input(frames)
+            masks = seem_model.track_video(seem_params, seem_cfg, fr, fr[0],
+                                           *stroke_points(req.sketch_mask)).cpu().numpy()
+            raw = np.clip(frames, 0, 255).astype(np.uint8)
+            return {"masks": masks, "overlay_frames": vz.masks_to_video_overlay(raw, masks)}
+
+        self._seem_text_mask = text_mask
+        self.registry.register("B", handle_b)
+        self.registry.register("E", handle_e)
 
     def register_gligen(self, pipeline):
         """A image_generation and C image_editing on a `GligenPipeline`."""
@@ -77,6 +214,22 @@ class VitronSystem:
                 norm = norm_boxes(req.region)
                 phrases = texts[: len(norm)] or [prompt]
                 keep = outside(norm)
+            elif self._seem_text_mask is not None:
+                # SEEM segments each phrase; the masks are OR-ed, each gives
+                # a box, and everything outside the merged mask is kept
+                # (app.py:176-186)
+                merged = np.zeros((h, w), bool)
+                norm, phrases = [], []
+                for t in texts:
+                    seg = self._seem_text_mask(req.image, t).astype(bool)
+                    merged |= seg
+                    bb = mask_to_bbox(seg)
+                    if bb is not None:
+                        norm.append([bb[0] / w, bb[1] / h, bb[2] / w, bb[3] / h])
+                        phrases.append(t)
+                if not norm:
+                    norm, phrases = [[0.25, 0.25, 0.75, 0.75]], texts[:1]
+                keep = (_resize_linear(merged, lat, lat) < 0.5).numpy().astype(np.float32)
             else:
                 norm = [[0.25, 0.25, 0.75, 0.75]]
                 phrases = texts[:1]
@@ -116,31 +269,33 @@ class VitronSystem:
 
     def chat_prepared(self, prepared: Dict[str, Any], sketch_mask: Optional[np.ndarray] = None,
                       history=None, sampling: SamplingConfig = SamplingConfig(),
-                      gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                      gen: Optional[torch.Generator] = None,
+                      extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Device half: generate, then route the reply's tool call if any."""
         reply = self.engine.chat(prepared["msg"], media=prepared["media"],
                                  region_boxes=prepared["region_boxes"], history=history,
                                  sampling=sampling, gen=gen)
         result = self.route(reply["raw"], image=prepared["image"], video=prepared["video"],
-                            sketch_mask=sketch_mask)
+                            sketch_mask=sketch_mask, extra=extra)
         result["reply"] = reply
         return result
 
     def route(self, raw: str, image: Optional[np.ndarray] = None,
-              video: Optional[np.ndarray] = None,
-              sketch_mask: Optional[np.ndarray] = None) -> Dict[str, Any]:
+              video: Optional[np.ndarray] = None, sketch_mask: Optional[np.ndarray] = None,
+              extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Parse a model reply and run its tool call on the registered
-        backends (the chat's second half, also callable on a reply alone)."""
+        backends (the chat's second half, also callable on a reply alone).
+        `extra` carries task inputs such as "audio" / "audio_transcript"."""
         return route_model_output(self.registry, raw, image=image, video=video,
-                                  sketch_mask=sketch_mask)
+                                  sketch_mask=sketch_mask, extra=extra)
 
     def chat(self, user_message: str, image: Optional[np.ndarray] = None,
              video: Optional[np.ndarray] = None, sketch_mask: Optional[np.ndarray] = None,
              region_box: Optional[list] = None, history=None,
              sampling: SamplingConfig = SamplingConfig(),
-             gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """One turn: preprocess media, run the model, route any tool call.
-        (Task extras such as audio arrive with the backends that read them.)"""
+             gen: Optional[torch.Generator] = None,
+             extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """One turn: preprocess media, run the model, route any tool call."""
         prepared = self.prepare(user_message, image=image, video=video, region_box=region_box)
         return self.chat_prepared(prepared, sketch_mask=sketch_mask, history=history,
-                                  sampling=sampling, gen=gen)
+                                  sampling=sampling, gen=gen, extra=extra)
