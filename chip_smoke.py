@@ -20,7 +20,15 @@ Phases (any failure exits non-zero and prints no `ok` line):
 5. kernel vs plain at FocalNet-L's shapes: depthwise_conv2d (the 16
    (stage, k) sites at 512^2 and a ragged shape, float32 and bf16), device
    times from CUDA-graph replay, beside F.conv2d(groups=C).
-   Every kernel row of phases 3-5 prints its bound (bytes once at
+5b. kernel vs plain at the task-D path's shapes, float32 and bf16, at the
+   four (N, C, heads) levels of the t2v block plan (2 x 24 frames):
+   temporal_conv_k3 (beside cuDNN's F.conv2d with a (3, 1) filter),
+   frame_attention (beside scaled_dot_product_attention on [B N, H, F, D]),
+   geglu_ff at C 512/1024/2048, group_norm_sums at every [B, R, C] that
+   one UNet call and the VAE decode of 24 frames give it (from the block
+   plan and the VAE config; also run twice for identical bits), and
+   flash_attention at the VAE decode's [24, 2880, 1, 512].
+   Every kernel row of phases 3-5b prints its bound (bytes once at
    3.35 TB/s or FLOP at the peak for the type, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
 6. the chat slice at full width: VitronSystem.chat on Vicuna-7B with random
@@ -62,11 +70,26 @@ Phases (any failure exits non-zero and prints no `ok` line):
    reduced depth (FocalNet depths 1/1/1/1 with all four focal levels, 2
    encoder, decoder and language layers, 256^2): mask logits, the matched
    query and the flipped cross-attention-mask bits.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+15. task D at full width: `Text2VideoConfig()` (UNetSD_T2V, SD VAE, CLIP
+   text 1024 wide, float32, 24 frames at 320x576, guidance 9) with random
+   weights (zero leaves filled), a fixed protocol reply routed to the port's
+   `handle_d`, TASK_D_STEPS DDIM-v steps, twice: identical, finite,
+   non-constant frames; launch counts of all five kernels against the block
+   plan; request time, ms per CFG UNet call, VAE decode ms, peak memory.
+16. the bf16 CFG video UNet step at bench.py's `bench_video_unet` shape
+   ([2, 24, 40, 72, 4] latents, [2, 77, 1024] context):
+   `video_unet_cfg_steps_per_s` and `video_unet_mfu` (the block plan's FLOP
+   against 989 TFLOP/s).
+17. the video path on the CPU and the card: one float32 CFG-batch t2v UNet
+   call at the real widths but two levels (512/1024), 8 frames, 16x16
+   latents.
+The line before the last is a JSON object with one entry per kernel (with
+its launches on each main path); the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import statistics
@@ -613,7 +636,7 @@ def phase_task_c_seem(torch, card: str, pipe, seem_params, cfg):
     system = seem_system(torch, cfg, seem_params, short)
     ucfg9 = dataclasses.replace(gcfg.unet, in_channels=9)
     unet = unet_counts(ucfg9, gcfg.latent_size, gcfg.max_objs, gcfg.text.max_length)
-    enc, dec = vae_counts(gcfg.vae, gcfg.latent_size)
+    enc, dec = vae_counts(gcfg.vae, gcfg.latent_size ** 2)
     want = {k: (gcfg.steps + 1) * unet[k] + enc[k] + dec[k] for k in unet}
     want["depthwise_conv2d"] = 0
     for k, v in seem_counts(cfg).items():
@@ -717,19 +740,139 @@ def unet_counts(ucfg, latent: int, n_objs: int, n_ctx: int) -> dict:
     return counts
 
 
-def vae_counts(vcfg, latent: int):
+def vae_counts(vcfg, pixels: int):
     """(encode, decode) kernel launches: group norm twice per ResNet, once in
     the mid attention, once at the output; flash in the mid attention, which
-    runs at the latent size."""
+    runs at the latent's `pixels`."""
     from vitron_tpu_torch.models.diffusion.layers import _flash_min
 
     levels = len(vcfg.channel_mult)
-    flash = int(latent * latent >= _flash_min())
+    flash = int(pixels >= _flash_min())
     enc = {"flash_attention": flash, "geglu_ff": 0,
            "group_norm_sums": 2 * (levels * vcfg.num_res_blocks + 2) + 2}
     dec = {"flash_attention": flash, "geglu_ff": 0,
            "group_norm_sums": 2 * (levels * (vcfg.num_res_blocks + 1) + 2) + 2}
     return enc, dec
+
+
+def video_plan(ucfg, lh: int, lw: int):
+    """(entry, latent pixels at that entry) for every entry of the video
+    UNet's block plan at an lh x lw latent."""
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import block_plan
+
+    h, w = lh, lw
+    input_plan, middle_plan, output_plan = block_plan(ucfg)
+    for entries in input_plan + [middle_plan] + output_plan:
+        for e in entries:
+            if e[0] == "down":
+                h, w = (h + 1) // 2, (w + 1) // 2
+            yield e, h * w
+            if e[0] == "up":
+                h, w = 2 * h, 2 * w
+
+
+def video_sites(ucfg, lh: int, lw: int):
+    """(pixels N, width C, heads) of each temporal-transformer level, widest
+    first: where B6 (the res blocks' Co), B7 and B3 run."""
+    return sorted({(n, e[1], e[2]) for e, n in video_plan(ucfg, lh, lw) if e[0] == "tattn"},
+                  reverse=True)
+
+
+def video_counts(ucfg, lh: int, lw: int, n_ctx: int) -> dict:
+    """Kernel launches of one video UNet call, from the block plan: four
+    temporal convs and six group norms per res block (two of its own, four
+    in its temporal conv block), two frame attentions per temporal
+    transformer, GEGLU and one group norm in every transformer, flash at a
+    spatial site whose query and key lengths reach VITRON_FLASH_MIN, and the
+    output group norm."""
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
+
+    fmin = _flash_min()
+    counts = {"temporal_conv_k3": 0, "frame_attention": 0, "geglu_ff": 0,
+              "group_norm_sums": 1, "flash_attention": 0}
+    for e, n in video_plan(ucfg, lh, lw):
+        if e[0] == "res":
+            counts["temporal_conv_k3"] += 4
+            counts["group_norm_sums"] += 6
+        elif e[0] in ("sattn", "tattn"):
+            counts["group_norm_sums"] += 1
+            counts["geglu_ff"] += 1
+            if e[0] == "tattn":
+                counts["frame_attention"] += 2
+            else:
+                counts["flash_attention"] += int(n >= fmin) + int(n >= fmin and n_ctx >= fmin)
+    return counts
+
+
+def video_gn_shapes(ucfg, lh: int, lw: int, batch: int, frames: int) -> collections.Counter:
+    """[B, R, C] of every group-norm-sums launch of one video UNet call, with
+    its count, from the block plan: a res block's norm1 [B F, N, cin] and
+    norm2 [B F, N, cout] and its temporal conv block's four [B, F N, cout],
+    a spatial transformer's [B F, N, C], a temporal one's [B, F N, C], and
+    the output norm [B F, lh lw, dim]."""
+    bf = batch * frames
+    shapes = collections.Counter({(bf, lh * lw, ucfg.dim): 1})
+    for e, n in video_plan(ucfg, lh, lw):
+        if e[0] == "res":
+            shapes[(bf, n, e[1])] += 1
+            shapes[(bf, n, e[2])] += 1
+            shapes[(batch, frames * n, e[2])] += 4
+        elif e[0] == "sattn":
+            shapes[(bf, n, e[1])] += 1
+        elif e[0] == "tattn":
+            shapes[(batch, frames * n, e[1])] += 1
+    return shapes
+
+
+def vae_decode_gn_shapes(vcfg, lh: int, lw: int, batch: int) -> collections.Counter:
+    """[B, R, C] of every group-norm-sums launch of one VAE decode of
+    [batch, lh, lw, z] latents, with its count: the mid ResNets' four and the
+    mid attention's one at the top width, each level's ResNets (norm1 at
+    their input width, norm2 at their output width, 4x the rows after each
+    upsampling), and the output norm."""
+    bc = vcfg.base_channels
+    ch, rows = vcfg.channel_mult[-1] * bc, lh * lw
+    shapes = collections.Counter({(batch, rows, ch): 5})
+    for li, mult in reversed(list(enumerate(vcfg.channel_mult))):
+        for _ in range(vcfg.num_res_blocks + 1):
+            shapes[(batch, rows, ch)] += 1
+            ch = mult * bc
+            shapes[(batch, rows, ch)] += 1
+        if li != 0:
+            rows *= 4
+    shapes[(batch, rows, bc)] += 1
+    return shapes
+
+
+def video_unet_flops(ucfg, lh: int, lw: int, frames: int, batch: int, n_ctx: int) -> int:
+    """Multiply-add FLOP (2 per MAC) of one video UNet call, from the block
+    plan: every conv, projection, feed-forward, temporal conv and attention
+    product (norms and elementwise work left out)."""
+    bf = batch * frames
+    flops = 2 * 9 * ucfg.dim * ucfg.out_dim * bf * lh * lw  # the out conv
+    for e, n in video_plan(ucfg, lh, lw):
+        m = bf * n
+        if e[0] == "conv_in":
+            flops += 2 * 9 * e[1] * e[2] * m
+        elif e[0] == "res":
+            cin, cout = e[1], e[2]
+            flops += 2 * 9 * (cin + cout) * cout * m + 2 * batch * ucfg.embed_dim * cout
+            flops += 2 * cin * cout * m if cin != cout else 0
+            flops += 4 * 2 * 3 * cout * cout * m  # the temporal conv block
+        elif e[0] in ("sattn", "tattn"):
+            ch, inner = e[1], (e[3] if e[0] == "tattn" else e[1])
+            flops += 2 * 2 * m * ch * inner + 24 * m * inner * inner  # proj in/out, GEGLU
+            if e[0] == "tattn":  # two frame self-attentions
+                flops += 2 * (4 * 2 * m * inner * inner + 2 * 2 * batch * n * frames ** 2 * inner)
+            else:  # self-attention over n tokens, cross-attention to n_ctx
+                flops += 4 * 2 * m * inner * inner + 2 * 2 * bf * n * n * inner
+                flops += 2 * 2 * m * inner * inner + 2 * 2 * bf * n_ctx * ucfg.context_dim * inner
+                flops += 2 * 2 * bf * n * n_ctx * inner
+        elif e[0] == "down":
+            flops += 2 * 9 * e[1] * e[1] * m
+        elif e[0] == "up":
+            flops += 2 * 9 * e[1] * e[1] * 4 * m
+    return flops
 
 
 def diffusion_kernels():
@@ -780,7 +923,7 @@ def phase_task_a(torch, card: str, pipe):
     system = VitronSystem(None)
     system.register_gligen(pipe)
     unet = unet_counts(cfg.unet, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
-    _, dec = vae_counts(cfg.vae, cfg.latent_size)
+    _, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
     calls = cfg.steps + 1  # PLMS: Heun's second call on the first step
     want = {k: calls * unet[k] + dec[k] for k in unet}
     kernels = diffusion_kernels()
@@ -836,7 +979,7 @@ def phase_task_c(torch, card: str, pipe):
     system.register_gligen(short)
     ucfg9 = dataclasses.replace(cfg.unet, in_channels=9)
     unet = unet_counts(ucfg9, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
-    enc, dec = vae_counts(cfg.vae, cfg.latent_size)
+    enc, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
     want = {k: (cfg.steps + 1) * unet[k] + enc[k] + dec[k] for k in unet}
     kernels = diffusion_kernels()
     image = np.random.RandomState(1).randint(0, 256, (480, 640, 3), np.uint8)
@@ -929,6 +1072,407 @@ def phase_unet_cpu_vs_card(torch, card: str, cfg, dev):
         check(n_flash == want_flash[name], f"{n_flash} flash launches, expected "
               f"{want_flash[name]}")
         check(rel <= UNET_CPU_GPU_TOL[name], f"diffusion CPU and card disagree ({name}): {rel}")
+
+
+VIDEO_LATENT = (40, 72)  # 320x576 frames over the SD VAE's factor 8
+VIDEO_FRAMES = 24
+# max |kernel - plain| / max |plain|: float32 sums in another order; in bf16
+# one rounding of the output on each side
+VIDEO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TASK_D_REPLY = ("<module>D</module><instruction>a red car driving along a coastal road at "
+                "sunset</instruction>")
+# DDIM-v steps of the smoke's task-D request (the reference runs 50): at ~2.5 s
+# per float32 CFG UNet call, two requests of 10 steps take ~50 s; a divisor of
+# 1000, so the sampler runs exactly this many steps
+TASK_D_STEPS = 10
+VIDEO_BF16_STEPS = 5
+
+
+def video_kernels():
+    from vitron_tpu_torch.kernels import temporal_attention as ta
+    from vitron_tpu_torch.kernels import temporal_conv as tc
+
+    return {"temporal_conv_k3": tc, "frame_attention": ta, **diffusion_kernels()}
+
+
+def rel_err(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / want.float().abs().max().item()
+
+
+def phase_video_kernels(torch, card: str):
+    """The task-D path's kernels against their plain versions at every shape
+    the path gives them, float32 and bf16, on the same inputs: the temporal
+    conv (B6) and frame attention (B7) at the four (N, C, heads) levels of
+    the t2v block plan (CFG batch 2 x 24 frames), GEGLU (B3) at those
+    levels' rows, group-norm sums (B8) at every [B, R, C] of one UNet call
+    and of the VAE decode of the 24 frames (each also run twice for the
+    same bits), flash (B2) at the VAE decode's mid attention
+    [24, 2880, 1, 512]. Each row: error, device time of the kernel and of
+    the library call (CUDA-graph replay) where one PyTorch call computes the
+    same function (layout copies made outside the timed region), the plain
+    version's (CUDA events where its float32 temporaries would fill a
+    graph's pool), and the bound."""
+    import torch.nn.functional as F
+
+    from vitron_tpu_torch.kernels import flash_attention as fa
+    from vitron_tpu_torch.kernels import geglu_ff as gf
+    from vitron_tpu_torch.kernels import group_norm as gn
+    from vitron_tpu_torch.kernels import temporal_attention as ta
+    from vitron_tpu_torch.kernels import temporal_conv as tc
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    t2v = Text2VideoConfig()
+    check(t2v.latent_hw == VIDEO_LATENT and t2v.num_frames == VIDEO_FRAMES,
+          f"Text2VideoConfig() latents {t2v.latent_hw} x {t2v.num_frames} frames")
+    rows = {"tconv": [], "tattn": [], "geglu_video": [], "gn_video": [], "flash_vae": []}
+    b, f = 2, VIDEO_FRAMES
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def peak(dtype):
+        return "fp32" if dtype == f32 else "bf16_tensor"
+
+    for n, c, heads in video_sites(t2v.unet, *VIDEO_LATENT):
+        m = b * f * n
+        x32 = torch.randn((b, f, n, c), generator=g, device=dev)
+        w32 = torch.randn((3, c, c), generator=g, device=dev) / (3 * c) ** 0.5
+        b32 = 0.1 * torch.randn((c,), generator=g, device=dev)
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[-1]
+            x, w, bias = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+            got = tc.temporal_conv_k3(x, w, bias)
+            want = tc.temporal_conv_k3_plain(x, w, bias)
+            err, rel = rel_err(got, want)
+            # cuDNN: a (3, 1) filter over the [B, C, F, N] view, padded on F
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            wc = w.permute(2, 1, 0)[..., None].contiguous()
+            lib = F.conv2d(xc, wc, bias, padding=(1, 0)).permute(0, 2, 3, 1)
+            _, lib_rel = rel_err(lib, want)
+            ms = graph_ms(torch, lambda: tc.temporal_conv_k3(x, w, bias), calls=3)
+            plain_ms = cuda_ms(torch, lambda: tc.temporal_conv_k3_plain(x, w, bias), iters=5)
+            lib_ms = graph_ms(torch, lambda: F.conv2d(xc, wc, bias, padding=(1, 0)), calls=3)
+            flops = 6 * c * c * m
+            r = row(err, rel, ms, plain_ms, nbytes(x, w, bias, got), flops, peak(dtype), lib_ms)
+            print(f"temporal_conv_k3 [{b},{f},{n},{c}] Co={c} {name}: rel_err={rel:.3e} kernel "
+                  f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s) plain {plain_ms:.4f} "
+                  f"ms {bound_text(r)} (F.conv2d (3,1) filter, rel {lib_rel:.1e}; kernel and "
+                  f"library graph-replayed) [{card}]",
+                  flush=True)
+            check(rel <= VIDEO_TOL[name], f"temporal_conv_k3 N={n} C={c} {name} rel err {rel}")
+            rows["tconv"].append(r)
+            del got, want, lib, xc, wc
+        del x32, w32
+
+        d = c // heads
+        qkv32 = [torch.randn((b, f, n, c), generator=g, device=dev) for _ in range(3)]
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[-1]
+            q, k, v = (t.to(dtype) for t in qkv32)
+            got = ta.frame_attention(q, k, v, heads, d ** -0.5)
+            want = ta.frame_attention_plain(q, k, v, heads, d ** -0.5)
+            err, rel = rel_err(got, want)
+            qt, kt, vt = (t.reshape(b, f, n, heads, d).permute(0, 2, 3, 1, 4)
+                          .reshape(b * n, heads, f, d).contiguous() for t in (q, k, v))
+            ms = graph_ms(torch, lambda: ta.frame_attention(q, k, v, heads, d ** -0.5))
+            plain_ms = graph_ms(torch, lambda: ta.frame_attention_plain(q, k, v, heads,
+                                                                         d ** -0.5), calls=2)
+            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            r = row(err, rel, ms, plain_ms, nbytes(q, k, v, got), 4 * b * n * heads * f * f * d,
+                    peak(dtype), lib_ms)
+            print(f"frame_attention [{b},{f},{n},{c}] heads={heads} D={d} {name}: rel_err="
+                  f"{rel:.3e} kernel {ms:.4f} ms ({nbytes(q, k, v, got) / (ms * 1e-3) / 1e9:.0f} "
+                  f"GB/s) plain {plain_ms:.4f} ms {bound_text(r)} (scaled_dot_product_attention "
+                  f"on [B N, H, F, D]; graph-replayed device times) [{card}]", flush=True)
+            check(rel <= VIDEO_TOL[name], f"frame_attention N={n} C={c} {name} rel err {rel}")
+            rows["tattn"].append(r)
+            del got, want, qt, kt, vt
+        del qkv32
+
+        fh = 4 * c
+        ff32 = [torch.randn(s_, generator=g, device=dev) * sc for s_, sc in (
+            ((m, c), 1.0), ((c, 2 * fh), c ** -0.5), ((2 * fh,), 0.1), ((fh, c), fh ** -0.5),
+            ((c,), 0.1))]
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[-1]
+            args = [t.to(dtype) for t in ff32]
+            got = gf.geglu_ff(*args)
+            want = gf.geglu_ff_plain(*args)
+            err, rel = rel_err(got, want)
+            ms = graph_ms(torch, lambda: gf.geglu_ff(*args), calls=2)
+            plain_ms = cuda_ms(torch, lambda: gf.geglu_ff_plain(*args), iters=3, warmup=1)
+            flops = 6 * m * c * fh
+            # two products and a gelu: no single PyTorch call, no library time
+            r = row(err, rel, ms, plain_ms, nbytes(*args, got), flops, peak(dtype))
+            print(f"geglu_ff M={m} C={c} F={fh} {name}: rel_err={rel:.3e} kernel {ms:.4f} ms "
+                  f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, graph-replayed) plain "
+                  f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+            check(rel <= GEGLU_TOL[name], f"geglu_ff M={m} C={c} {name} rel err {rel}")
+            rows["geglu_video"].append(r)
+            del got, want, args
+        del ff32
+
+    # B8 at every shape of one CFG UNet call and of the decode of the frames
+    unet_gn = video_gn_shapes(t2v.unet, *VIDEO_LATENT, b, f)
+    vae_gn = vae_decode_gn_shapes(t2v.vae, *VIDEO_LATENT, f)
+    want_n = (video_counts(t2v.unet, *VIDEO_LATENT, t2v.text.max_length)["group_norm_sums"],
+              vae_counts(t2v.vae, VIDEO_LATENT[0] * VIDEO_LATENT[1])[1]["group_norm_sums"])
+    check((sum(unet_gn.values()), sum(vae_gn.values())) == want_n,
+          f"group-norm shapes {sum(unet_gn.values())}, {sum(vae_gn.values())} != counts {want_n}")
+    for shape in sorted(unet_gn.keys() | vae_gn.keys()):
+        x32 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[-1]
+            x = x32.to(dtype)
+            got, again = gn.group_norm_sums(x), gn.group_norm_sums(x)
+            want = gn.group_norm_sums_plain(x)
+            err, rel = rel_err(got, want)
+            ms = graph_ms(torch, lambda: gn.group_norm_sums(x), calls=5)
+            plain_ms = cuda_ms(torch, lambda: gn.group_norm_sums_plain(x), iters=3, warmup=1)
+            lib_ms = graph_ms(torch, lambda: torch.var_mean(x, dim=1, correction=0), calls=5)
+            r = row(err, rel, ms, plain_ms, nbytes(x, got), 3 * x.numel(), "fp32", lib_ms)
+            print(f"group_norm_sums {list(shape)} {name} (x{unet_gn[shape]} a UNet call, "
+                  f"x{vae_gn[shape]} a decode; {gn._splits(*shape)} row splits): rel_err={rel:.3e} "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms, same bits twice="
+                  f"{bool(torch.equal(got, again))} {bound_text(r)} (kernel and library "
+                  f"graph-replayed) [{card}]", flush=True)
+            check(rel <= GN_TOL and bool(torch.equal(got, again)),
+                  f"group_norm_sums {list(shape)} {name}: rel err {rel} or not deterministic")
+            rows["gn_video"].append(r)
+            del x, got, again, want
+        del x32
+
+    lh, lw = VIDEO_LATENT
+    q, k, v = (torch.randn((VIDEO_FRAMES, lh * lw, 1, 512), generator=g, device=dev).to(bf16)
+               for _ in range(3))
+    call = dict(causal=False, softmax_shift=0.0)
+    got = fa.flash_attention(q, k, v, **call)
+    err, rel = rel_err(got, fa.flash_attention_plain(q, k, v, **call))
+    ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v, **call), calls=2)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=3)
+    flops = 4 * VIDEO_FRAMES * (lh * lw) ** 2 * 512
+    r = row(err, rel, ms, plain_ms, 4 * nbytes(q), flops, "bf16_tensor", sdpa_ms(torch, q, k, v))
+    print(f"flash_attention vae [{VIDEO_FRAMES},{lh * lw},1,512] bf16 non-causal shift 0: "
+          f"abs_err={err:.3e} kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"graph-replayed) "
+          f"plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+    check(err <= FLASH_TOL, f"flash_attention VAE D=512 abs err {err} > {FLASH_TOL}")
+    rows["flash_vae"].append(r)
+    del q, k, v, got
+
+    return rows
+
+
+def build_t2v(torch, cfg, device, seed: int):
+    """T2V pipeline (float32, random weights with every zero leaf filled)."""
+    from vitron_tpu_torch.models.diffusion import clip_text, unet_sd_video, vae
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoPipeline
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    unet = fill_zero_leaves(unet_sd_video.init_params(g, cfg.unet, device), g)
+    vae_p = fill_zero_leaves(vae.init_params(g, cfg.vae, device), g)
+    text = fill_zero_leaves(clip_text.init_params(g, cfg.text, device), g)
+    return Text2VideoPipeline(cfg, unet, vae_p, text,
+                              tokenizer=StubClipTokenizer(cfg.text.vocab_size))
+
+
+def phase_task_d(torch, card: str, pipe):
+    """A routed task-D reply, twice: `cfg.steps` DDIM-v steps of one CFG UNet
+    call each, then the VAE decode of the frames. Identical frames both
+    times, finite latent and decoded frames before the uint8 cast,
+    non-constant frames, and launches of every kernel equal to the block
+    plan's count x steps plus the VAE decode's. Then one CFG UNet call and
+    one VAE decode at the request's shapes, timed alone."""
+    from vitron_tpu_torch.models.diffusion import clip_text, vae
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    cfg = pipe.cfg
+    system = VitronSystem(None)
+    system.register_text2video(pipe)
+    lh, lw = cfg.latent_hw
+    per_call = video_counts(cfg.unet, lh, lw, cfg.text.max_length)
+    _, dec = vae_counts(cfg.vae, lh * lw)
+    want = {k: cfg.steps * per_call[k] + dec.get(k, 0) for k in per_call}
+    kernels = video_kernels()
+    decoded = []
+    decode = vae.decode
+
+    def recorded_decode(params, vcfg, z):
+        out = decode(params, vcfg, z)
+        decoded.append((bool(torch.isfinite(z).all()), bool(torch.isfinite(out).all()),
+                        z.float().std().item(), out.float().abs().max().item()))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    vae.decode = recorded_decode
+    try:
+        for i in range(2):
+            for mod in kernels.values():
+                mod.launches = 0
+            out, t_req = timed_route(torch, system, TASK_D_REPLY)
+            launches = expect_launches(kernels, want, f"task D run {i + 1}")
+            check(out["status"] == "ok" and out["task"] == "video_generation",
+                  f"task D: status {out['status']}, {out.get('error')}")
+            video = out["video"]
+            z_ok, frames_ok, z_std, fmax = decoded[-1]
+            check(video.shape == (cfg.num_frames, cfg.height, cfg.width, 3)
+                  and video.dtype == np.uint8, f"task D video {video.shape} {video.dtype}")
+            check(z_ok and frames_ok, "task D: non-finite latent or decoded frames")
+            check(int(video.max()) != int(video.min()), "task D: the frames are constant")
+            runs.append(video)
+            print(f"task D run {i + 1}: request {t_req:.3f} s ({cfg.steps} DDIM-v steps), video "
+                  f"{video.shape} mean {video.mean():.2f} std {video.std():.2f}; final latent std "
+                  f"{z_std:.3f}, decoded max |x| {fmax:.3f} before the clamp, finite [{card}]",
+                  flush=True)
+    finally:
+        vae.decode = decode
+    check(np.array_equal(runs[0], runs[1]), "task D: two identical requests gave other frames")
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    ids = pipe.tokenize(["a red car", ""])
+    v_fn = pipe.v_fn(clip_text.encode(pipe.text_params, cfg.text, ids))
+    g = torch.Generator(device=pipe.device).manual_seed(5)
+    x = torch.randn((1, cfg.num_frames, lh, lw, cfg.unet.in_dim), generator=g,
+                    device=pipe.device)
+    unet_ms = cuda_ms(torch, lambda: v_fn(x, 501), iters=3, warmup=1)
+    vae_ms = cuda_ms(torch, lambda: vae.decode(pipe.vae_params, cfg.vae, x[0]), iters=2,
+                     warmup=1)
+    video_breakdown(torch, card, lambda: v_fn(x, 501), unet_ms)
+    print(f"task D: request {t_req:.3f} s ({cfg.steps} CFG UNet calls at {unet_ms:.2f} ms = "
+          f"{cfg.steps * unet_ms / 1e3:.3f} s, VAE decode of {cfg.num_frames} frames "
+          f"{vae_ms:.2f} ms, the rest {t_req - cfg.steps * unet_ms / 1e3 - vae_ms / 1e3:.3f} s), "
+          f"peak memory {peak_mem / 2**30:.2f} GiB (float32 UNetSD_T2V, 320x576, "
+          f"{cfg.num_frames} frames) [{card}]", flush=True)
+    return launches
+
+
+# device kernels of a video UNet call by what launched them: the port's
+# GEMM template (mode 1 = B6's temporal conv, 0 and 2 = B3's two products,
+# plus its split-K reduction), B7, B8, cuDNN's convolutions, cuBLAS's
+# products (projections, attention einsums), and the rest (PyTorch's
+# elementwise and reduction kernels); the first pattern that matches counts
+VIDEO_KERNEL_GROUPS = (
+    ("B6 temporal_conv_k3", r"gemm_(f32|bf16_tc)_kernel<1\b"),
+    ("B3 geglu_ff", r"gemm_(f32|bf16_tc)_kernel<[02]\b|split_k_reduce"),
+    ("B7 frame_attention", r"frame_attention_kernel"),
+    ("B8 group_norm_sums", r"gn_sums_kernel|gn_split_reduce"),
+    ("convolutions (cuDNN)", r"conv|implicit|cudnn|fprop|winograd"),
+    ("products (cuBLAS)", r"gemm|cutlass"))
+
+
+def video_breakdown(torch, card: str, call, unprofiled_ms: float):
+    """Where one CFG video UNet call's device time goes: a torch.profiler
+    trace of the call, its kernels' device time summed by group and by name,
+    and the device's busy share of the unprofiled call."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+              if e.device_type == cuda}
+    busy = sum(dev_ms.values())
+    groups = {name: 0.0 for name, _ in VIDEO_KERNEL_GROUPS}
+    groups["the rest"] = 0.0
+    for key, ms in dev_ms.items():
+        name = next((n for n, pat in VIDEO_KERNEL_GROUPS if re.search(pat, key)), "the rest")
+        groups[name] += ms
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+    print(f"task D breakdown: one float32 CFG UNet call {unprofiled_ms:.1f} ms unprofiled, "
+          f"device busy {busy:.1f} ms = {busy / unprofiled_ms:.3f} of it (idle share "
+          f"{1 - busy / unprofiled_ms:.3f}); by group (ms): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in groups.items()) + f" [{card}]", flush=True)
+    print("task D device time by kernel (ms): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top),
+          flush=True)
+
+
+def phase_video_unet_bf16(torch, card: str, dev):
+    """bench.py's bench_video_unet step: x <- x - 0.01 * v over a CFG batch of
+    2 x 24 frames of 40x72 latents, bf16 params, [2, 77, 1024] context; the
+    MFU counts the block plan's FLOP against 989 TFLOP/s."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video as usv
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    cfg = usv.UNetSDVideoConfig.t2v()
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      fill_zero_leaves(usv.init_params(g, cfg, dev), g))
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    lh, lw = VIDEO_LATENT
+    x0 = torch.randn((2, VIDEO_FRAMES, lh, lw, 4), generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn((2, 77, cfg.context_dim), generator=g, device=dev).to(torch.bfloat16)
+
+    def steps(n):
+        x = x0
+        for i in range(n):
+            v = usv.forward(params, cfg, x, torch.full((2,), float(i), device=dev), y=ctx)
+            x = x - 0.01 * v.to(x.dtype)
+        return x
+
+    out = steps(2)
+    check(bool(torch.isfinite(out.float()).all()), "bf16 video UNet step gave non-finite values")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(VIDEO_BF16_STEPS)
+    torch.cuda.synchronize()
+    rate = VIDEO_BF16_STEPS / (time.perf_counter() - t0)
+    flops = video_unet_flops(cfg, lh, lw, VIDEO_FRAMES, 2, 77)
+    mfu = flops * rate / PEAK_FLOPS["bf16_tensor"]
+    print(f"video_unet_cfg_steps_per_s={rate:.4f} video_unet_mfu={mfu:.4f} (bf16 UNetSD_T2V, "
+          f"{n_params / 1e9:.3f}B params counted in the built tree, CFG batch 2 x "
+          f"{VIDEO_FRAMES} frames, 40x72 latents, {VIDEO_BF16_STEPS} steps after 2; "
+          f"{flops / 1e12:.2f} TFLOP a step from the block plan, against 989 TFLOP/s) [{card}]",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rate
+
+
+def phase_video_cpu_vs_card(torch, card: str):
+    """One float32 CFG-batch call of the t2v UNet at its real widths but
+    reduced depth (two levels, 512 and 1024 channels), 8 frames and 16x16
+    latents, on the CPU and on the card: B6 at C 512/1024, B7 at 8 and 16
+    heads, B3 at C 512/1024 on the card."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video as usv
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    cfg = usv.UNetSDVideoConfig.t2v(dim_mult=(1, 2))
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(12)
+    params = fill_zero_leaves(usv.init_params(g, cfg, cpu), g)
+    x = torch.randn((2, 8, 16, 16, 4), generator=g)
+    t = torch.tensor([501.0, 501.0])
+    ctx = torch.randn((2, 77, cfg.context_dim), generator=g)
+    t0 = time.perf_counter()
+    want = usv.forward(params, cfg, x, t, y=ctx)
+    print(f"video cpu-vs-card: cpu forward {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    kernels = video_kernels()
+    for mod in kernels.values():
+        mod.launches = 0
+    got = usv.forward(tree_map(lambda a: a.to(dev), params), cfg, x.to(dev), t.to(dev),
+                      y=ctx.to(dev)).cpu()
+    expect_launches(kernels, video_counts(cfg, 16, 16, 77), "video cpu-vs-card")
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"video cpu-vs-card: float32 t2v UNet (levels 512/1024, 8 frames, 16x16 latents) "
+          f"rel_err={rel:.3e} (limit {CPU_GPU_TOL}), max |v| {want.abs().max().item():.3f} "
+          f"[{card}]", flush=True)
+    check(rel <= CPU_GPU_TOL, f"video UNet CPU and card disagree: {rel}")
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def random_int4_llm(torch, params, gen, device, scale=None):
@@ -1095,6 +1639,7 @@ def main() -> int:
         rows = phase_kernels(torch, card)
         rows.update(phase_diffusion_kernels(torch, card))
         rows.update(phase_seem_kernels(torch, card))
+        rows.update(phase_video_kernels(torch, card))
         chat = phase_slice(torch, card)
         phase_cpu_vs_card(torch, card)
         from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
@@ -1129,6 +1674,20 @@ def main() -> int:
         phase_unet_cpu_vs_card(torch, card, UNetConfig.sd_v1(
             channel_mult=(1,), num_res_blocks=1, attention_resolutions=(1,)), dev)
         phase_seem_cpu_vs_card(torch, card)
+        from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+
+        t0 = time.perf_counter()
+        pipe = build_t2v(torch, Text2VideoConfig(steps=TASK_D_STEPS), dev, seed=0)
+        torch.cuda.synchronize()
+        n_unet = sum(t.numel() for t in tree_leaves(pipe.unet_params))
+        print(f"t2v: UNetSD_T2V ({n_unet / 1e9:.3f}B params), SD VAE, CLIP text (1024 wide), "
+              f"float32 random weights built on the card in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        task_d = phase_task_d(torch, card, pipe)
+        del pipe
+        torch.cuda.empty_cache()
+        phase_video_unet_bf16(torch, card, dev)
+        phase_video_cpu_vs_card(torch, card)
 
     def entry(name, source, replaces, key, launches, paths):
         r = rows[key]
@@ -1147,9 +1706,12 @@ def main() -> int:
     def paths(name):
         return {"chat": chat.get(name, 0), "task_a": task_a.get(name, 0),
                 "task_c": task_c.get(name, 0), "task_b": task_b.get(name, 0),
-                "task_e": task_e.get(name, 0), "task_c_seem": task_c_seem.get(name, 0)}
+                "task_e": task_e.get(name, 0), "task_c_seem": task_c_seem.get(name, 0),
+                "task_d": task_d.get(name, 0)}
 
-    rows["flash"] += rows.pop("flash_gligen")
+    rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae")
+    rows["geglu"] += rows.pop("geglu_video")
+    rows["gn"] += rows.pop("gn_video")
     print(json.dumps({"kernels": [
         entry("int4_matmul", "vitron_tpu_torch/csrc/int4_matmul.cu",
               "vitron_tpu/kernels/int4_matmul.py:108", "int4", chat["int4_matmul"],
@@ -1166,6 +1728,12 @@ def main() -> int:
         entry("depthwise_conv2d", "vitron_tpu_torch/csrc/depthwise_conv.cu",
               "vitron_tpu/kernels/depthwise_conv.py:66", "dw", task_b["depthwise_conv2d"],
               paths("depthwise_conv2d")),
+        entry("temporal_conv_k3", "vitron_tpu_torch/csrc/temporal_conv.cu",
+              "vitron_tpu/kernels/temporal_conv.py:81", "tconv", task_d["temporal_conv_k3"],
+              paths("temporal_conv_k3")),
+        entry("frame_attention", "vitron_tpu_torch/csrc/temporal_attention.cu",
+              "vitron_tpu/kernels/temporal_attention.py:97", "tattn", task_d["frame_attention"],
+              paths("frame_attention")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

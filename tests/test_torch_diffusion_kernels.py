@@ -177,10 +177,10 @@ def test_flash_diffusion_dims_match_plain(cuda, b, s, t, h, d, dtype):
 
 @pytest.mark.cuda
 def test_unsupported_shapes_and_dtypes_raise(cuda):
-    x = torch.zeros((4, 256), device=cuda)
-    with pytest.raises(NotImplementedError, match="C=256"):
-        gf.geglu_ff(x, torch.zeros((256, 2048), device=cuda), torch.zeros(2048, device=cuda),
-                    torch.zeros((1024, 256), device=cuda), torch.zeros(256, device=cuda))
+    x = torch.zeros((4, 258), device=cuda)  # C not a multiple of 8
+    with pytest.raises(NotImplementedError, match="C=258"):
+        gf.geglu_ff(x, torch.zeros((258, 2064), device=cuda), torch.zeros(2064, device=cuda),
+                    torch.zeros((1032, 258), device=cuda), torch.zeros(258, device=cuda))
     x = torch.zeros((4, 320), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
         gf.geglu_ff(x, *(torch.zeros(s, device=cuda, dtype=torch.float16)

@@ -43,12 +43,16 @@ _SIGNATURES = {
     # use_shift, shift, is_bf16, stream
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _F, _I, _P],
-    # x, w1, b1, w2, b2, out, part, M, C, F, splits, chunks per split, is_bf16, stream
-    "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, hidden, part, out, M, C, F, splits, is_bf16, stream
+    "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out, part, B, R, C, splits, is_bf16, stream
     "vt_group_norm_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, y, B, H, W, C, K, TH, TW, is_bf16, stream
     "vt_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, y, B, F, N, C, Co, is_bf16, stream
+    "vt_temporal_conv_k3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, B, F, N, H, D, scale, is_bf16, stream
+    "vt_frame_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -150,3 +154,10 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def aligned16(t):
+    """t, or a contiguous copy of it when t is not contiguous or its data does
+    not start on a 16-byte boundary (the GEMM kernels load 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,4 +1,4 @@
-"""Fused GEGLU feed-forward: the hand CUDA kernel and its plain twin.
+"""GEGLU feed-forward: the hand CUDA kernel and its plain twin.
 
 Replaces the Pallas TPU kernel `vitron_tpu/kernels/geglu_ff.py::_kernel`
 (:45, pallas_call at :90, entry `geglu_ff_fused` :163):
@@ -10,16 +10,19 @@ Replaces the Pallas TPU kernel `vitron_tpu/kernels/geglu_ff.py::_kernel`
 with float32 products and the exact erf gelu, as the reference FeedForward
 and the JAX package's XLA form `_xla_geglu` (:113) compute it (the Pallas
 kernel used the tanh form; ROADMAP C2). The hidden tensor is cast to the
-input dtype before the second product, as both JAX forms do, and never
-reaches device memory: the kernel `csrc/geglu_ff.cu` keeps each [rows, FC]
-slice of it in shared memory. The TPU gate `geglu_ff.usable` recorded TPU
-tiling facts, so here every CUDA call launches the kernel.
+input dtype before the second product, as both JAX forms do. The TPU gate
+`geglu_ff.usable` recorded TPU tiling facts, so here every CUDA call
+launches the kernel.
 
-The kernel takes C in {320, 640, 1280} (the SD and video UNet widths) and
-F a multiple of its hidden chunk FC (32, 64, 128 at those widths), in
-float32 or bfloat16; other shapes raise.
-`geglu_ff` launches it for CUDA tensors and takes the plain version only for
-CPU tensors. `launches` counts kernel launches.
+The kernel is `csrc/geglu_ff.cu`: two tiled GEMMs, the first with the GEGLU
+epilogue writing t [M, F] in x's dtype, the second t @ W2 + b2, split over
+F when its output tiles cannot fill the card; bf16 on the tensor cores,
+float32 on the CUDA cores. Every site is bound by operations (PERF.md). It
+takes C and F that are multiples of 8: the SD UNet's widths C in
+{320, 640, 1280} and the video UNet's {512, 1024, 2048}, F = 4C.
+`geglu_ff` launches it for CUDA tensors (float32 or bfloat16) and takes the
+plain version only for CPU tensors; other shapes raise. `launches` counts
+the calls that launched the kernel (its two GEMMs count as one).
 """
 from __future__ import annotations
 
@@ -30,9 +33,9 @@ from vitron_tpu_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
-KERNEL_WIDTHS = (320, 640, 1280)
-_ACC_ELEMS = 20480       # rows x C accumulated per block (csrc kAccElems)
-_SMS = 132               # the H100's SMs; one block of this kernel fits on each
+_TILE = 128              # output rows and columns per block (csrc kBM, kBN)
+_SMS = 132               # the H100's SMs
+_MIN_SPLIT_DEPTH = 256   # hidden columns per split of the second product
 
 
 def geglu_ff_plain(x2d, proj_w, proj_b, out_w, out_b):
@@ -44,19 +47,13 @@ def geglu_ff_plain(x2d, proj_w, proj_b, out_w, out_b):
     return (t @ out_w.to(f32) + out_b.to(f32)).to(x2d.dtype)
 
 
-def _f_chunk(c: int) -> int:
-    """Hidden columns per kernel step at width c (csrc f_chunk)."""
-    return 2048 // (_ACC_ELEMS // c)
-
-
-def _split_f(m: int, c: int, f: int):
-    """(splits, chunks per split) of the hidden dim: as many blocks as fit in
-    one wave of the card, never a second, nearly empty wave."""
-    chunks = f // _f_chunk(c)
-    m_blocks = -(-m // (_ACC_ELEMS // c))
-    want = max(1, min(chunks, _SMS // m_blocks))
-    per = -(-chunks // want)
-    return -(-chunks // per), per
+def _splits(m: int, c: int, f: int) -> int:
+    """Depth splits of the second product [M, F] @ [F, C]: enough blocks for
+    two waves of the card when its output tiles are fewer than one."""
+    tiles = -(-m // _TILE) * -(-c // _TILE)
+    if tiles >= _SMS:
+        return 1
+    return max(1, min(-(-2 * _SMS // tiles), f // _MIN_SPLIT_DEPTH))
 
 
 def geglu_ff(x, proj_w, proj_b, out_w, out_b):
@@ -81,24 +78,27 @@ def geglu_ff(x, proj_w, proj_b, out_w, out_b):
                                                               for t in tensors):
         raise TypeError(f"geglu_ff: x and the weights must all be float32 or all "
                         f"bfloat16, got {[t.dtype for t in tensors]}")
-    if c not in KERNEL_WIDTHS or f == 0 or f % _f_chunk(c):
-        raise NotImplementedError(
-            f"geglu_ff: no CUDA kernel for C={c}, F={f} (C in {KERNEL_WIDTHS}, F a "
-            f"multiple of 2048 / (20480 / C))")
-    x2d = x2d.contiguous()
-    if not all(t.is_contiguous() for t in tensors[1:]):
-        raise ValueError("geglu_ff: the weights must be contiguous")
+    if c % 8 or f % 8 or f == 0:
+        raise NotImplementedError(f"geglu_ff: no CUDA kernel for C={c}, F={f} (C and F "
+                                  "multiples of 8)")
+    x2d = _build.aligned16(x2d)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (proj_w, out_w)):
+        raise ValueError("geglu_ff: W1 and W2 must be contiguous and 16-byte aligned")
+    if not (proj_b.is_contiguous() and out_b.is_contiguous()):
+        raise ValueError("geglu_ff: the biases must be contiguous")
     m = x2d.shape[0]
     out = torch.empty((m, c), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, c)
-    splits, per = _split_f(m, c, f)
+    hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    splits = _splits(m, c, f)
     part = (torch.empty((splits, m, c), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     rc = _build.lib().vt_geglu_ff(
         x2d.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(), out_w.data_ptr(),
-        out_b.data_ptr(), out.data_ptr(), part.data_ptr() if part is not None else None,
-        m, c, f, splits, per, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+        out_b.data_ptr(), hidden.data_ptr(), part.data_ptr() if part is not None else None,
+        out.data_ptr(), m, c, f, splits, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device))
     _build.check(rc, "geglu_ff")
     launches += 1
     return out.reshape(*lead, c)

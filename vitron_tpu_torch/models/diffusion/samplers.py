@@ -1,13 +1,15 @@
-"""PLMS sampling and the ldm noise schedules.
+"""Diffusion samplers and the ldm noise schedules.
 
-Port of the parts of `vitron_tpu/models/diffusion/samplers.py` that GLIGEN
-uses: the beta schedules and DDIM arrays (numpy, as in JAX), the gated-
-attention alpha schedule, `_x_prev` and `plms_sample`. The JAX `lax.scan`
-becomes a Python loop, and its `lax.switch` over the multistep order
-resolves on the host: Heun on step 0 only, then Adams-Bashforth of order
-2, 3 and 4. Step coefficients are float32 scalars computed in numpy, so the
-latent math matches the JAX float32 arithmetic. DDIM, `ddim_sample_v` and
-DPM-Solver++ wait for the video slice (ROADMAP A11).
+Port of the parts of `vitron_tpu/models/diffusion/samplers.py` that the
+ported pipelines use: the beta schedules, the zero-terminal-SNR rescale and
+the DDIM arrays (numpy, as in JAX), the gated-attention alpha schedule,
+`_x_prev` and `plms_sample` (GLIGEN), and `ddim_sample_v` (the v-prediction
+DDIM of the video pipelines). Each JAX `lax.scan` becomes a Python loop;
+PLMS's `lax.switch` over the multistep order resolves on the host: Heun on
+step 0 only, then Adams-Bashforth of order 2, 3 and 4. Step coefficients
+are float32 scalars computed in numpy, so the latent math matches the JAX
+float32 arithmetic. `ddim_sample` (eps DDIM) and DPM-Solver++(2M) are on no
+ported path and wait (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -34,6 +36,17 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start=1e-4, linear
     raise ValueError(schedule)
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Rescale so the final alphas_cumprod is exactly 0 (Lin et al.), as the
+    i2vgen / t2v configs request; needs a v-prediction model."""
+    alphas_bar_sqrt = np.sqrt(np.cumprod(1.0 - betas))
+    a0, a_t = alphas_bar_sqrt[0], alphas_bar_sqrt[-1]
+    alphas_bar_sqrt = (alphas_bar_sqrt - a_t) * (a0 / (a0 - a_t))
+    alphas_bar = alphas_bar_sqrt ** 2
+    alphas = np.concatenate([alphas_bar[:1], alphas_bar[1:] / alphas_bar[:-1]])
+    return 1.0 - alphas
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
     betas: np.ndarray
@@ -41,8 +54,10 @@ class DiffusionSchedule:
 
     @staticmethod
     def create(schedule: str = "linear", timesteps: int = 1000, linear_start: float = 0.00085,
-               linear_end: float = 0.012) -> "DiffusionSchedule":
+               linear_end: float = 0.012, zero_terminal_snr: bool = False) -> "DiffusionSchedule":
         betas = make_beta_schedule(schedule, timesteps, linear_start, linear_end)
+        if zero_terminal_snr and betas.max() != 1.0:
+            betas = rescale_zero_terminal_snr(betas)
         return DiffusionSchedule(betas, np.cumprod(1.0 - betas))
 
     @property
@@ -124,4 +139,45 @@ def plms_sample(eps_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule, num
             e_prime = (55 * e_t - 59 * old_eps[-1] + 37 * old_eps[-2] - 9 * old_eps[-3]) / 24
         x, _ = _x_prev(x, e_prime, a_t[i], a_prev[i])
         old_eps = (old_eps + [e_t])[-3:]
+    return x
+
+
+def ddim_sample_v(v_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule, num_steps: int,
+                  eta: float = 0.0, percentile: Optional[float] = None,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DDIM for a v-prediction model, descending over the timesteps
+    clip(1 + arange(0, T, T // S), 0, T - 1):
+
+      x0    = sqrt(ac_t) x - sqrt(1 - ac_t) v
+      eps   = (sqrt(1 / ac_t) x - x0) / sqrt(1 / ac_t - 1)
+      x    <- sqrt(ac_prev) x0 + sqrt(1 - ac_prev - sigma^2) eps [+ sigma noise]
+
+    `v_fn(x, t)` folds in classifier-free guidance. `percentile` is the
+    dynamic x0 clamp. With eta > 0 the noise of each step is drawn from
+    `gen` (the JAX loop draws it from its own key: the two agree only at
+    eta 0)."""
+    T = sched.num_timesteps
+    stride = T // num_steps
+    steps = np.clip(1 + np.arange(0, T, stride), 0, T - 1)[::-1].copy()
+    prev = np.clip(steps - stride, 0, None)
+    ac = np.asarray(sched.alphas_cumprod, np.float64)
+    a_t = ac[steps].astype(np.float32)
+    a_prev = ac[prev].astype(np.float32)
+    sig = (eta * np.sqrt((1 - ac[prev]) / (1 - ac[steps]) * (1 - ac[steps] / ac[prev]))
+           ).astype(np.float32)
+    one = np.float32(1.0)
+    for i, t in enumerate(steps):
+        at, ap, s = a_t[i], a_prev[i], sig[i]
+        v = v_fn(x, int(t))
+        x0 = float(np.sqrt(at)) * x - float(np.sqrt(one - at)) * v
+        if percentile is not None:
+            flat = x0.reshape(x0.shape[0], -1).abs().to(torch.float32)
+            q = torch.quantile(flat, percentile, dim=1).clamp(min=1.0)
+            q = q.reshape((-1,) + (1,) * (x0.dim() - 1)).to(x0.dtype)
+            x0 = torch.clamp(x0, -q, q) / q
+        eps_hat = (float(np.sqrt(one / at)) * x - x0) / float(np.sqrt(one / at - one))
+        x = float(np.sqrt(ap)) * x0 + float(np.sqrt(one - ap - s * s)) * eps_hat
+        if s != 0 and t != 0:
+            x = x + float(s) * torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                                           device=x.device)
     return x

@@ -5,8 +5,9 @@ prompt assembly on the host), then `chat_prepared` (the model, then protocol
 routing through the port's `runtime/router.py`). Of the task backends, B
 (image segmentation) and E (video tracking) run on SEEM (`register_seem`,
 :57-250), A (image generation) and C (image editing) on GLIGEN
-(`register_gligen`, :252-347); C's edit mask comes from SEEM when no sketch
-and no region is given. A tool call for a backend not registered is answered
+(`register_gligen`, :252-347), D (video generation) on the T2V pipeline
+(`register_text2video`, :349-357); C's edit mask comes from SEEM when no
+sketch and no region is given. A tool call for a backend not registered is answered
 as unavailable, as the JAX system answers it.
 """
 from __future__ import annotations
@@ -239,6 +240,16 @@ class VitronSystem:
 
         self.registry.register("A", handle_a)
         self.registry.register("C", handle_c)
+
+    def register_text2video(self, pipeline):
+        """D video_generation on a `Text2VideoPipeline`: the first
+        instruction (or the reply text) is the prompt."""
+
+        def handle_d(req: TaskRequest) -> Dict[str, Any]:
+            prompt = (req.instructions or [req.text])[0]
+            return {"video": pipeline.generate(prompt).cpu().numpy()}
+
+        self.registry.register("D", handle_d)
 
     def prepare(self, user_message: str, image: Optional[np.ndarray] = None,
                 video: Optional[np.ndarray] = None,
