@@ -83,6 +83,23 @@ Phases (any failure exits non-zero and prints no `ok` line):
 17. the video path on the CPU and the card: one float32 CFG-batch t2v UNet
    call at the real widths but two levels (512/1024), 8 frames, 16x16
    latents.
+18. the training kernels against their plain versions, bf16 and float32:
+   the flash forward with its LSE (B2), dK/dV (B5a) and dQ (B5b) at the
+   trainer's [2, 2048, 32, 128] (causal, right-padded kv_mask), a GQA row
+   (32 query heads on 8, q_offset 512) and a non-causal D 64 row; errors of
+   out, lse, dq, dk, dv, the same bits twice, CUDA-event times beside the
+   bound and the SDPA backward; then B1 at the trainer's M = 4096 rows and
+   the four (K, N) pairs.
+19. the LoRA trainer at full width: `Trainer.fit` on
+   `VitronConfig.serving(llm=vicuna_7b(attn_impl="flash", max_seq_len=2048))`
+   with random packed-int4 projections and lm_head and a bf16 ViT-L/14,
+   LoRA r 128 on all seven targets + projector + region extractor, AdamW
+   2e-4 with warmup-cosine, TRAIN_BATCH rows of 2048, TRAIN_STEPS steps,
+   twice from the same state: finite, equal losses; LoRA b and projector
+   still at step 1 (learning rate 0) and moved at step 2; launches = the
+   config's a step; step seconds, trained tokens/s, peak memory.
+20. training on the CPU and the card: one LoRA step's loss and gradients
+   on a 2-layer full-width float32 model with int4 projections, pad_len 512.
 The line before the last is a JSON object with one entry per kernel (with
 its launches on each main path); the last line is {"ok": true, "device":
 {...}}.
@@ -1340,7 +1357,8 @@ def phase_task_d(torch, card: str, pipe):
     unet_ms = cuda_ms(torch, lambda: v_fn(x, 501), iters=3, warmup=1)
     vae_ms = cuda_ms(torch, lambda: vae.decode(pipe.vae_params, cfg.vae, x[0]), iters=2,
                      warmup=1)
-    video_breakdown(torch, card, lambda: v_fn(x, 501), unet_ms)
+    profile_breakdown(torch, card, "task D: one float32 CFG UNet call",
+                      lambda: v_fn(x, 501), unet_ms, VIDEO_KERNEL_GROUPS)
     print(f"task D: request {t_req:.3f} s ({cfg.steps} CFG UNet calls at {unet_ms:.2f} ms = "
           f"{cfg.steps * unet_ms / 1e3:.3f} s, VAE decode of {cfg.num_frames} frames "
           f"{vae_ms:.2f} ms, the rest {t_req - cfg.steps * unet_ms / 1e3 - vae_ms / 1e3:.3f} s), "
@@ -1363,10 +1381,11 @@ VIDEO_KERNEL_GROUPS = (
     ("products (cuBLAS)", r"gemm|cutlass"))
 
 
-def video_breakdown(torch, card: str, call, unprofiled_ms: float):
-    """Where one CFG video UNet call's device time goes: a torch.profiler
-    trace of the call, its kernels' device time summed by group and by name,
-    and the device's busy share of the unprofiled call."""
+def profile_breakdown(torch, card: str, what: str, call, unprofiled_ms: float, kernel_groups):
+    """Where one call's device time goes: a torch.profiler trace of the
+    call, its kernels' device time summed by group (the first pattern of
+    `kernel_groups` that matches a kernel's name) and by name, and the
+    device's busy share of the unprofiled call."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1378,18 +1397,18 @@ def video_breakdown(torch, card: str, call, unprofiled_ms: float):
     dev_ms = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
               if e.device_type == cuda}
     busy = sum(dev_ms.values())
-    groups = {name: 0.0 for name, _ in VIDEO_KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["the rest"] = 0.0
     for key, ms in dev_ms.items():
-        name = next((n for n, pat in VIDEO_KERNEL_GROUPS if re.search(pat, key)), "the rest")
+        name = next((n for n, pat in kernel_groups if re.search(pat, key)), "the rest")
         groups[name] += ms
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
-    print(f"task D breakdown: one float32 CFG UNet call {unprofiled_ms:.1f} ms unprofiled, "
-          f"device busy {busy:.1f} ms = {busy / unprofiled_ms:.3f} of it (idle share "
-          f"{1 - busy / unprofiled_ms:.3f}); by group (ms): "
-          + "; ".join(f"{k} {v:.1f}" for k, v in groups.items()) + f" [{card}]", flush=True)
-    print("task D device time by kernel (ms): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top),
+    print(f"{what} breakdown: {unprofiled_ms:.1f} ms unprofiled, device busy {busy:.1f} ms = "
+          f"{busy / unprofiled_ms:.3f} of it (idle share {1 - busy / unprofiled_ms:.3f}); by "
+          f"group (ms): " + "; ".join(f"{k} {v:.1f}" for k, v in groups.items()) + f" [{card}]",
           flush=True)
+    print(f"{what} device time by kernel (ms): "
+          + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top), flush=True)
 
 
 def phase_video_unet_bf16(torch, card: str, dev):
@@ -1475,20 +1494,30 @@ def tree_leaves(tree):
     return [tree]
 
 
-def random_int4_llm(torch, params, gen, device, scale=None):
+def random_int4_llm(torch, params, gen, device, scale=None, zero_mean=False):
     """Replace the 7 projections and lm_head with random packed int4: bytes
     uniform in [-128, 128), as the JAX package's bench makes them. scale
     None gives each weight the init's std 1/sqrt(fan_in) (a uniform nibble
-    has std 4.61); the bench's fixed 2e-2 is ~6x that at Vicuna-7B width."""
+    has std 4.61); the bench's fixed 2e-2 is ~6x that at Vicuna-7B width.
+    zero_mean draws each nibble from [-7, 7] instead (std 4.32), as
+    `quantize_int4` emits them: a uniform byte's nibbles average -0.5, which
+    puts one offset on every output of a projection, and through the
+    residual stream that makes the second layer's attention amplify
+    rounding (PERF.md §6)."""
     llm = params["llm"]
 
     def qw(w):
         packed = tuple(w.shape[:-2]) + (w.shape[-2] // 2, w.shape[-1])
-        s = scale if scale is not None else 1.0 / (4.61 * w.shape[-2] ** 0.5)
-        return {"q4": torch.randint(-128, 128, packed, generator=gen, dtype=torch.int8,
-                                    device=device),
-                "s": torch.full(tuple(w.shape[:-2]) + (1, w.shape[-1]), s,
-                                dtype=torch.float32, device=device)}
+        if zero_mean:
+            lo, hi = (torch.randint(-7, 8, packed, generator=gen, dtype=torch.int16,
+                                    device=device) for _ in range(2))
+            q4, std = (((hi & 0xF) << 4) | (lo & 0xF)).to(torch.uint8).view(torch.int8), 4.32
+        else:
+            q4 = torch.randint(-128, 128, packed, generator=gen, dtype=torch.int8, device=device)
+            std = 4.61
+        s = scale if scale is not None else 1.0 / (std * w.shape[-2] ** 0.5)
+        return {"q4": q4, "s": torch.full(tuple(w.shape[:-2]) + (1, w.shape[-1]), s,
+                                          dtype=torch.float32, device=device)}
 
     for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
         llm["layers"][t] = qw(llm["layers"][t])
@@ -1611,6 +1640,431 @@ def phase_cpu_vs_card(torch, card: str):
     check(rel <= CPU_GPU_TOL and same, f"CPU and card disagree: rel {rel}, same argmax {same}")
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
+TRAIN_SEQ = 2048     # pad_len: the recipe's model_max_length
+TRAIN_BATCH = 2      # the recipe's 16 (trainer.py:46) cut for the smoke's time
+TRAIN_STEPS = 4
+TRAIN_REMAT = False  # per-layer recomputation; on when a step's peak would pass ~70 GB
+TRAIN_LOSS_RTOL = 1e-6  # the same step twice from the same state
+TRAIN_CPU_GPU_TOL = {"loss": 1e-4, "grad": 1e-3}  # grad: max |card - cpu| / max |cpu|
+# question and answer lengths in words (DemoTokenizer: a token a word): with
+# the 256 image tokens a row fills 1,490-1,900 of the 2,048 slots
+TRAIN_WORDS = (200, 350, 1000, 1250)
+TRAIN_KERNEL_GROUPS = (
+    ("B1 int4_matmul", r"int4_(gemm|gemv|split_reduce)_kernel"),
+    ("B2 flash forward", r"flash_fwd_kernel"),
+    ("B5a flash dK/dV", r"flash_bwd_kv_kernel"),
+    ("B5b flash dQ", r"flash_bwd_q_kernel"),
+    ("products (cuBLAS)", r"gemm|cutlass|xmma"))
+TRAIN_FLASH_CASES = [  # name, B, S, T, N, KH, D, q_offset, causal, valid slots of each row
+    ("slice", 2, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 128, 0, True, (1893, 1610)),
+    ("gqa", 2, 1024, 1536, 32, 8, 128, 512, True, (1536, 1402)),
+    ("non-causal-d64", 2, 1024, 1024, 16, 16, 64, 0, False, (1024, 899)),
+]
+
+
+def train_kernels():
+    from vitron_tpu_torch.kernels import flash_attention as fa
+    from vitron_tpu_torch.kernels import int4_matmul as i4
+
+    return fa, i4
+
+
+def reset_train_launches():
+    fa, i4 = train_kernels()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = i4.launches = 0
+
+
+def train_launches() -> dict:
+    fa, i4 = train_kernels()
+    return {"int4_matmul": i4.launches, "flash_attention": fa.launches,
+            "flash_attention_bwd_kv": fa.bwd_kv_launches,
+            "flash_attention_bwd_q": fa.bwd_q_launches}
+
+
+def train_step_launches(llm_cfg) -> dict:
+    """Kernel launches of one training step of the LLM: every projection and
+    the lm_head on B1 and every layer's attention on B2 in the forward (both
+    again under remat), B5a and B5b once a layer in the backward."""
+    again = 2 if llm_cfg.remat else 1
+    n = llm_cfg.num_layers
+    return {"int4_matmul": 7 * n * again + 1, "flash_attention": n * again,
+            "flash_attention_bwd_kv": n, "flash_attention_bwd_q": n}
+
+
+def sdpa_bwd_ms(torch, q, k, v, attn_mask, dout) -> float:
+    """F.scaled_dot_product_attention's backward on the same [B, S, N, D]
+    inputs: CUDA-event time of forward + backward minus the forward's (both
+    with grad on, so the forward keeps what its backward needs)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+    gt = dout.transpose(1, 2)
+    gqa = q.shape[2] != k.shape[2]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask, enable_gqa=gqa)
+
+    with torch.enable_grad():
+        both = cuda_ms(torch, lambda: torch.autograd.grad(fwd(), (qt, kt, vt), gt), iters=5)
+        fwd_only = cuda_ms(torch, fwd, iters=5)
+    return both - fwd_only
+
+
+def phase_train_kernels(torch, card: str):
+    """B2 with its LSE, B5a and B5b against their plain versions at the
+    trainer's attention shape [2, 2048, 32, 128] (causal, right-padded),
+    a GQA row with q_offset > 0 and a non-causal D 64 row, in bf16 and f32;
+    then B1 at the trainer's M = 4096 rows and the four (K, N) pairs."""
+    fa, i4 = train_kernels()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = {"flash_lse": [], "bwd_kv": [], "bwd_q": [], "int4_train": []}
+    for name, b, s_len, t_len, nh, kh, d, off, causal, valid in TRAIN_FLASH_CASES:
+        mask = torch.zeros((b, t_len), dtype=torch.bool, device=dev)
+        for i, n_valid in enumerate(valid):
+            mask[i, :n_valid] = True
+        visible = fa._visible(b, s_len, t_len, dev, mask, off, causal)[:, 0, 0]  # [B, S, T]
+        pairs = int(visible.sum()) * nh  # (query row, key) pairs the kernels compute
+        scale = 1.0 / d ** 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            tn = str(dtype).split(".")[1]
+            peak = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            q, dout = (torch.randn((b, s_len, nh, d), generator=g, device=dev).to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn((b, t_len, kh, d), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            args = (q, k, v, mask, off, scale, causal)
+            out, lse = fa._forward(*args, None, True)
+            out2, lse2 = fa._forward(*args, None, True)
+            want_out, want_lse = fa.flash_attention_plain(*args, None, return_lse=True)
+            delta = fa._delta(out, dout)
+            dk, dv = fa.flash_attention_bwd_kv(*args, out, lse, dout, delta)
+            dq = fa.flash_attention_bwd_q(*args, out, lse, dout, delta)
+            dk2, dv2 = fa.flash_attention_bwd_kv(*args, out, lse, dout, delta)
+            dq2 = fa.flash_attention_bwd_q(*args, out, lse, dout, delta)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in
+                       ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2)))
+            want_dk, want_dv = fa.flash_attention_bwd_kv_plain(*args, out, lse, dout)
+            want_dq = fa.flash_attention_bwd_q_plain(*args, out, lse, dout)
+            live = want_lse > -1e30
+            errs = {"out": rel_err(out, want_out), "lse": rel_err(lse[live], want_lse[live]),
+                    "dq": rel_err(dq, want_dq), "dk": rel_err(dk, want_dk),
+                    "dv": rel_err(dv, want_dv)}
+            ms_fwd = cuda_ms(torch, lambda: fa._forward(*args, None, True), iters=10)
+            ms_kv = cuda_ms(torch, lambda: fa.flash_attention_bwd_kv(*args, out, lse, dout,
+                                                                     delta), iters=10)
+            ms_q = cuda_ms(torch, lambda: fa.flash_attention_bwd_q(*args, out, lse, dout,
+                                                                   delta), iters=10)
+            plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                *args, None, return_lse=True), iters=3, warmup=1)
+            plain_kv = cuda_ms(torch, lambda: fa.flash_attention_bwd_kv_plain(
+                *args, out, lse, dout), iters=3, warmup=1)
+            plain_q = cuda_ms(torch, lambda: fa.flash_attention_bwd_q_plain(
+                *args, out, lse, dout), iters=3, warmup=1)
+            lib_bwd = sdpa_bwd_ms(torch, q, k, v, visible[:, None], dout)
+            lib_fwd = sdpa_ms(torch, q, k, v, visible[:, None])
+            row_fwd = row(max(errs["out"][0], errs["lse"][0]), max(errs["out"][1], errs["lse"][1]),
+                          ms_fwd, plain_fwd, nbytes(q, k, v, mask, out, lse),
+                          4 * d * pairs, peak, lib_fwd)
+            # B5a does 4 of the backward's products (scores, dP, dV, dK), B5b 3
+            # (scores, dP, dQ); the SDPA backward (dq, dk, dv in one call)
+            # stands beside B5a + B5b and is written on B5a's row
+            row_kv = row(max(errs["dk"][0], errs["dv"][0]), max(errs["dk"][1], errs["dv"][1]),
+                         ms_kv, plain_kv, nbytes(q, k, v, mask, dout, lse, delta, dk, dv),
+                         4 * 2 * d * pairs, peak, lib_bwd)
+            row_q = row(errs["dq"][0], errs["dq"][1], ms_q, plain_q,
+                        nbytes(q, k, v, mask, dout, lse, delta, dq), 3 * 2 * d * pairs, peak)
+            five = max(nbytes(q, k, v, mask, out, dout, lse, dq, dk, dv) / HBM_BYTES_PER_S,
+                       5 * 2 * d * pairs / PEAK_FLOPS[peak]) * 1e3
+            print(f"train flash {name} {tn} B={b} S={s_len} T={t_len} N={nh} K={kh} D={d} "
+                  f"q_offset={off} causal={causal}: rel_err "
+                  + " ".join(f"{k_}={e[1]:.3e}" for k_, e in errs.items())
+                  + f" (limit {TRAIN_TOL[tn]}), same bits twice={same}; B2+LSE {ms_fwd:.4f} ms "
+                  f"plain {plain_fwd:.4f} {bound_text(row_fwd)}; B5a {ms_kv:.4f} ms plain "
+                  f"{plain_kv:.4f} {bound_text(row_kv)}; B5b {ms_q:.4f} ms plain {plain_q:.4f} "
+                  f"{bound_text(row_q)}; B5a+B5b {ms_kv + ms_q:.4f} ms against the five "
+                  f"products' bound {five:.4f} ms and the SDPA backward {lib_bwd:.4f} ms "
+                  f"[{card}]", flush=True)
+            check(all(e[1] <= TRAIN_TOL[tn] for e in errs.values()),
+                  f"train flash {name} {tn}: {errs}")
+            check(same, f"train flash {name} {tn}: two runs gave other bits")
+            rows["flash_lse"].append(row_fwd)
+            rows["bwd_kv"].append(row_kv)
+            rows["bwd_q"].append(row_q)
+            del q, k, v, dout, out, lse, out2, lse2, dq, dk, dv, dq2, dk2, dv2
+            del want_out, want_lse, want_dq, want_dk, want_dv
+            torch.cuda.empty_cache()
+
+    m = TRAIN_BATCH * TRAIN_SEQ
+    for k, n in INT4_SHAPES:
+        q4 = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8, device=dev)
+        s = torch.rand((1, n), generator=g, device=dev) * 0.02 + 0.01
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        got = i4.int4_matmul(x, q4, s)
+        err, rel = rel_err(got, i4.int4_matmul_plain(x, q4, s))
+        ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), iters=5)
+        plain_ms = cuda_ms(torch, lambda: i4.int4_matmul_plain(x, q4, s), iters=5)
+        r = row(err, rel, ms, plain_ms, nbytes(x, q4, s, got), 2 * m * k * n, "bf16_tensor")
+        print(f"int4_matmul M={m} K={k} N={n}: rel_err={rel:.3e} kernel {ms:.4f} ms "
+              f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.4f} ms "
+              f"{bound_text(r)} [{card}]", flush=True)
+        check(rel <= INT4_TOL, f"int4_matmul M={m} K={k} N={n} rel err {rel} > {INT4_TOL}")
+        rows["int4_train"].append(r)
+        del q4, s, x, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_dataset(path, n: int, seed: int, words):
+    """A JSON of n image conversations in DemoTokenizer words: a question of
+    words[0]-words[1] words and an answer of words[2]-words[3]."""
+    rs = np.random.RandomState(seed)
+
+    def text(lo, hi):
+        return " ".join(f"w{x}" for x in rs.randint(0, 5000, rs.randint(lo, hi)))
+
+    items = [{"conversations": [{"from": "human", "value": "<image>\n" + text(*words[:2])},
+                                {"from": "gpt", "value": text(*words[2:])}],
+              "image": f"img_{i}.png"} for i in range(n)]
+    path.write_text(json.dumps(items))
+    return path
+
+
+def train_media_loader(seed: int, size: int):
+    """kind, path -> a random 336x336 image (from seed and the file's index)
+    through the port's preprocessing ([size, size, 3] float32)."""
+    from vitron_tpu_torch.media.preprocess import preprocess_image
+
+    def load(kind, path):
+        i = int(path.rsplit("_", 1)[1].split(".")[0])
+        pixels = np.random.RandomState(seed + i).randint(0, 256, (336, 336, 3), np.uint8)
+        return preprocess_image(pixels, size)
+
+    return load
+
+
+def phase_train(torch, card: str):
+    """The LoRA trainer at full width: Trainer.fit on VitronConfig.serving
+    (Vicuna-7B, packed int4 projections and lm_head, flash attention;
+    bf16 ViT-L/14), LoRA r 128 over the seven targets plus the projector and
+    the region extractor, AdamW with warmup-cosine, TRAIN_BATCH rows of
+    TRAIN_SEQ, TRAIN_STEPS steps, twice from the same state."""
+    import gc
+    import pathlib
+    import tempfile
+
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.models import vitron_model
+    from vitron_tpu_torch.models.llm.llama import LlamaConfig
+    from vitron_tpu_torch.models.vitron_model import VitronConfig
+    from vitron_tpu_torch.train.data import SupervisedDataset
+    from vitron_tpu_torch.train.trainer import TrainConfig, Trainer, make_lora_train_step
+
+    dev = torch.device("cuda")
+    cfg = VitronConfig.serving(llm=LlamaConfig.vicuna_7b(
+        attn_impl="flash", max_seq_len=TRAIN_SEQ, remat=TRAIN_REMAT))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = random_int4_llm(torch, vitron_model.init_params(gen, cfg, dev), gen, dev)
+    del base["video_tower"]  # image conversations only
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"train: Vicuna-7B int4 + ViT-L/14 bf16 random weights built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, pad_len=TRAIN_SEQ, save_steps=10 ** 9)
+
+    class CountingTrainer(Trainer):
+        """Records each batch's real and supervised token counts."""
+
+        def _build_batch(self, *a, **kw):
+            batch = super()._build_batch(*a, **kw)
+            self.tokens.append((int(batch["attn_mask"].sum()),
+                                int((batch["labels"] != -100).sum())))
+            return batch
+
+    def run(tmp):
+        tr = CountingTrainer(cfg, tc, base, str(pathlib.Path(tmp) / "out"),
+                             gen=torch.Generator(device=dev).manual_seed(1))
+        tr.tokens = []
+        proj0 = tr.trainable["projector"]["w2"].detach().clone()
+        seen, clock = [], [time.perf_counter()]
+
+        def after_step(step, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            b_max = max(float(ab["b"].detach().abs().max())
+                        for ab in tr.trainable["lora"].values())
+            moved = not torch.equal(tr.trainable["projector"]["w2"], proj0)
+            seen.append((step, loss, now - clock[0], b_max, moved))
+            clock[0] = now
+
+        ds = SupervisedDataset(str(train_dataset(pathlib.Path(tmp) / "train.json",
+                                                 TRAIN_BATCH * TRAIN_STEPS, 0, TRAIN_WORDS)),
+                               DemoTokenizer(), model_max_length=TRAIN_SEQ)
+        t_fit = time.perf_counter()
+        losses = tr.fit(ds, train_media_loader(100, cfg.image_tower.image_size),
+                        total_steps=TRAIN_STEPS, log_every=10 ** 9, callback=after_step)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        return tr, losses, seen, fit_s
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        reset_train_launches()
+        tr, losses, seen, fit_s = run(tmp)
+        launches = train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        tokens = tr.tokens
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr2, losses2, _, _ = run(tmp)
+        step_fn = make_lora_train_step(cfg, tc, tr2.optimizer)
+        ds = SupervisedDataset(str(pathlib.Path(tmp) / "train.json"), DemoTokenizer(),
+                               model_max_length=TRAIN_SEQ)
+        loader = train_media_loader(100, cfg.image_tower.image_size)
+
+        def one_step():
+            step_fn(tr2.trainable, base, tr2._build_batch(ds, [0, 1], loader, None))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        profile_breakdown(torch, card, "train: one LoRA step (2 x 2048)", one_step,
+                          (time.perf_counter() - t0) * 1e3, TRAIN_KERNEL_GROUPS)
+        del tr2, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_step = train_step_launches(cfg.llm)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    step_s = [x[2] for x in seen[1:]]  # steps 2..: the first holds the optimizer's set-up
+    mean_s = statistics.mean(step_s)
+    tok_s = statistics.mean(t for t, _ in tokens[1:]) / mean_s
+    for step, loss, sec, b_max, moved in seen:
+        print(f"train: step {step} loss {loss:.6f} {sec:.3f} s, max |lora b| {b_max:.3e}, "
+              f"projector moved {moved}", flush=True)
+    print(f"train: losses {losses} then {losses2}; launches {launches} (expected {want}: "
+          f"{per_step} a step); step {mean_s:.3f} s (steps 2-{TRAIN_STEPS}: "
+          f"{', '.join(f'{x:.3f}' for x in step_s)}), {tok_s:.1f} trained tokens/s "
+          f"(real tokens a step {[t for t, _ in tokens]}, supervised {[l for _, l in tokens]}),"
+          f" fit {fit_s:.1f} s with the final save, peak memory {peak / 2**30:.2f} GiB, "
+          f"remat {cfg.llm.remat} [{card}]", flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(losses2)), "training losses not finite")
+    check(all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) for a, b in zip(losses, losses2)),
+          f"the same steps twice gave other losses: {losses} vs {losses2}")
+    check(seen[0][3] == 0.0 and not seen[0][4],
+          "step 1 (learning rate 0 at the warmup's start) moved the LoRA b or the projector")
+    check(seen[1][3] > 0.0 and seen[1][4], "step 2 left the LoRA b or the projector unmoved")
+    check(launches == want, f"training launches {launches} != {want}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fan_in_scaled(tower):
+    """A random tower with its stacked [L, in, out] matrices rescaled from
+    the init's N(0, 1/L) (`dense_init` takes shape[0] as the fan-in, as the
+    JAX package does) to N(0, 1/in). At the init's scale the random ViT-L is
+    chaotic: float32 rounding in another order moves its features far more
+    than rounding, so no two devices could agree downstream of it."""
+    def fix(t):
+        return t * (t.shape[0] / t.shape[1]) ** 0.5 if t.dim() == 3 else t
+
+    return {**tower, "layers": tree_map(fix, tower["layers"])}
+
+
+def train_cpu_vs_card_setup(torch):
+    """(cfg, params, trainable, train config) of the training CPU-vs-card
+    check, built on the CPU from a CPU generator: Vicuna-7B at full width
+    cut to 2 layers, float32, zero-mean random int4 projections and lm_head;
+    the ViT-L/14 at full depth with fan-in-scaled weights (`fan_in_scaled`);
+    float32 LoRA factors with B nonzero (B = 0 would make every dA zero)."""
+    from vitron_tpu_torch.models import vitron_model
+    from vitron_tpu_torch.models.llm.llama import LlamaConfig
+    from vitron_tpu_torch.models.vision.vit import ViTConfig
+    from vitron_tpu_torch.models.vitron_model import VitronConfig
+    from vitron_tpu_torch.train.lora import init_lora_params
+    from vitron_tpu_torch.train.trainer import TrainConfig
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    cfg = VitronConfig(
+        llm=LlamaConfig.vicuna_7b(num_layers=2, attn_impl="flash", max_seq_len=1024,
+                                  param_dtype=f32, compute_dtype=f32),
+        image_tower=ViTConfig.clip_vit_l14(), video_tower=ViTConfig.video_vit_l14())
+    gen = torch.Generator().manual_seed(11)
+    params = random_int4_llm(torch, vitron_model.init_params(gen, cfg, cpu), gen, cpu,
+                             zero_mean=True)
+    del params["video_tower"]  # image conversations only
+    params["image_tower"] = fan_in_scaled(params["image_tower"])
+    tc = TrainConfig(batch_size=2, pad_len=512, save_steps=10 ** 9)
+    lora = {name: {"a": ab["a"].to(f32), "b": 0.02 * torch.randn(ab["b"].shape, generator=gen)}
+            for name, ab in init_lora_params(gen, params["llm"], tc.lora).items()}
+    return cfg, params, {"lora": lora, "projector": params["projector"],
+                         "region": params["region"]}, tc
+
+
+def phase_train_cpu_vs_card(torch, card: str):
+    """One LoRA step's loss and gradients on the CPU and the card, from the
+    same CPU-built state (`train_cpu_vs_card_setup`), at pad_len 512."""
+    import pathlib
+    import tempfile
+
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.train.data import SupervisedDataset
+    from vitron_tpu_torch.train.train_step import named_leaves
+    from vitron_tpu_torch.train.trainer import Trainer, make_lora_loss
+
+    cfg, params, trainable, tc = train_cpu_vs_card_setup(torch)
+    losses, grads = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SupervisedDataset(str(train_dataset(pathlib.Path(tmp) / "d.json", 2, 1,
+                                                 words=(40, 60, 100, 140))),
+                               DemoTokenizer(), model_max_length=512)
+        for name, device in (("cuda", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda a: a.to(device), params)
+            tr = Trainer(cfg, tc, p, tmp, trainable=tree_map(lambda a: a.to(device), trainable))
+            batch = tr._build_batch(ds, [0, 1], train_media_loader(200, cfg.image_tower.image_size),
+                                    None)
+            if name == "cuda":
+                reset_train_launches()
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                loss = make_lora_loss(cfg, tc)(tr.trainable, p, batch)
+                loss.backward()
+            if name == "cuda":
+                torch.cuda.synchronize()
+                launches = train_launches()
+            losses[name] = float(loss.detach())
+            grads[name] = {".".join(path): t.grad.float().cpu()
+                           for path, t in named_leaves(tr.trainable) if t.grad is not None}
+            print(f"train cpu-vs-card: {name} loss and gradients {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            del p, tr, batch, loss
+    want = train_step_launches(cfg.llm)
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    check(grads["cuda"].keys() == grads["cpu"].keys(), "the two sides hold other gradients")
+    grad_rel = {k: ((grads["cuda"][k] - g).abs().max() / g.abs().max()).item()
+                for k, g in grads["cpu"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"train cpu-vs-card: 2-layer full-width float32 LoRA step at pad_len 512, loss "
+          f"{losses['cpu']:.6f} rel_err={loss_rel:.3e} (limit {TRAIN_CPU_GPU_TOL['loss']}), "
+          f"{len(grad_rel)} gradients, worst {worst} rel_err={grad_rel[worst]:.3e}, median "
+          f"{statistics.median(grad_rel.values()):.3e} (limit {TRAIN_CPU_GPU_TOL['grad']}), "
+          f"region extractor gradient "
+          f"{'absent' if not any(k.startswith('region') for k in grad_rel) else 'present'}; "
+          f"launches {launches} (expected {want}) [{card}]", flush=True)
+    check(loss_rel <= TRAIN_CPU_GPU_TOL["loss"], f"training loss CPU vs card: {loss_rel}")
+    check(grad_rel[worst] <= TRAIN_CPU_GPU_TOL["grad"], f"gradient {worst}: {grad_rel[worst]}")
+    check(launches == want, f"cpu-vs-card launches {launches} != {want}")
+
+
 def main() -> int:
     card = nvidia_smi_line()
     print(card, flush=True)
@@ -1688,6 +2142,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_video_unet_bf16(torch, card, dev)
         phase_video_cpu_vs_card(torch, card)
+    train_rows = phase_train_kernels(torch, card)
+    rows["flash"] += train_rows.pop("flash_lse")
+    rows["int4"] += train_rows.pop("int4_train")
+    rows.update(train_rows)
+    train = phase_train(torch, card)
+    phase_train_cpu_vs_card(torch, card)
 
     def entry(name, source, replaces, key, launches, paths):
         r = rows[key]
@@ -1707,7 +2167,7 @@ def main() -> int:
         return {"chat": chat.get(name, 0), "task_a": task_a.get(name, 0),
                 "task_c": task_c.get(name, 0), "task_b": task_b.get(name, 0),
                 "task_e": task_e.get(name, 0), "task_c_seem": task_c_seem.get(name, 0),
-                "task_d": task_d.get(name, 0)}
+                "task_d": task_d.get(name, 0), "train": train.get(name, 0)}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae")
     rows["geglu"] += rows.pop("geglu_video")
@@ -1734,6 +2194,16 @@ def main() -> int:
         entry("frame_attention", "vitron_tpu_torch/csrc/temporal_attention.cu",
               "vitron_tpu/kernels/temporal_attention.py:97", "tattn", task_d["frame_attention"],
               paths("frame_attention")),
+        dict(entry("flash_attention_bwd_kv", "vitron_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "vitron_tpu/kernels/flash_attention.py:429", "bwd_kv",
+                   train["flash_attention_bwd_kv"], paths("flash_attention_bwd_kv")),
+             library_is="F.scaled_dot_product_attention's backward (dq, dk and dv in one "
+                        "call), beside B5a + B5b"),
+        dict(entry("flash_attention_bwd_q", "vitron_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "vitron_tpu/kernels/flash_attention.py:450", "bwd_q",
+                   train["flash_attention_bwd_q"], paths("flash_attention_bwd_q")),
+             library_is="none alone: the SDPA backward, which also gives dk and dv, stands "
+                        "on flash_attention_bwd_kv's entry"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ conv blocks are identities and the temporal transformers add nothing, and a
 parity check would pass while testing nothing. Inputs are numpy arrays from
 a seeded RandomState. Tolerances, max |port - JAX| / max |JAX|: 1e-5 for a
 module in float32, 1e-3 for the whole UNet and the pipeline body in float32
-(the order of float32 sums through ~20 layers), 2e-2 in bf16; frames agree
-to within 1 uint8 level.
+(the order of float32 sums through ~20 layers), 2e-2 for a module in bf16
+and 4e-2 for the whole bf16 UNet against JAX's float32 forward (measured,
+`BF16_UNET_TOL`); frames agree to within 1 uint8 level.
 """
 import numpy as np
 import pytest
@@ -220,6 +221,34 @@ def test_unet_forward_matches_jax(unets, fps):
                         fps=jnp.asarray(fr))
     assert np.abs(np.asarray(want)).max() > 0.1  # a live net
     assert _rel(got, want) <= UNET_TOL
+
+
+# bf16 whole-UNet tolerance against JAX's float32 forward: measured 2.4e-2
+# (fps off) and 2.0e-2 (fps on) on the two filled fixture nets. JAX's bf16
+# forward rounds B7's probabilities and each B6 tap to bf16; the port keeps
+# them in float32, so it is held to the float32 answer, not to JAX's bf16
+BF16_UNET_TOL = 4e-2
+
+
+@pytest.mark.parametrize("fps", [False, True])
+def test_bf16_unet_matches_jax_float32(unets, fps):
+    """The whole t2v UNet in bf16 (params, latents, context) against the JAX
+    float32 forward: the port's bf16 arithmetic is held to the exact answer,
+    not to JAX's bf16 rounding."""
+    import jax.numpy as jnp
+
+    from vitron_tpu.models.diffusion import unet_sd_video as jusv
+
+    cfg, (jp, tp) = unets[fps]
+    x, t, ctx, fr = _unet_inputs(cfg, 5)
+    bf = torch.bfloat16
+    got = tusv.forward(_tree_map(lambda a: a.to(bf) if a.is_floating_point() else a, tp), cfg,
+                       torch.from_numpy(x).to(bf), torch.from_numpy(t),
+                       y=torch.from_numpy(ctx).to(bf), fps=torch.from_numpy(fr))
+    want = jusv.forward(jp, cfg, jnp.asarray(x), jnp.asarray(t), y=jnp.asarray(ctx),
+                        fps=jnp.asarray(fr))
+    assert got.dtype == bf
+    assert _rel(got, want) <= BF16_UNET_TOL
 
 
 def test_init_params_matches_the_jax_tree():

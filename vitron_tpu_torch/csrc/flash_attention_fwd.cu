@@ -32,6 +32,14 @@
 // Ragged S and T (the GLIGEN fuser sites have 4126 and 1054 tokens) are
 // masked in the last tiles. Key tiles that lie wholly in the causal future
 // are never loaded. mma/wgmma belong to a later change.
+//
+// For training (`lse` not null) the kernel also writes the per-row
+// log-sum-exp that the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from, as the TPU kernel's _finalize (:169-176) does:
+// lse = (running max, or the shift) + log(max(l, 1e-30)), [B, N, S] float32.
+// It then rounds q * scale to the input type before the dot, as the TPU
+// kernel's _scaled_q (:85-89) does, so that forward and backward score the
+// same logits. With `lse` null (inference) neither changes.
 #include <cfloat>
 
 #include "common.cuh"
@@ -50,9 +58,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int TPR, int BKT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ kv_mask, T* __restrict__ out, int S, int Tk,
-                 int N, int KH, int q_offset, float scale, int causal, int use_shift,
-                 float shift) {
+                 const uint8_t* __restrict__ kv_mask, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int Tk, int N, int KH, int q_offset,
+                 float scale, int causal, int use_shift, float shift) {
   constexpr int BQ = kThreads / TPR;  // query rows per block
   constexpr int KPT = BKT / TPR;      // keys scored per thread per tile
   constexpr int DQ = D / TPR;         // output dims per thread
@@ -73,7 +81,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D, sq = s0 + r;
-    Qs[r * DP + d] = sq < S ? vt::to_f32(q[(((size_t)b * S + sq) * N + n) * D + d]) * scale : 0.f;
+    float qv = sq < S ? vt::to_f32(q[(((size_t)b * S + sq) * N + n) * D + d]) * scale : 0.f;
+    if (lse != nullptr) qv = vt::to_f32(vt::from_f32<T>(qv));
+    Qs[r * DP + d] = qv;
   }
 
   const int q_pos = q_offset + s0 + row;
@@ -152,13 +162,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* o = out + (((size_t)b * S + sq) * N + n) * D;
 #pragma unroll
     for (int dd = 0; dd < DQ; ++dd) o[sub + TPR * dd] = vt::from_f32<T>(acc[dd] / denom);
+    if (lse != nullptr && sub == 0)
+      lse[((size_t)b * N + n) * S + sq] = (use_shift ? shift : m_i) + logf(denom);
   }
 }
 
 template <typename T, int D, int TPR = 4, int BKT = 64>
-int launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out, int B,
-           int S, int Tk, int N, int KH, int q_offset, float scale, int causal, int use_shift,
-           float shift, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+           float* lse, int B, int S, int Tk, int N, int KH, int q_offset, float scale, int causal,
+           int use_shift, float shift, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D, TPR, BKT>();
   constexpr int BQ = kThreads / TPR;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, TPR, BKT>,
@@ -167,33 +179,33 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, voi
   dim3 grid((S + BQ - 1) / BQ, N, B);
   flash_fwd_kernel<T, D, TPR, BKT><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(kv_mask), static_cast<T*>(out), S, Tk, N, KH, q_offset, scale,
-      causal, use_shift, shift);
+      static_cast<const uint8_t*>(kv_mask), static_cast<T*>(out), lse, S, Tk, N, KH, q_offset,
+      scale, causal, use_shift, shift);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, void* out, int B,
-             int S, int Tk, int N, int KH, int D, int q_offset, float scale, int causal,
-             int use_shift, float shift, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
+             float* lse, int B, int S, int Tk, int N, int KH, int D, int q_offset, float scale,
+             int causal, int use_shift, float shift, cudaStream_t st) {
   switch (D) {
     case 40:
-      return launch<T, 40>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale, causal,
+      return launch<T, 40>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale, causal,
                            use_shift, shift, st);
     case 64:
-      return launch<T, 64>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale, causal,
+      return launch<T, 64>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale, causal,
                            use_shift, shift, st);
     case 80:
-      return launch<T, 80>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale, causal,
+      return launch<T, 80>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale, causal,
                            use_shift, shift, st);
     case 128:
-      return launch<T, 128>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale, causal,
+      return launch<T, 128>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale, causal,
                             use_shift, shift, st);
     case 160:
-      return launch<T, 160>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale, causal,
+      return launch<T, 160>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale, causal,
                             use_shift, shift, st);
     case 512:
-      return launch<T, 512, 16, 32>(q, k, v, kv_mask, out, B, S, Tk, N, KH, q_offset, scale,
+      return launch<T, 512, 16, 32>(q, k, v, kv_mask, out, lse, B, S, Tk, N, KH, q_offset, scale,
                                     causal, use_shift, shift, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -202,17 +214,18 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, v
 
 }  // namespace
 
-// kv_mask is a [B, T] bool (one byte per slot) or null. D must be one of
-// 40, 64, 80, 128, 160, 512 and N a multiple of KH. Returns
-// cudaGetLastError() after the launch.
+// kv_mask is a [B, T] bool (one byte per slot) or null; lse a [B, N, S]
+// float32 output or null. D must be one of 40, 64, 80, 128, 160, 512 and N a
+// multiple of KH. Returns cudaGetLastError() after the launch.
 extern "C" int vt_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                      const void* kv_mask, void* out, int B, int S, int Tk,
-                                      int N, int KH, int D, int q_offset, float scale,
+                                      const void* kv_mask, void* out, void* lse, int B, int S,
+                                      int Tk, int N, int KH, int D, int q_offset, float scale,
                                       int causal, int use_shift, float shift, int is_bf16,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, kv_mask, out, B, S, Tk, N, KH, D, q_offset,
-                                           scale, causal, use_shift, shift, st)
-                 : dispatch<float>(q, k, v, kv_mask, out, B, S, Tk, N, KH, D, q_offset, scale,
+  float* l = static_cast<float*>(lse);
+  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, D,
+                                           q_offset, scale, causal, use_shift, shift, st)
+                 : dispatch<float>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, D, q_offset, scale,
                                    causal, use_shift, shift, st);
 }

@@ -39,10 +39,18 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, q4, s, y, part, M, K2, N, splits, is_bf16, stream
     "vt_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, kv_mask, out, B, S, T, N, KH, D, q_offset, scale, causal,
+    # q, k, v, kv_mask, out, lse, B, S, T, N, KH, D, q_offset, scale, causal,
     # use_shift, shift, is_bf16, stream
-    "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _F, _I, _P],
+    # q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, T, N, KH, D, q_offset,
+    # scale, causal, is_bf16, stream
+    "vt_flash_attention_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, kv_mask, dq, B, S, T, N, KH, D, q_offset,
+    # scale, causal, is_bf16, stream
+    "vt_flash_attention_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _I, _P],
     # x, w1, b1, w2, b2, hidden, part, out, M, C, F, splits, is_bf16, stream
     "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out, part, B, R, C, splits, is_bf16, stream

@@ -7,7 +7,10 @@ design answers that (packed bytes read once, split-K GEMV for M <= 8, a
 tiled FMA GEMM for prefill).
 
 `int4_matmul(x, q4, s)` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors. `launches` counts kernel launches.
+plain version only for CPU tensors. When x needs a gradient it goes through
+`Int4Matmul`, the port of the JAX `custom_vjp` (`_int4_bwd` :67-75): the
+backward is dx = g @ dequantize(q4, s).T in g's dtype, in plain torch (the
+JAX backward is XLA ops too). `launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -50,9 +53,30 @@ def _splits(m: int, k2: int, n: int) -> int:
     return max(1, min(want, k2 // _MIN_SPLIT_ROWS))
 
 
+class Int4Matmul(torch.autograd.Function):
+    """x @ dequantize(q4, s) with a gradient for x (the base stays frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, q4, s):
+        ctx.save_for_backward(q4, s)
+        return _int4_matmul(x, q4, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, s = ctx.saved_tensors
+        w = (unpack_int4(q4).to(torch.float32) * s).to(g.dtype)  # [K, N]
+        return g @ w.T, None, None
+
+
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x [M, K] (float32/bfloat16) @ int4 q4 [K/2, N] (int8), scale s [1, N]
     float32 -> [M, N] in x.dtype."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return Int4Matmul.apply(x, q4, s)
+    return _int4_matmul(x, q4, s)
+
+
+def _int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     global launches
     if x.dim() != 2 or q4.dim() != 2 or x.shape[1] != 2 * q4.shape[0]:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)} and q4 {tuple(q4.shape)} "

@@ -4,7 +4,10 @@
 `jax.tree.map(np.asarray, params)`) and returns the port's parameter dict,
 dict for dict and key for key, so a port state-dict key is the JAX path
 joined with ".". Quantized leaves ({"q4","s"}, {"q","s"}) carry over as
-they are; the int4 packing is bit-identical.
+they are; the int4 packing is bit-identical. `to_numpy` goes back: the
+same structure of numpy arrays (bfloat16 as float32, which numpy holds),
+for the JAX side to take with `jnp.asarray` -- e.g. a trainer's trainable
+tree (LoRA factors, projector, region) at the same key paths.
 """
 from __future__ import annotations
 
@@ -31,3 +34,14 @@ def from_jax(tree: Any, device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def to_numpy(tree: Any) -> Any:
+    """Nested dicts/lists of tensors -> the same structure of numpy arrays
+    (detached, on the host; bfloat16 widened to float32)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()

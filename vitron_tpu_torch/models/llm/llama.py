@@ -10,6 +10,12 @@ Attention is `attn_impl="xla"` (the einsum path, `_attend_xla`) or
 `"flash"`, which sends multi-token calls (prefill, cached chunks) to the
 hand CUDA flash kernel; single-token decode stays on the einsum path, as in
 the JAX package. `"ring"` is not ported yet (ROADMAP A16).
+
+The no-cache `forward` is differentiable (the trainer's path): the int4
+projections and flash attention carry their own `autograd.Function`s, and
+`remat=True` recomputes each layer in the backward
+(`torch.utils.checkpoint`, the counterpart of the JAX `jax.checkpoint` of
+the layer body), which launches each layer's kernels twice.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vitron_tpu_torch.kernels.flash_attention import flash_attention
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized
@@ -37,6 +44,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     max_seq_len: int = 4096
     attn_impl: str = "xla"  # "xla" | "flash"
+    remat: bool = False  # recompute each layer in the backward (no-cache forward only)
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -218,9 +226,7 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
         mask = (key_pos <= q_pos) & cache.valid[:, None, None, :]
         kv_mask, q_offset = cache.valid, start
 
-    layers = params["layers"]
-    for li in range(cfg.num_layers):
-        lp = _layer_params(layers, li)
+    def layer(x, lp, li):
         xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -236,7 +242,17 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
         x = x + matmul_maybe_quantized(attn_out.reshape(b, s, h), lp["wo"])
         xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         gate = F.silu(matmul_maybe_quantized(xn, lp["gate"]))
-        x = x + matmul_maybe_quantized(gate * matmul_maybe_quantized(xn, lp["up"]), lp["down"])
+        return x + matmul_maybe_quantized(gate * matmul_maybe_quantized(xn, lp["up"]),
+                                          lp["down"])
+
+    layers = params["layers"]
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for li in range(cfg.num_layers):
+        lp = _layer_params(layers, li)
+        if remat:
+            x = checkpoint(layer, x, lp, li, use_reentrant=False)
+        else:
+            x = layer(x, lp, li)
     if cache is not None:
         cache.index = start + s
 

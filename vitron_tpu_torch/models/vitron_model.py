@@ -4,6 +4,10 @@ Port of `vitron_tpu/models/vitron_model.py`: CLIP/LanguageBind towers ->
 mm projector (+ region extractor on the raw tower features) -> sentinel
 splice -> Llama decoder. The host planner (`plan_splice`) emits fixed-shape
 gather maps; everything here runs on the parameters' device.
+
+`forward` is differentiable into the projector, the region extractor and
+the LLM (the trainer's LoRA bypass); the towers run under `no_grad`, so they
+stay frozen and keep no activations for the backward.
 """
 from __future__ import annotations
 
@@ -81,12 +85,14 @@ def encode_media(params: Dict[str, Any], cfg: VitronConfig,
     maps the [images.., video frames..] concat order to planner order.
     Region features pool the RAW tower features, not the projected ones."""
     raw_blocks = []
-    if images is not None and images.shape[0] > 0:
-        raw_blocks.append(vit.forward_features(params["image_tower"], cfg.image_tower, images))
-    if videos is not None and videos.shape[0] > 0:
-        vfeats = vit.forward_video_features(params["video_tower"], cfg.video_tower, videos)
-        nv, t, p, h = vfeats.shape
-        raw_blocks.append(vfeats.reshape(nv * t, p, h))
+    with torch.no_grad():  # the towers are frozen
+        if images is not None and images.shape[0] > 0:
+            raw_blocks.append(vit.forward_features(params["image_tower"], cfg.image_tower,
+                                                   images))
+        if videos is not None and videos.shape[0] > 0:
+            vfeats = vit.forward_video_features(params["video_tower"], cfg.video_tower, videos)
+            nv, t, p, h = vfeats.shape
+            raw_blocks.append(vfeats.reshape(nv * t, p, h))
     if not raw_blocks:
         return None, None
     raw = torch.cat(raw_blocks, dim=0) if len(raw_blocks) > 1 else raw_blocks[0]

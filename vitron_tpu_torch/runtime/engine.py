@@ -67,11 +67,14 @@ def round_up(n: int, mult: int) -> int:
 
 
 def prepare_batch(token_rows: Sequence[Sequence[int]], media: Sequence[MediaItem],
-                  image_len: int = IMAGE_FEATURE_LENGTH
+                  image_len: int = IMAGE_FEATURE_LENGTH, pad_to: Optional[int] = None,
+                  labels: Optional[Sequence[Sequence[int]]] = None
                   ) -> Tuple[SplicePlan, Optional[torch.Tensor], Optional[torch.Tensor],
                              Optional[np.ndarray]]:
-    """Tokenized rows + media -> (plan, images, videos, block_perm); the
-    padded length is rounded up to a multiple of PAD_BUCKET."""
+    """Tokenized rows + media -> (plan, images, videos, block_perm). The
+    padded length is `pad_to` (the trainer's fixed length) or the spliced
+    length rounded up to a multiple of PAD_BUCKET; `labels` (per-row lists
+    beside the token rows) are spliced into `plan.labels`."""
     kinds = [m.kind for m in media]
     vids = [m for m in media if m.kind == "video"]
     nf = vids[0].pixels.shape[0] if vids else NUM_VIDEO_FRAMES
@@ -81,8 +84,9 @@ def prepare_batch(token_rows: Sequence[Sequence[int]], media: Sequence[MediaItem
          + sum(1 for t in row if t >= 0))
         for row in token_rows
     )
-    pad_len = round_up(max(est, 8), PAD_BUCKET)
-    plan = plan_splice(token_rows, kinds, pad_len, num_video_frames=nf, image_len=image_len)
+    pad_len = pad_to or round_up(max(est, 8), PAD_BUCKET)
+    plan = plan_splice(token_rows, kinds, pad_len, num_video_frames=nf, image_len=image_len,
+                       labels=labels)
     images, videos, perm = pack_media(media)
     return plan, images, videos, perm
 
