@@ -28,7 +28,18 @@ Phases (any failure exits non-zero and prints no `ok` line):
    one UNet call and the VAE decode of 24 frames give it (from the block
    plan and the VAE config; also run twice for identical bits), and
    flash_attention at the VAE decode's [24, 2880, 1, 512].
-   Every kernel row of phases 3-5b prints its bound (bytes once at
+5c. B9 (conv3x3_same) against its plain version, float32 and bf16, at the
+   16 distinct eligible stride-1 3x3 convs of the i2vgen UNet at task G's
+   64x64 latents, batch 2 x 16 (from the block plan), beside cuDNN's bf16
+   F.conv2d on the rounded inputs; then its VJP (dx through the kernel)
+   against the plain VJP at a 32x32 level shape. No main path calls it.
+5d. kernel vs plain at the task-G path's shapes, float32 and bf16: B6, B7
+   and B3 at the i2vgen plan's four levels (2 x 16 frames of 64x64), B8 at
+   every [B, R, C] of one UNet call, the 512^2 VAE encode and the 16-frame
+   decode, and B2 at D 512 (encode [1, 4096, 1, 512], decode
+   [16, 4096, 1, 512]) and D 64 (the 32x32 level's self-attention,
+   [32, 1024, 16, 64]).
+   Every kernel row of phases 3-5d prints its bound (bytes once at
    3.35 TB/s or FLOP at the peak for the type, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
 6. the chat slice at full width: VitronSystem.chat on Vicuna-7B with random
@@ -76,6 +87,15 @@ Phases (any failure exits non-zero and prints no `ok` line):
    `handle_d`, TASK_D_STEPS DDIM-v steps, twice: identical, finite,
    non-constant frames; launch counts of all five kernels against the block
    plan; request time, ms per CFG UNet call, VAE decode ms, peak memory.
+15b. task G at full width: `Image2VideoConfig()` (UNetSD_I2VGen, SD VAE,
+   CLIP text 1024 wide, float32, 16 frames at 512x512, fps 16, guidance 9)
+   with random weights (zero leaves filled) and a seeded stub image
+   embedder, built after task D's pipeline is freed; a fixed protocol reply
+   routed to the port's `handle_g` with a 480x640 image (resized on the
+   host, ROADMAP C7), TASK_G_STEPS DDIM-v steps, twice: identical, finite,
+   non-constant frames; launches of all five kernels against the block plan
+   x steps plus the VAE encode's and decode's, none of B9; request time, ms
+   per CFG UNet call, VAE encode and decode ms, peak memory.
 16. the bf16 CFG video UNet step at bench.py's `bench_video_unet` shape
    ([2, 24, 40, 72, 4] latents, [2, 77, 1024] context):
    `video_unet_cfg_steps_per_s` and `video_unet_mfu` (the block plan's FLOP
@@ -83,6 +103,9 @@ Phases (any failure exits non-zero and prints no `ok` line):
 17. the video path on the CPU and the card: one float32 CFG-batch t2v UNet
    call at the real widths but two levels (512/1024), 8 frames, 16x16
    latents.
+17b. the i2v path on the CPU and the card: one float32 CFG-batch i2vgen UNet
+   call at the real widths but two levels (512/1024), 8 frames, 16x16
+   latents, with text, local-image and global conditioning.
 18. the training kernels against their plain versions, bf16 and float32:
    the flash forward with its LSE (B2), dK/dV (B5a) and dQ (B5b) at the
    trainer's [2, 2048, 32, 128] (causal, right-padded kv_mask), a GQA row
@@ -450,13 +473,6 @@ def seem_counts(cfg) -> dict:
             "group_norm_sums": 2 * len(cfg.pixel.in_channels) - 1}
 
 
-def seem_kernels():
-    from vitron_tpu_torch.kernels import depthwise_conv as dw
-    from vitron_tpu_torch.kernels import group_norm as gn
-
-    return {"depthwise_conv2d": dw, "group_norm_sums": gn}
-
-
 def build_seem_params(torch, cfg, device, seed: int):
     """SEEM params from a seed, every all-zero leaf (biases, logit_scale)
     filled as for GLIGEN and the FocalNet layerscale gammas drawn from
@@ -506,10 +522,9 @@ def phase_task_b(torch, card: str, system, cfg):
     from vitron_tpu_torch.models.seem import model as seem_model
 
     per = seem_counts(cfg)
-    kernels = seem_kernels()
     image = np.random.RandomState(3).randint(0, 256, (480, 640, 3), np.uint8)
     sketch = stroke_mask(480, 640)
-    total = {name: 0 for name in kernels}
+    total = collections.Counter()
     logits = []
     segment_panoptic = seem_model.segment_panoptic
 
@@ -525,11 +540,9 @@ def phase_task_b(torch, card: str, system, cfg):
                                 ("panoptic", TASK_B_PANOPTIC_REPLY, None)):
             outs = []
             for i in range(2):
-                for mod in kernels.values():
-                    mod.launches = 0
+                reset_launches()
                 out, t_req = timed_route(torch, system, reply, image=image, sketch_mask=sk)
-                got = expect_launches(kernels, per, f"task B {name} run {i + 1}")
-                total = {k: total[k] + got[k] for k in total}
+                total.update(expect_launches(per, f"task B {name} run {i + 1}"))
                 check(out["status"] == "ok" and out["task"] == "image_segmentation",
                       f"task B {name}: status {out['status']}, {out.get('error')}")
                 if name == "panoptic":
@@ -556,7 +569,7 @@ def phase_task_b(torch, card: str, system, cfg):
           "task B panoptic: two identical requests gave other class or mask logits")
     print(f"task B: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
-    return total
+    return dict(total)
 
 
 def seem_breakdown(torch, card: str, system, image):
@@ -618,15 +631,13 @@ def phase_task_e(torch, card: str, system, cfg, frames: int = 8):
     frame's."""
     per = seem_counts(cfg)
     want = {k: (frames + 1) * v for k, v in per.items()}
-    kernels = seem_kernels()
     video = np.random.RandomState(4).randint(0, 256, (frames, 480, 640, 3), np.uint8)
     runs = []
     for i in range(2):
-        for mod in kernels.values():
-            mod.launches = 0
+        reset_launches()
         out, t_req = timed_route(torch, system, TASK_E_REPLY, video=video,
                                  sketch_mask=stroke_mask(480, 640))
-        launches = expect_launches(kernels, want, f"task E run {i + 1}")
+        launches = expect_launches(want, f"task E run {i + 1}")
         check(out["status"] == "ok" and out["task"] == "video_tracking",
               f"task E: status {out['status']}, {out.get('error')}")
         masks = out["masks"]
@@ -658,12 +669,10 @@ def phase_task_c_seem(torch, card: str, pipe, seem_params, cfg):
     want["depthwise_conv2d"] = 0
     for k, v in seem_counts(cfg).items():
         want[k] += 2 * v
-    kernels = {**diffusion_kernels(), **seem_kernels()}
     image = np.random.RandomState(5).randint(0, 256, (480, 640, 3), np.uint8)
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_launches()
     out, t_req = timed_route(torch, system, TASK_C_SEEM_REPLY, image=image)
-    launches = expect_launches(kernels, want, "task C (SEEM branch)")
+    launches = expect_launches(want, "task C (SEEM branch)")
     img = out["image"]
     check(out["status"] == "ok" and out["task"] == "image_editing",
           f"task C (SEEM): status {out['status']}, {out.get('error')}")
@@ -775,17 +784,10 @@ def vae_counts(vcfg, pixels: int):
 def video_plan(ucfg, lh: int, lw: int):
     """(entry, latent pixels at that entry) for every entry of the video
     UNet's block plan at an lh x lw latent."""
-    from vitron_tpu_torch.models.diffusion.unet_sd_video import block_plan
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import block_plan_hw
 
-    h, w = lh, lw
-    input_plan, middle_plan, output_plan = block_plan(ucfg)
-    for entries in input_plan + [middle_plan] + output_plan:
-        for e in entries:
-            if e[0] == "down":
-                h, w = (h + 1) // 2, (w + 1) // 2
-            yield e, h * w
-            if e[0] == "up":
-                h, w = 2 * h, 2 * w
+    for e, h, w in block_plan_hw(ucfg, lh, lw):
+        yield e, h * w
 
 
 def video_sites(ucfg, lh: int, lw: int):
@@ -861,6 +863,26 @@ def vae_decode_gn_shapes(vcfg, lh: int, lw: int, batch: int) -> collections.Coun
     return shapes
 
 
+def vae_encode_gn_shapes(vcfg, h: int, w: int, batch: int) -> collections.Counter:
+    """[B, R, C] of every group-norm-sums launch of one VAE encode of
+    [batch, h, w, 3] images, with its count: each level's ResNets (norm1 at
+    their input width, norm2 at their output width, a quarter of the rows
+    after each downsampling), the mid ResNets' four and the mid attention's
+    one at the top width, and the output norm."""
+    bc = vcfg.base_channels
+    ch, rows = bc, h * w
+    shapes = collections.Counter()
+    for li, mult in enumerate(vcfg.channel_mult):
+        for _ in range(vcfg.num_res_blocks):
+            shapes[(batch, rows, ch)] += 1
+            ch = mult * bc
+            shapes[(batch, rows, ch)] += 1
+        if li != len(vcfg.channel_mult) - 1:
+            rows //= 4
+    shapes[(batch, rows, ch)] += 6
+    return shapes
+
+
 def video_unet_flops(ucfg, lh: int, lw: int, frames: int, batch: int, n_ctx: int) -> int:
     """Multiply-add FLOP (2 per MAC) of one video UNet call, from the block
     plan: every conv, projection, feed-forward, temporal conv and attention
@@ -892,14 +914,6 @@ def video_unet_flops(ucfg, lh: int, lw: int, frames: int, batch: int, n_ctx: int
     return flops
 
 
-def diffusion_kernels():
-    from vitron_tpu_torch.kernels import flash_attention as fa
-    from vitron_tpu_torch.kernels import geglu_ff as gf
-    from vitron_tpu_torch.kernels import group_norm as gn
-
-    return {"flash_attention": fa, "geglu_ff": gf, "group_norm_sums": gn}
-
-
 def build_gligen(torch, cfg, device, seed: int):
     """GLIGEN pipeline (float32, random weights with every zero leaf filled)
     plus the 9-channel inpainting UNet."""
@@ -925,10 +939,47 @@ def timed_route(torch, system, reply, **media):
     return out, time.perf_counter() - t0
 
 
-def expect_launches(kernels, want: dict, what: str) -> dict:
-    got = {name: mod.launches for name, mod in kernels.items()}
+# every kernel's launch counter: its name in the kernels line, its module
+# under vitron_tpu_torch.kernels and the module's counter
+LAUNCH_COUNTERS = (
+    ("int4_matmul", "int4_matmul", "launches"),
+    ("flash_attention", "flash_attention", "launches"),
+    ("flash_attention_bwd_kv", "flash_attention", "bwd_kv_launches"),
+    ("flash_attention_bwd_q", "flash_attention", "bwd_q_launches"),
+    ("geglu_ff", "geglu_ff", "launches"),
+    ("group_norm_sums", "group_norm", "launches"),
+    ("depthwise_conv2d", "depthwise_conv", "launches"),
+    ("temporal_conv_k3", "temporal_conv", "launches"),
+    ("frame_attention", "temporal_attention", "launches"),
+    ("conv3x3_same", "conv2d", "launches"),
+)
+
+
+def _counters():
+    import importlib
+
+    return [(name, importlib.import_module(f"vitron_tpu_torch.kernels.{mod}"), attr)
+            for name, mod, attr in LAUNCH_COUNTERS]
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: just before a run that is read."""
+    for _, mod, attr in _counters():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since `reset_launches`."""
+    return {name: getattr(mod, attr) for name, mod, attr in _counters()}
+
+
+def expect_launches(want: dict, what: str) -> dict:
+    """Every kernel's launch count since `reset_launches`; those named in
+    `want` must equal it, and B9, which no path calls, must be 0."""
+    want = {"conv3x3_same": 0, **want}
+    got = read_launches()
     print(f"{what}: launches {got} (expected {want})", flush=True)
-    check(got == want, f"{what}: kernel launches {got} != {want}")
+    check(all(got[k] == v for k, v in want.items()), f"{what}: kernel launches {got} != {want}")
     return got
 
 
@@ -943,14 +994,12 @@ def phase_task_a(torch, card: str, pipe):
     _, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
     calls = cfg.steps + 1  # PLMS: Heun's second call on the first step
     want = {k: calls * unet[k] + dec[k] for k in unet}
-    kernels = diffusion_kernels()
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for i in range(2):
-        for mod in kernels.values():
-            mod.launches = 0
+        reset_launches()
         out, t_req = timed_route(torch, system, TASK_A_REPLY)
-        launches = expect_launches(kernels, want, f"task A run {i + 1}")
+        launches = expect_launches(want, f"task A run {i + 1}")
         check(out["status"] == "ok" and out["task"] == "image_generation",
               f"task A: status {out['status']}, task {out.get('task')}")
         img = out["image"]
@@ -998,12 +1047,10 @@ def phase_task_c(torch, card: str, pipe):
     unet = unet_counts(ucfg9, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
     enc, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
     want = {k: (cfg.steps + 1) * unet[k] + enc[k] + dec[k] for k in unet}
-    kernels = diffusion_kernels()
     image = np.random.RandomState(1).randint(0, 256, (480, 640, 3), np.uint8)
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_launches()
     out, t_req = timed_route(torch, system, TASK_C_REPLY, image=image)
-    launches = expect_launches(kernels, want, "task C")
+    launches = expect_launches(want, "task C")
     img = out["image"]
     check(out["status"] == "ok" and out["task"] == "image_editing",
           f"task C: status {out['status']}, task {out.get('task')}")
@@ -1053,6 +1100,7 @@ def phase_unet_cpu_vs_card(torch, card: str, cfg, dev):
     level and 32x32 latents."""
     import os
 
+    from vitron_tpu_torch.kernels import flash_attention as fa
     from vitron_tpu_torch.models.diffusion import unet2d
     from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
 
@@ -1067,7 +1115,6 @@ def phase_unet_cpu_vs_card(torch, card: str, cfg, dev):
     want = unet2d.forward(params, cfg, x, t, ctx, objs, gate_scale=0.7)
     print(f"unet cpu-vs-card: cpu forward {time.perf_counter() - t0:.1f} s", flush=True)
     p_dev, args = tree_map(lambda a: a.to(dev), params), [a.to(dev) for a in (x, t, ctx, objs)]
-    fa = diffusion_kernels()["flash_attention"]
     want_flash = {"flash": unet_counts(cfg, 32, 30, 77)["flash_attention"], "einsum": 0}
     for name, fmin in (("flash", None), ("einsum", str(1 << 30))):
         saved = os.environ.get("VITRON_FLASH_MIN")
@@ -1103,13 +1150,20 @@ TASK_D_REPLY = ("<module>D</module><instruction>a red car driving along a coasta
 # 1000, so the sampler runs exactly this many steps
 TASK_D_STEPS = 10
 VIDEO_BF16_STEPS = 5
+I2V_LATENT = 64   # 512^2 frames over the SD VAE's factor 8
+I2V_FRAMES = 16
+TASK_G_REPLY = ("<module>G</module><instruction>the waves roll in and the boat drifts slowly"
+                "</instruction>")
+# DDIM-v steps of the smoke's task-G request (the reference runs 50), a
+# divisor of 1000 (ROADMAP C6); 5 if the whole smoke passes ~450 s
+TASK_G_STEPS = 10
 
 
-def video_kernels():
-    from vitron_tpu_torch.kernels import temporal_attention as ta
-    from vitron_tpu_torch.kernels import temporal_conv as tc
-
-    return {"temporal_conv_k3": tc, "frame_attention": ta, **diffusion_kernels()}
+def i2v_context(ucfg, text_len: int) -> int:
+    """Context tokens of the i2vgen UNet `ucfg` after `text_len` text tokens:
+    those, the 64 local-image tokens (a 32x32 pool, two stride-2 convs) and
+    the global ones."""
+    return text_len + 64 + ucfg.num_tokens
 
 
 def rel_err(got, want):
@@ -1125,11 +1179,30 @@ def phase_video_kernels(torch, card: str):
     levels' rows, group-norm sums (B8) at every [B, R, C] of one UNet call
     and of the VAE decode of the 24 frames (each also run twice for the
     same bits), flash (B2) at the VAE decode's mid attention
-    [24, 2880, 1, 512]. Each row: error, device time of the kernel and of
-    the library call (CUDA-graph replay) where one PyTorch call computes the
-    same function (layout copies made outside the timed region), the plain
-    version's (CUDA events where its float32 temporaries would fill a
-    graph's pool), and the bound."""
+    [24, 2880, 1, 512] (bf16, as `layers._mha` calls it)."""
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+
+    t2v = Text2VideoConfig()
+    check(t2v.latent_hw == VIDEO_LATENT and t2v.num_frames == VIDEO_FRAMES,
+          f"Text2VideoConfig() latents {t2v.latent_hw} x {t2v.num_frames} frames")
+    return video_kernel_rows(torch, card, t2v.unet, t2v.vae, *VIDEO_LATENT, VIDEO_FRAMES,
+                             t2v.text.max_length, seed=9)
+
+
+def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: int, n_ctx: int,
+                      seed: int, encode_hw=None):
+    """A video path's kernels against their plain versions at the shapes one
+    CFG UNet call (batch 2 x `frames` of lh x lw latents, `n_ctx` context
+    tokens) and its VAE give them, from the block plan and the VAE config:
+    B6, B7 and B3 at each temporal-transformer level, B8 at every [B, R, C]
+    of the UNet call, the decode of the frames and (with `encode_hw`) the
+    encode of one image, B2 at the VAE decode's (and encode's) mid attention
+    and at every spatial UNet attention site that reaches VITRON_FLASH_MIN,
+    in bf16 as `layers._mha` calls it. Each row: error, device time of the kernel
+    and of the library call (CUDA-graph replay) where one PyTorch call
+    computes the same function (layout copies made outside the timed
+    region), the plain version's (CUDA events where its float32 temporaries
+    would fill a graph's pool), and the bound."""
     import torch.nn.functional as F
 
     from vitron_tpu_torch.kernels import flash_attention as fa
@@ -1137,21 +1210,18 @@ def phase_video_kernels(torch, card: str):
     from vitron_tpu_torch.kernels import group_norm as gn
     from vitron_tpu_torch.kernels import temporal_attention as ta
     from vitron_tpu_torch.kernels import temporal_conv as tc
-    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9)
-    t2v = Text2VideoConfig()
-    check(t2v.latent_hw == VIDEO_LATENT and t2v.num_frames == VIDEO_FRAMES,
-          f"Text2VideoConfig() latents {t2v.latent_hw} x {t2v.num_frames} frames")
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = {"tconv": [], "tattn": [], "geglu_video": [], "gn_video": [], "flash_vae": []}
-    b, f = 2, VIDEO_FRAMES
+    b, f = 2, frames
     f32, bf16 = torch.float32, torch.bfloat16
 
     def peak(dtype):
         return "fp32" if dtype == f32 else "bf16_tensor"
 
-    for n, c, heads in video_sites(t2v.unet, *VIDEO_LATENT):
+    for n, c, heads in video_sites(ucfg, lh, lw):
         m = b * f * n
         x32 = torch.randn((b, f, n, c), generator=g, device=dev)
         w32 = torch.randn((3, c, c), generator=g, device=dev) / (3 * c) ** 0.5
@@ -1230,14 +1300,19 @@ def phase_video_kernels(torch, card: str):
             del got, want, args
         del ff32
 
-    # B8 at every shape of one CFG UNet call and of the decode of the frames
-    unet_gn = video_gn_shapes(t2v.unet, *VIDEO_LATENT, b, f)
-    vae_gn = vae_decode_gn_shapes(t2v.vae, *VIDEO_LATENT, f)
-    want_n = (video_counts(t2v.unet, *VIDEO_LATENT, t2v.text.max_length)["group_norm_sums"],
-              vae_counts(t2v.vae, VIDEO_LATENT[0] * VIDEO_LATENT[1])[1]["group_norm_sums"])
-    check((sum(unet_gn.values()), sum(vae_gn.values())) == want_n,
-          f"group-norm shapes {sum(unet_gn.values())}, {sum(vae_gn.values())} != counts {want_n}")
-    for shape in sorted(unet_gn.keys() | vae_gn.keys()):
+    # B8 at every shape of one CFG UNet call, of the decode of the frames and
+    # of the encode of one image
+    unet_gn = video_gn_shapes(ucfg, lh, lw, b, f)
+    vae_gn = vae_decode_gn_shapes(vcfg, lh, lw, f)
+    enc_gn = (vae_encode_gn_shapes(vcfg, *encode_hw, 1) if encode_hw
+              else collections.Counter())
+    enc_n, dec_n = vae_counts(vcfg, lh * lw)
+    want_n = (video_counts(ucfg, lh, lw, n_ctx)["group_norm_sums"], dec_n["group_norm_sums"],
+              enc_n["group_norm_sums"] if encode_hw else 0)
+    check((sum(unet_gn.values()), sum(vae_gn.values()), sum(enc_gn.values())) == want_n,
+          f"group-norm shapes {sum(unet_gn.values())}, {sum(vae_gn.values())}, "
+          f"{sum(enc_gn.values())} != counts {want_n}")
+    for shape in sorted(unet_gn.keys() | vae_gn.keys() | enc_gn.keys()):
         x32 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
         for dtype in (f32, bf16):
             name = str(dtype).split(".")[-1]
@@ -1249,8 +1324,10 @@ def phase_video_kernels(torch, card: str):
             plain_ms = cuda_ms(torch, lambda: gn.group_norm_sums_plain(x), iters=3, warmup=1)
             lib_ms = graph_ms(torch, lambda: torch.var_mean(x, dim=1, correction=0), calls=5)
             r = row(err, rel, ms, plain_ms, nbytes(x, got), 3 * x.numel(), "fp32", lib_ms)
+            enc = f", x{enc_gn[shape]} an encode" if encode_hw else ""
             print(f"group_norm_sums {list(shape)} {name} (x{unet_gn[shape]} a UNet call, "
-                  f"x{vae_gn[shape]} a decode; {gn._splits(*shape)} row splits): rel_err={rel:.3e} "
+                  f"x{vae_gn[shape]} a decode{enc}; {gn._splits(*shape)} row splits): "
+                  f"rel_err={rel:.3e} "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms, same bits twice="
                   f"{bool(torch.equal(got, again))} {bound_text(r)} (kernel and library "
                   f"graph-replayed) [{card}]", flush=True)
@@ -1260,25 +1337,156 @@ def phase_video_kernels(torch, card: str):
             del x, got, again, want
         del x32
 
-    lh, lw = VIDEO_LATENT
-    q, k, v = (torch.randn((VIDEO_FRAMES, lh * lw, 1, 512), generator=g, device=dev).to(bf16)
-               for _ in range(3))
+    # B2: the VAE's single-head mid attention at D 512 (the decode of the
+    # frames, the encode of one image) and the UNet's spatial sites that
+    # reach VITRON_FLASH_MIN (self-attention; cross-attention when the
+    # context does too), non-causal, shift 0
+    fmin = _flash_min()
+    sites = [("vae decode", frames, lh * lw, lh * lw, 1, 512)]
+    if encode_hw:
+        sites.append(("vae encode", 1, lh * lw, lh * lw, 1, 512))
+    for e, n in sorted({(e, n) for e, n in video_plan(ucfg, lh, lw) if e[0] == "sattn"},
+                       key=lambda en: -en[1]):
+        if n >= fmin:
+            sites.append((f"unet self-attention C={e[1]}", b * f, n, n, e[2], ucfg.head_dim))
+        if n >= fmin and n_ctx >= fmin:
+            sites.append((f"unet cross-attention C={e[1]}", b * f, n, n_ctx, e[2],
+                          ucfg.head_dim))
     call = dict(causal=False, softmax_shift=0.0)
-    got = fa.flash_attention(q, k, v, **call)
-    err, rel = rel_err(got, fa.flash_attention_plain(q, k, v, **call))
-    ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v, **call), calls=2)
-    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=3)
-    flops = 4 * VIDEO_FRAMES * (lh * lw) ** 2 * 512
-    r = row(err, rel, ms, plain_ms, 4 * nbytes(q), flops, "bf16_tensor", sdpa_ms(torch, q, k, v))
-    print(f"flash_attention vae [{VIDEO_FRAMES},{lh * lw},1,512] bf16 non-causal shift 0: "
-          f"abs_err={err:.3e} kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-          f"graph-replayed) "
-          f"plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
-    check(err <= FLASH_TOL, f"flash_attention VAE D=512 abs err {err} > {FLASH_TOL}")
-    rows["flash_vae"].append(r)
-    del q, k, v, got
-
+    for what, bb, s_len, t_len, nh, d in sites:
+        q = torch.randn((bb, s_len, nh, d), generator=g, device=dev).to(bf16)
+        k, v = (torch.randn((bb, t_len, nh, d), generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        got = fa.flash_attention(q, k, v, **call)
+        err, rel = rel_err(got, fa.flash_attention_plain(q, k, v, **call))
+        ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v, **call), calls=2)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=3)
+        flops = 4 * bb * nh * s_len * t_len * d
+        r = row(err, rel, ms, plain_ms, nbytes(q, k, v, got), flops, "bf16_tensor",
+                sdpa_ms(torch, q, k, v))
+        print(f"flash_attention {what} [{bb},{s_len},{nh},{d}] keys {t_len} bf16 non-causal "
+              f"shift 0: abs_err={err:.3e} rel_err={rel:.3e} kernel {ms:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, graph-replayed) plain "
+              f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+        check(err <= FLASH_TOL, f"flash_attention {what}: abs err {err} > {FLASH_TOL}")
+        rows["flash_vae"].append(r)
+        del q, k, v, got
     return rows
+
+
+def phase_conv3x3(torch, card: str):
+    """B9 against its plain version, float32 and bf16, at every distinct
+    eligible stride-1 3x3 conv (H, W, C, D) of the i2vgen UNet at task G's
+    64x64 latents, batch 32 (CFG 2 x 16 frames), from the block plan. Each
+    row: max |kernel - plain| / max |plain|, CUDA-event times of the kernel
+    and the plain version, the bound (bytes of x, w and out once at
+    3.35 TB/s, or 2 M 9C D FLOP at the bf16 tensor-core rate for both
+    types: the products are bf16) and cuDNN's `F.conv2d` on the
+    bf16-rounded x and w, channels-last, bf16 in and float32 sums. Then the
+    VJP's dx (the kernel) and dw on the card against `conv3x3_vjp_plain` at
+    a 32x32 level shape."""
+    import torch.nn.functional as F
+
+    from vitron_tpu_torch.kernels import conv2d as cv
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import UNetSDVideoConfig, conv3x3_sites
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    bsz = 2 * I2V_FRAMES
+    counts = conv3x3_sites(UNetSDVideoConfig.i2vgen_xl(), I2V_LATENT, I2V_LATENT)
+    sites = sorted((s for s in counts if cv.eligible((bsz,) + s[:3], s[3], f32)),
+                   key=lambda s: (-s[0], s[2], s[3]))
+    rows = {"conv3x3": []}
+    for h, w, c, d in sites:
+        x32 = torch.randn((bsz, h, w, c), generator=g, device=dev)
+        w32 = torch.randn((3, 3, c, d), generator=g, device=dev) / (9 * c) ** 0.5
+        flops = 2 * bsz * h * w * 9 * c * d
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[-1]
+            x, k = x32.to(dtype), w32.to(dtype)
+            got = cv.conv3x3_same(x, k)
+            want = cv.conv3x3_plain(x, k)
+            err, rel = rel_err(got, want)
+            # cuDNN: NCHW views of channels-last bf16 copies (made outside the
+            # timed region), bf16 in, float32 sums, bf16 out
+            xc = x.to(bf16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            kc = k.to(bf16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib = F.conv2d(xc, kc, padding=1).permute(0, 2, 3, 1)
+            _, lib_rel = rel_err(lib, want)
+            ms = cuda_ms(torch, lambda: cv.conv3x3_same(x, k), iters=5, warmup=2)
+            plain_ms = cuda_ms(torch, lambda: cv.conv3x3_plain(x, k), iters=3, warmup=1)
+            lib_ms = cuda_ms(torch, lambda: F.conv2d(xc, kc, padding=1), iters=5, warmup=2)
+            r = row(err, rel, ms, plain_ms, nbytes(x, k, got), flops, "bf16_tensor", lib_ms)
+            print(f"conv3x3_same [{bsz},{h},{w},{c}] D={d} {name} (x{counts[(h, w, c, d)]} a "
+                  f"UNet call): rel_err={rel:.3e} kernel {ms:.4f} ms "
+                  f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s) plain {plain_ms:.4f} ms "
+                  f"{bound_text(r)} (cuDNN F.conv2d bf16 channels-last "
+                  f"{flops / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s, rel {lib_rel:.1e}) [{card}]",
+                  flush=True)
+            check(rel <= VIDEO_TOL[name], f"conv3x3_same {(h, w, c, d)} {name} rel err {rel}")
+            rows["conv3x3"].append(r)
+            del x, k, got, want, lib, xc, kc
+        del x32, w32
+
+    # the VJP at a level-1 shape: dx through the kernel, dw by products
+    h, c, d = I2V_LATENT // 2, 1024, 1024
+    for dtype in (f32, bf16):
+        name = str(dtype).split(".")[-1]
+        x = torch.randn((bsz, h, h, c), generator=g, device=dev).to(dtype)
+        k = (torch.randn((3, 3, c, d), generator=g, device=dev) / (9 * c) ** 0.5).to(dtype)
+        gy = torch.randn((bsz, h, h, d), generator=g, device=dev).to(dtype)
+        with torch.enable_grad():
+            xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+            n0 = cv.launches
+            cv.conv3x3_same(xg, kg).backward(gy)
+            torch.cuda.synchronize()
+            launched = cv.launches - n0
+        dx, dw = cv.conv3x3_vjp_plain(x, k, gy)
+        _, rel_dx = rel_err(xg.grad, dx)
+        _, rel_dw = rel_err(kg.grad, dw)
+        print(f"conv3x3_same VJP [{bsz},{h},{h},{c}] D={d} {name}: dx rel_err={rel_dx:.3e}, dw "
+              f"rel_err={rel_dw:.3e} against conv3x3_vjp_plain; {launched} launches (forward "
+              f"and dx) [{card}]", flush=True)
+        check(launched == 2 and rel_dx <= VIDEO_TOL[name] and rel_dw <= VIDEO_TOL[name],
+              f"conv3x3_same VJP {name}: dx {rel_dx}, dw {rel_dw}, {launched} launches")
+        del x, k, gy, xg, kg, dx, dw
+    for name in ("float32", "bfloat16"):
+        print_sums(f"conv3x3_same {name}", rows["conv3x3"][name == "bfloat16"::2], card)
+    return rows
+
+
+def phase_i2v_kernels(torch, card: str):
+    """5d: the task-G path's kernels at its shapes: B6, B7 and B3 at the
+    four levels of the i2vgen plan (2 x 16 frames of 64x64 latents) and B8
+    at every [B, R, C] of one UNet call, of the 512^2 VAE encode and of the
+    16-frame decode, float32 and bf16; B2 in bf16 (the only type
+    `layers._mha` gives it) at D 512 (the encode's [1, 4096, 1, 512], the
+    decode's [16, 4096, 1, 512]) and at D 64 (the 32x32 level's
+    self-attention, [32, 1024, 16, 64])."""
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Image2VideoConfig
+
+    cfg = Image2VideoConfig()
+    check(cfg.latent_size == I2V_LATENT and cfg.num_frames == I2V_FRAMES,
+          f"Image2VideoConfig() latents {cfg.latent_size} x {cfg.num_frames} frames")
+    rows = video_kernel_rows(torch, card, cfg.unet, cfg.vae, I2V_LATENT, I2V_LATENT, I2V_FRAMES,
+                             i2v_context(cfg.unet, cfg.text.max_length), seed=14,
+                             encode_hw=(cfg.size, cfg.size))
+    for key, name in (("tconv", "B6"), ("tattn", "B7"), ("geglu_video", "B3"),
+                      ("gn_video", "B8"), ("flash_vae", "B2")):
+        print_sums(f"task-G shapes, {name}", rows[key], card)
+    return {f"{k}_i2v": v for k, v in rows.items()}
+
+
+def print_sums(what: str, rs, card: str) -> None:
+    """One line of a group of kernel rows: their summed kernel, bound,
+    plain and library times."""
+    lib = [r["library_ms"] for r in rs]
+    bound = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rs)
+    lib_ms = "none" if None in lib else f"{sum(lib):.4f} ms"
+    print(f"{what}: {len(rs)} rows, kernel {sum(r['ms'] for r in rs):.4f} ms, bound "
+          f"{bound:.4f} ms, plain {sum(r['plain_ms'] for r in rs):.4f} ms, library {lib_ms}, "
+          f"max rel err {max(r['rel'] for r in rs):.3e} [{card}]", flush=True)
 
 
 def build_t2v(torch, cfg, device, seed: int):
@@ -1293,6 +1501,51 @@ def build_t2v(torch, cfg, device, seed: int):
     text = fill_zero_leaves(clip_text.init_params(g, cfg.text, device), g)
     return Text2VideoPipeline(cfg, unet, vae_p, text,
                               tokenizer=StubClipTokenizer(cfg.text.vocab_size))
+
+
+def video_requests(torch, card: str, system, reply: str, task: str, want: dict,
+                   shape: tuple, what: str, **media):
+    """A routed video reply, twice, on `system`: launches equal to `want`
+    each time, status ok with `task`, a uint8 video of `shape`,
+    finite latent and decoded frames before the uint8 cast (recorded around
+    `vae.decode`), non-constant frames, and the same frames both times.
+    Returns (launches, the second request's seconds)."""
+    from vitron_tpu_torch.models.diffusion import vae
+
+    label = f"task {reply[len('<module>')]}"
+    decoded = []
+    decode = vae.decode
+
+    def recorded_decode(params, vcfg, z):
+        out = decode(params, vcfg, z)
+        decoded.append((bool(torch.isfinite(z).all()), bool(torch.isfinite(out).all()),
+                        z.float().std().item(), out.float().abs().max().item()))
+        return out
+
+    runs = []
+    vae.decode = recorded_decode
+    try:
+        for i in range(2):
+            reset_launches()
+            out, t_req = timed_route(torch, system, reply, **media)
+            launches = expect_launches(want, f"{label} run {i + 1}")
+            check(out["status"] == "ok" and out["task"] == task,
+                  f"{label}: status {out['status']}, {out.get('error')}")
+            video = out["video"]
+            z_ok, frames_ok, z_std, fmax = decoded[-1]
+            check(video.shape == shape and video.dtype == np.uint8,
+                  f"{label} video {video.shape} {video.dtype}")
+            check(z_ok and frames_ok, f"{label}: non-finite latent or decoded frames")
+            check(int(video.max()) != int(video.min()), f"{label}: the frames are constant")
+            runs.append(video)
+            print(f"{label} run {i + 1}: request {t_req:.3f} s ({what}), video "
+                  f"{video.shape} mean {video.mean():.2f} std {video.std():.2f}; final latent std "
+                  f"{z_std:.3f}, decoded max |x| {fmax:.3f} before the clamp, finite [{card}]",
+                  flush=True)
+    finally:
+        vae.decode = decode
+    check(np.array_equal(runs[0], runs[1]), f"{label}: two identical requests gave other frames")
+    return launches, t_req
 
 
 def phase_task_d(torch, card: str, pipe):
@@ -1312,41 +1565,10 @@ def phase_task_d(torch, card: str, pipe):
     per_call = video_counts(cfg.unet, lh, lw, cfg.text.max_length)
     _, dec = vae_counts(cfg.vae, lh * lw)
     want = {k: cfg.steps * per_call[k] + dec.get(k, 0) for k in per_call}
-    kernels = video_kernels()
-    decoded = []
-    decode = vae.decode
-
-    def recorded_decode(params, vcfg, z):
-        out = decode(params, vcfg, z)
-        decoded.append((bool(torch.isfinite(z).all()), bool(torch.isfinite(out).all()),
-                        z.float().std().item(), out.float().abs().max().item()))
-        return out
-
     torch.cuda.reset_peak_memory_stats()
-    runs = []
-    vae.decode = recorded_decode
-    try:
-        for i in range(2):
-            for mod in kernels.values():
-                mod.launches = 0
-            out, t_req = timed_route(torch, system, TASK_D_REPLY)
-            launches = expect_launches(kernels, want, f"task D run {i + 1}")
-            check(out["status"] == "ok" and out["task"] == "video_generation",
-                  f"task D: status {out['status']}, {out.get('error')}")
-            video = out["video"]
-            z_ok, frames_ok, z_std, fmax = decoded[-1]
-            check(video.shape == (cfg.num_frames, cfg.height, cfg.width, 3)
-                  and video.dtype == np.uint8, f"task D video {video.shape} {video.dtype}")
-            check(z_ok and frames_ok, "task D: non-finite latent or decoded frames")
-            check(int(video.max()) != int(video.min()), "task D: the frames are constant")
-            runs.append(video)
-            print(f"task D run {i + 1}: request {t_req:.3f} s ({cfg.steps} DDIM-v steps), video "
-                  f"{video.shape} mean {video.mean():.2f} std {video.std():.2f}; final latent std "
-                  f"{z_std:.3f}, decoded max |x| {fmax:.3f} before the clamp, finite [{card}]",
-                  flush=True)
-    finally:
-        vae.decode = decode
-    check(np.array_equal(runs[0], runs[1]), "task D: two identical requests gave other frames")
+    launches, t_req = video_requests(
+        torch, card, system, TASK_D_REPLY, "video_generation", want,
+        (cfg.num_frames, cfg.height, cfg.width, 3), f"{cfg.steps} DDIM-v steps")
     peak_mem = torch.cuda.max_memory_allocated()
 
     ids = pipe.tokenize(["a red car", ""])
@@ -1364,6 +1586,71 @@ def phase_task_d(torch, card: str, pipe):
           f"{vae_ms:.2f} ms, the rest {t_req - cfg.steps * unet_ms / 1e3 - vae_ms / 1e3:.3f} s), "
           f"peak memory {peak_mem / 2**30:.2f} GiB (float32 UNetSD_T2V, 320x576, "
           f"{cfg.num_frames} frames) [{card}]", flush=True)
+    return launches
+
+
+def build_i2v(torch, cfg, device, seed: int):
+    """I2V pipeline (float32, random weights with every zero leaf filled) with
+    a seeded stub image embedder, so the global tokens are live."""
+    from vitron_tpu_torch.models.diffusion import clip_text, unet_sd_video, vae
+    from vitron_tpu_torch.models.diffusion.synthetic import (StubClipTokenizer, StubImageEmbedder,
+                                                             fill_zero_leaves)
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Image2VideoPipeline
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    unet = fill_zero_leaves(unet_sd_video.init_params(g, cfg.unet, device), g)
+    vae_p = fill_zero_leaves(vae.init_params(g, cfg.vae, device), g)
+    text = fill_zero_leaves(clip_text.init_params(g, cfg.text, device), g)
+    return Image2VideoPipeline(cfg, unet, vae_p, text,
+                               tokenizer=StubClipTokenizer(cfg.text.vocab_size),
+                               image_embedder=StubImageEmbedder(cfg.unet.y_dim, seed))
+
+
+def phase_task_g(torch, card: str, pipe):
+    """A routed task-G reply on a 480x640 image (resized to 512^2 on the
+    host, C7), twice: the VAE encode of the image, `cfg.steps` DDIM-v steps
+    of one CFG i2vgen UNet call each, then the VAE decode of the 16 frames.
+    Identical frames both times, finite latent and decoded frames before the
+    uint8 cast, non-constant frames, and launches of every kernel equal to
+    the block plan's count x steps plus the VAE encode's and decode's (and
+    none of B9, which no path calls). Then one CFG UNet call, one encode and
+    one decode at the request's shapes, timed alone."""
+    from vitron_tpu_torch.models.diffusion import clip_text, vae
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    cfg = pipe.cfg
+    system = VitronSystem(None)
+    system.register_image2video(pipe)
+    ls = cfg.latent_size
+    per_call = video_counts(cfg.unet, ls, ls, i2v_context(cfg.unet, cfg.text.max_length))
+    enc, dec = vae_counts(cfg.vae, ls * ls)
+    want = {k: cfg.steps * per_call[k] + enc.get(k, 0) + dec.get(k, 0) for k in per_call}
+    image = np.random.RandomState(3).randint(0, 256, (480, 640, 3), np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    launches, t_req = video_requests(
+        torch, card, system, TASK_G_REPLY, "image_to_video", want,
+        (cfg.num_frames, cfg.size, cfg.size, 3),
+        f"{cfg.steps} DDIM-v steps, a {image.shape[0]}x{image.shape[1]} image", image=image)
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    ids, pixels, glob = pipe.prepare(image, "a boat on the sea")
+    local = pipe.encode_image(pixels)
+    v_fn = pipe.v_fn(clip_text.encode(pipe.text_params, cfg.text, ids), local, glob)
+    g = torch.Generator(device=pipe.device).manual_seed(5)
+    x = torch.randn((1, cfg.num_frames, ls, ls, cfg.unet.in_dim), generator=g,
+                    device=pipe.device)
+    unet_ms = cuda_ms(torch, lambda: v_fn(x, 501), iters=3, warmup=1)
+    enc_ms = cuda_ms(torch, lambda: pipe.encode_image(pixels), iters=3, warmup=1)
+    dec_ms = cuda_ms(torch, lambda: vae.decode(pipe.vae_params, cfg.vae, x[0]), iters=2,
+                     warmup=1)
+    profile_breakdown(torch, card, "task G: one float32 CFG i2vgen UNet call",
+                      lambda: v_fn(x, 501), unet_ms, VIDEO_KERNEL_GROUPS)
+    rest = t_req - cfg.steps * unet_ms / 1e3 - (enc_ms + dec_ms) / 1e3
+    print(f"task G: request {t_req:.3f} s ({cfg.steps} CFG UNet calls at {unet_ms:.2f} ms = "
+          f"{cfg.steps * unet_ms / 1e3:.3f} s, VAE encode of the {cfg.size}^2 image "
+          f"{enc_ms:.2f} ms, decode of {cfg.num_frames} frames {dec_ms:.2f} ms, the rest "
+          f"{rest:.3f} s), peak memory {peak_mem / 2**30:.2f} GiB (float32 UNetSD_I2VGen, "
+          f"{cfg.size}x{cfg.size}, {cfg.num_frames} frames) [{card}]", flush=True)
     return launches
 
 
@@ -1473,17 +1760,54 @@ def phase_video_cpu_vs_card(torch, card: str):
     want = usv.forward(params, cfg, x, t, y=ctx)
     print(f"video cpu-vs-card: cpu forward {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    kernels = video_kernels()
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_launches()
     got = usv.forward(tree_map(lambda a: a.to(dev), params), cfg, x.to(dev), t.to(dev),
                       y=ctx.to(dev)).cpu()
-    expect_launches(kernels, video_counts(cfg, 16, 16, 77), "video cpu-vs-card")
+    expect_launches(video_counts(cfg, 16, 16, 77), "video cpu-vs-card")
     rel = (got - want).abs().max().item() / want.abs().max().item()
     print(f"video cpu-vs-card: float32 t2v UNet (levels 512/1024, 8 frames, 16x16 latents) "
           f"rel_err={rel:.3e} (limit {CPU_GPU_TOL}), max |v| {want.abs().max().item():.3f} "
           f"[{card}]", flush=True)
     check(rel <= CPU_GPU_TOL, f"video UNet CPU and card disagree: {rel}")
+
+
+def phase_i2v_cpu_vs_card(torch, card: str):
+    """One float32 CFG-batch call of the i2vgen UNet at its real widths but
+    reduced depth (two levels, 512 and 1024 channels), 8 frames and 16x16
+    latents (the local-image stream keeps its fixed 32x32 pool, here
+    upsampling), with text, local and global conditioning, on the CPU and on
+    the card: B6 at C 512/1024, B7 at 8 and 16 heads, B3 at C 512/1024, B8
+    on the card; no flash site (8x8 is the attention level)."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video as usv
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    cfg = usv.UNetSDVideoConfig.i2vgen_xl(dim_mult=(1, 2))
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(15)
+    params = fill_zero_leaves(usv.init_params(g, cfg, cpu), g)
+    x = torch.randn((2, 8, 16, 16, 4), generator=g)
+    t = torch.tensor([501.0, 501.0])
+    fps = torch.tensor([16.0, 16.0])
+    ctx = torch.randn((2, 77, cfg.context_dim), generator=g)
+    glob = torch.randn((1, cfg.y_dim), generator=g)
+    image = torch.cat([glob, torch.zeros_like(glob)])
+    local = torch.randn((1, 16, 16, 4), generator=g).expand(2, 16, 16, 4).contiguous()
+    args = dict(y=ctx, fps=fps, image=image, local_image=local)
+    t0 = time.perf_counter()
+    want = usv.forward(params, cfg, x, t, **args)
+    print(f"i2v cpu-vs-card: cpu forward {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    reset_launches()
+    got = usv.forward(tree_map(lambda a: a.to(dev), params), cfg, x.to(dev), t.to(dev),
+                      **{k: v.to(dev) for k, v in args.items()}).cpu()
+    n_ctx = i2v_context(cfg, 77)
+    counts = expect_launches(video_counts(cfg, 16, 16, n_ctx), "i2v cpu-vs-card")
+    tol = UNET_CPU_GPU_TOL["flash" if counts["flash_attention"] else "einsum"]
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"i2v cpu-vs-card: float32 i2vgen UNet (levels 512/1024, 8 frames, 16x16 latents, "
+          f"{n_ctx} context tokens) rel_err={rel:.3e} (limit {tol}), "
+          f"max |v| {want.abs().max().item():.3f} [{card}]", flush=True)
+    check(rel <= tol, f"i2v UNet CPU and card disagree: {rel}")
 
 
 def tree_leaves(tree):
@@ -1547,8 +1871,6 @@ def timed_chat(torch, system, image, sampling):
 
 
 def phase_slice(torch, card: str):
-    from vitron_tpu_torch.kernels import flash_attention as fa
-    from vitron_tpu_torch.kernels import int4_matmul as i4
     from vitron_tpu_torch.models.llm.llama import LlamaConfig
     from vitron_tpu_torch.models.vitron_model import VitronConfig
     from vitron_tpu_torch.runtime.generation import SamplingConfig
@@ -1565,26 +1887,21 @@ def phase_slice(torch, card: str):
     timed_chat(torch, system, image, sampling)  # warm-up (library handles, allocator)
 
     torch.cuda.reset_peak_memory_stats()
-    i4.launches = 0
-    fa.launches = 0
+    reset_launches()
     out1, t_req = timed_chat(torch, system, image, sampling)
-    launches = {"int4_matmul": i4.launches, "flash_attention": fa.launches}
     peak = torch.cuda.max_memory_allocated()
     gen_ = system.engine.generator
     logits = gen_.last_prefill_logits
     tokens1 = out1["reply"]["tokens"]
     n_layers = cfg.llm.num_layers
     per_forward = 7 * n_layers + 1
+    # int4: prefill + one forward per decode step; flash: the prefill's layers
+    launches = expect_launches({"int4_matmul": per_forward * NEW_TOKENS,
+                                "flash_attention": n_layers}, "slice")
     print(f"slice: status={out1['status']} tokens={len(tokens1)} prefill logits "
-          f"{tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())} "
-          f"launches={launches}", flush=True)
+          f"{tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}", flush=True)
     check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
     check(len(tokens1) == NEW_TOKENS, f"{len(tokens1)} tokens, expected {NEW_TOKENS}")
-    check(launches["int4_matmul"] == per_forward * NEW_TOKENS,
-          f"int4_matmul launches {launches['int4_matmul']} != {per_forward} x {NEW_TOKENS} "
-          "(prefill + one per decode step)")
-    check(launches["flash_attention"] == n_layers,
-          f"flash_attention launches {launches['flash_attention']} != {n_layers} (prefill)")
 
     out2, _ = timed_chat(torch, system, image, sampling)
     check(out2["reply"]["tokens"] == tokens1, "a second identical request gave other tokens")
@@ -1670,18 +1987,6 @@ def train_kernels():
     from vitron_tpu_torch.kernels import int4_matmul as i4
 
     return fa, i4
-
-
-def reset_train_launches():
-    fa, i4 = train_kernels()
-    fa.launches = fa.bwd_kv_launches = fa.bwd_q_launches = i4.launches = 0
-
-
-def train_launches() -> dict:
-    fa, i4 = train_kernels()
-    return {"int4_matmul": i4.launches, "flash_attention": fa.launches,
-            "flash_attention_bwd_kv": fa.bwd_kv_launches,
-            "flash_attention_bwd_q": fa.bwd_q_launches}
 
 
 def train_step_launches(llm_cfg) -> dict:
@@ -1915,9 +2220,9 @@ def phase_train(torch, card: str):
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
-        reset_train_launches()
+        reset_launches()
         tr, losses, seen, fit_s = run(tmp)
-        launches = train_launches()
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         tokens = tr.tokens
         del tr
@@ -1961,7 +2266,8 @@ def phase_train(torch, card: str):
     check(seen[0][3] == 0.0 and not seen[0][4],
           "step 1 (learning rate 0 at the warmup's start) moved the LoRA b or the projector")
     check(seen[1][3] > 0.0 and seen[1][4], "step 2 left the LoRA b or the projector unmoved")
-    check(launches == want, f"training launches {launches} != {want}")
+    check(all(launches[k] == v for k, v in {"conv3x3_same": 0, **want}.items()),
+          f"training launches {launches} != {want}")
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -2033,14 +2339,14 @@ def phase_train_cpu_vs_card(torch, card: str):
             batch = tr._build_batch(ds, [0, 1], train_media_loader(200, cfg.image_tower.image_size),
                                     None)
             if name == "cuda":
-                reset_train_launches()
+                reset_launches()
             t0 = time.perf_counter()
             with torch.enable_grad():
                 loss = make_lora_loss(cfg, tc)(tr.trainable, p, batch)
                 loss.backward()
             if name == "cuda":
                 torch.cuda.synchronize()
-                launches = train_launches()
+                launches = read_launches()
             losses[name] = float(loss.detach())
             grads[name] = {".".join(path): t.grad.float().cpu()
                            for path, t in named_leaves(tr.trainable) if t.grad is not None}
@@ -2062,7 +2368,8 @@ def phase_train_cpu_vs_card(torch, card: str):
           f"launches {launches} (expected {want}) [{card}]", flush=True)
     check(loss_rel <= TRAIN_CPU_GPU_TOL["loss"], f"training loss CPU vs card: {loss_rel}")
     check(grad_rel[worst] <= TRAIN_CPU_GPU_TOL["grad"], f"gradient {worst}: {grad_rel[worst]}")
-    check(launches == want, f"cpu-vs-card launches {launches} != {want}")
+    check(all(launches[k] == v for k, v in want.items()),
+          f"cpu-vs-card launches {launches} != {want}")
 
 
 def main() -> int:
@@ -2094,6 +2401,8 @@ def main() -> int:
         rows.update(phase_diffusion_kernels(torch, card))
         rows.update(phase_seem_kernels(torch, card))
         rows.update(phase_video_kernels(torch, card))
+        rows.update(phase_conv3x3(torch, card))
+        rows.update(phase_i2v_kernels(torch, card))
         chat = phase_slice(torch, card)
         phase_cpu_vs_card(torch, card)
         from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
@@ -2140,8 +2449,21 @@ def main() -> int:
         task_d = phase_task_d(torch, card, pipe)
         del pipe
         torch.cuda.empty_cache()
+        from vitron_tpu_torch.models.diffusion.video_pipelines import Image2VideoConfig
+
+        t0 = time.perf_counter()
+        pipe = build_i2v(torch, Image2VideoConfig(steps=TASK_G_STEPS), dev, seed=0)
+        torch.cuda.synchronize()
+        n_unet = sum(t.numel() for t in tree_leaves(pipe.unet_params))
+        print(f"i2v: UNetSD_I2VGen ({n_unet / 1e9:.3f}B params), SD VAE, CLIP text (1024 wide), "
+              f"float32 random weights and a stub image embedder built on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        task_g = phase_task_g(torch, card, pipe)
+        del pipe
+        torch.cuda.empty_cache()
         phase_video_unet_bf16(torch, card, dev)
         phase_video_cpu_vs_card(torch, card)
+        phase_i2v_cpu_vs_card(torch, card)
     train_rows = phase_train_kernels(torch, card)
     rows["flash"] += train_rows.pop("flash_lse")
     rows["int4"] += train_rows.pop("int4_train")
@@ -2164,14 +2486,15 @@ def main() -> int:
                 "ms_is": f"sum over the {len(r)} main-path shapes above"}
 
     def paths(name):
-        return {"chat": chat.get(name, 0), "task_a": task_a.get(name, 0),
-                "task_c": task_c.get(name, 0), "task_b": task_b.get(name, 0),
-                "task_e": task_e.get(name, 0), "task_c_seem": task_c_seem.get(name, 0),
-                "task_d": task_d.get(name, 0), "train": train.get(name, 0)}
+        return {"chat": chat[name], "task_a": task_a[name], "task_c": task_c[name],
+                "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
+                "task_d": task_d[name], "task_g": task_g[name], "train": train[name]}
 
-    rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae")
-    rows["geglu"] += rows.pop("geglu_video")
-    rows["gn"] += rows.pop("gn_video")
+    rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
+    rows["geglu"] += rows.pop("geglu_video") + rows.pop("geglu_video_i2v")
+    rows["gn"] += rows.pop("gn_video") + rows.pop("gn_video_i2v")
+    rows["tconv"] += rows.pop("tconv_i2v")
+    rows["tattn"] += rows.pop("tattn_i2v")
     print(json.dumps({"kernels": [
         entry("int4_matmul", "vitron_tpu_torch/csrc/int4_matmul.cu",
               "vitron_tpu/kernels/int4_matmul.py:108", "int4", chat["int4_matmul"],
@@ -2204,6 +2527,15 @@ def main() -> int:
                    train["flash_attention_bwd_q"], paths("flash_attention_bwd_q")),
              library_is="none alone: the SDPA backward, which also gives dk and dv, stands "
                         "on flash_attention_bwd_kv's entry"),
+        dict(entry("conv3x3_same", "vitron_tpu_torch/csrc/conv3x3.cu",
+                   "vitron_tpu/kernels/conv2d.py:99", "conv3x3",
+                   sum(paths("conv3x3_same").values()), paths("conv3x3_same")),
+             library_is="cuDNN F.conv2d on the bf16-rounded x and w (channels-last, bf16 in, "
+                        "float32 sums); no main path calls conv3x3_same, in JAX or in the "
+                        "port, so it has no launches there: held at task G's 16 eligible 3x3 "
+                        "shapes",
+             ms_is="sum over phase 5c's 32 rows (task G's 16 eligible 3x3 shapes x float32 "
+                   "and bf16); library_ms is cuDNN's bf16 conv on both rows of a shape"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

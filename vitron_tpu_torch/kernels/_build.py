@@ -61,6 +61,8 @@ _SIGNATURES = {
     "vt_temporal_conv_k3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, F, N, H, D, scale, is_bf16, stream
     "vt_frame_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, w, y, B, H, W, C, D, is_bf16, stream
+    "vt_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

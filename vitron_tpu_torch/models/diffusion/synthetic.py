@@ -1,7 +1,9 @@
-"""Synthetic weights and tokenizer for the diffusion tests and smoke runs.
+"""Synthetic weights, tokenizer and image embedder for the diffusion tests and
+smoke runs.
 
-No checkpoint or CLIP vocabulary is in the repo (the loaders are ROADMAP
-A7), so tests and `chip_smoke.py` run on random weights and stub tokens.
+No checkpoint, CLIP vocabulary or OpenCLIP visual tower is in the repo (the
+loaders are ROADMAP A7), so tests and `chip_smoke.py` run on random weights,
+stub tokens and a stub image embedding.
 
 `init_params` of the UNet (like the JAX one) zero-initialises each ResNet's
 conv2, proj_out, the final out conv, the GLIGEN gates alpha_attn/alpha_dense
@@ -60,3 +62,18 @@ class StubClipTokenizer:
             ids = [self.bos] + words[: max_length - 2] + [self.eos]
             out[i, : len(ids)] = ids
         return {"input_ids": out}
+
+
+class StubImageEmbedder:
+    """Deterministic stand-in for the I2V pipeline's global image embedder
+    (upstream's OpenCLIP visual tower): uint8 [H, W, 3] -> float32
+    [1, y_dim], a fixed random projection (numpy, from `seed`) of the image's
+    per-channel means in [0, 1], so the embedding depends on the image and
+    the UNet's global tokens are live."""
+
+    def __init__(self, y_dim: int, seed: int = 0):
+        self.proj = np.random.RandomState(seed).randn(3, y_dim).astype(np.float32)
+
+    def __call__(self, image) -> np.ndarray:
+        means = np.asarray(image, np.float32).reshape(-1, 3).mean(0) / 255.0
+        return (means @ self.proj)[None]

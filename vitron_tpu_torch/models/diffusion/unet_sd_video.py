@@ -1,28 +1,37 @@
-"""The ZeroScope / T2V video UNet (UNetSD_T2VBase), text-to-video half.
+"""The video UNets: ZeroScope / T2V (UNetSD_T2VBase) and I2VGen-XL (UNetSD_I2VGen).
 
-Port of the t2v half of `vitron_tpu/models/diffusion/unet_sd_video.py`:
-`UNetSDVideoConfig` (:61-113), `block_plan` (:118-173), the pieces
-(:178-351), `_run_block` and `forward` (:379-494) and `init_params`
-(:511-627). Activations are [B, F, H, W, C] as in JAX; spatial layers fold
-the frames into the batch, temporal layers see per-pixel frame sequences.
-Three kernels sit under it on CUDA tensors, besides the group-norm sums (B8)
-of every norm:
+Port of `vitron_tpu/models/diffusion/unet_sd_video.py`: `UNetSDVideoConfig`
+(:61-115), `block_plan` (:118-173), the pieces (:178-374), `_run_block` and
+`forward` (:379-494) and `init_params` (:511-627). Activations are
+[B, F, H, W, C] as in JAX; spatial layers fold the frames into the batch,
+temporal layers see per-pixel frame sequences. Three kernels sit under it on
+CUDA tensors, besides the group-norm sums (B8) of every norm:
 - every res block ends in `video_unet.temporal_conv_block` (B6, the
   temporal k=3 conv, four times);
 - every temporal transformer's two frame self-attentions go to
   `kernels.temporal_attention.frame_attention` (B7), in float32 and bf16;
 - every transformer's feed-forward is `layers.geglu_ff` (B3).
-The spatial attention sites have 720, 180 and 45 tokens at 320x576, under
-`VITRON_FLASH_MIN`, so they stay on `layers._mha`'s einsum path, as in JAX.
+The t2v spatial attention sites have 720, 180 and 45 tokens at 320x576,
+under `VITRON_FLASH_MIN`, so they stay on `layers._mha`'s einsum path, as in
+JAX. At the i2vgen variant's 64x64 latents the 32x32 level's
+self-attention has 1024 tokens and `_mha` sends it to the flash kernel (B2,
+D 64); its cross-attention has 145 keys and stays on the einsum path.
 
-Waits (ROADMAP A11): the i2vgen variant (`variant == "i2vgen"` in `forward`,
-`adaptive_avg_pool2d`, `transformer_v2`; task G), `quantize_params` (W8A8,
-A17), `convert_torch` (the checkpoint converter, A7), and the TPU layout
-experiment `_temporal_mha_nmajor` (`VITRON_TATTN=nmajor`), which computes
-the same function as the default path and is not ported.
+The i2vgen variant (task G) adds the fps embedding (always on) and three
+image streams: the first-frame concat stream (three convs over the latent
+and the frame-position maps, `transformer_v2` over each pixel's frames,
+added twice as upstream does), 64 local-image context tokens (a conv, an
+adaptive pool to 32x32, two stride-2 convs) and `num_tokens` global
+tokens from the image embedding, for a context of 77 + 64 + 4 tokens.
+
+Waits: `quantize_params` (W8A8, ROADMAP A17), `convert_torch` (the
+checkpoint converter, A7), and the TPU layout experiment
+`_temporal_mha_nmajor` (`VITRON_TATTN=nmajor`), which computes the same
+function as the default path and is not ported.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -42,9 +51,9 @@ from vitron_tpu_torch.models.diffusion.video_unet import temporal_conv_block
 class UNetSDVideoConfig:
     """The JAX config, field for field; y_dim, num_tokens,
     adapter_transformer_layers and concat_dim are read only by the i2vgen
-    variant (task G)."""
+    variant."""
 
-    variant: str = "t2v"                      # "t2v" ("i2vgen" waits for task G)
+    variant: str = "t2v"                      # "t2v" | "i2vgen"
     in_dim: int = 4
     dim: int = 512
     y_dim: int = 1024
@@ -62,11 +71,20 @@ class UNetSDVideoConfig:
 
     @property
     def concat_dim(self) -> int:
+        # unet_i2vgen.py:82 overrides the concat_dim argument with in_dim
         return self.in_dim
 
     @property
     def embed_dim(self) -> int:
         return self.dim * 4
+
+    @staticmethod
+    def i2vgen_xl(**kw) -> "UNetSDVideoConfig":
+        """configs/i2vgen_xl_train.yaml:32-51 (dim keeps the default)."""
+        base = dict(variant="i2vgen", in_dim=4, y_dim=1024, context_dim=1024, out_dim=4,
+                    dim_mult=(1, 2, 4, 4), num_heads=8, head_dim=64, num_res_blocks=2)
+        base.update(kw)
+        return UNetSDVideoConfig(**base)
 
     @staticmethod
     def t2v(**kw) -> "UNetSDVideoConfig":
@@ -139,6 +157,38 @@ def block_plan(cfg: UNetSDVideoConfig):
     return input_plan, middle, output_plan
 
 
+def block_plan_hw(cfg: UNetSDVideoConfig, lh: int, lw: int):
+    """(entry, latent height, width at that entry) for every entry of
+    `block_plan` at an lh x lw latent ('down' at its output size, 'up' at
+    its input size)."""
+    h, w = lh, lw
+    input_plan, middle_plan, output_plan = block_plan(cfg)
+    for entries in input_plan + [middle_plan] + output_plan:
+        for e in entries:
+            if e[0] == "down":
+                h, w = (h + 1) // 2, (w + 1) // 2
+            yield e, h, w
+            if e[0] == "up":
+                h, w = 2 * h, 2 * w
+
+
+def conv3x3_sites(cfg: UNetSDVideoConfig, lh: int, lw: int) -> collections.Counter:
+    """(H, W, C, D) of every stride-1 3x3 conv of one UNet call at an lh x lw
+    latent, with its count: conv_in, each res block's two, each upsampling's
+    (at the doubled size) and the out conv. The stride-2 downs and the
+    i2vgen image streams' narrow convs (4 to 16 wide) are left out."""
+    sites = collections.Counter({(lh, lw, cfg.dim, cfg.out_dim): 1})
+    for e, h, w in block_plan_hw(cfg, lh, lw):
+        if e[0] == "conv_in":
+            sites[(h, w, e[1], e[2])] += 1
+        elif e[0] == "res":
+            sites[(h, w, e[1], e[2])] += 1
+            sites[(h, w, e[2], e[2])] += 1
+        elif e[0] == "up":
+            sites[(2 * h, 2 * w, e[1], e[1])] += 1
+    return sites
+
+
 # ------------------------------------------------------------------ pieces
 
 
@@ -150,6 +200,13 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 def _mlp2(p, x):
     """nn.Sequential(Linear, SiLU, Linear)."""
     return F.silu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """torch's AdaptiveAvgPool2d on NHWC x: output bin i of an axis of n
+    averages [floor(i n / out), ceil((i + 1) n / out)), the JAX integral-image
+    form's bins, also when out > n (overlapping bins)."""
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
 
 
 def _temporal_mha(p: Dict[str, Any], x: torch.Tensor, context: torch.Tensor,
@@ -217,6 +274,23 @@ def _res_block(p, x, emb, eps: float = 1e-5):
     return temporal_conv_block(p["tconv"], h)
 
 
+def transformer_v2(layers_p, x: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
+    """TransformerV2 (util.py:1129-1148) on x [S, N, C]: PreNorm attention
+    (+x), then a plain FeedForward (Linear-GELU(erf)-Linear) with its own
+    residual and no pre-norm. The attention is an einsum over all S
+    sequences at once (8192 of 16 frames at full width)."""
+    for lp in layers_p:
+        q, k, v = (layer_norm(x, lp["norm"]) @ lp["qkv_w"]).chunk(3, dim=-1)
+        b, n, inner = q.shape
+        q, k, v = (a.reshape(b, n, heads, dim_head) for a in (q, k, v))
+        sim = torch.einsum("bnhd,bmhd->bhnm", q, k).to(torch.float32) * dim_head ** -0.5
+        attn = torch.softmax(sim, dim=-1).to(v.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, inner)
+        x = out @ lp["out_w"] + lp["out_b"] + x
+        x = F.gelu(x @ lp["ff_w1"] + lp["ff_b1"]) @ lp["ff_w2"] + lp["ff_b2"] + x
+    return x
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -247,23 +321,66 @@ def _run_block(entries, layers, x, emb_bt, ctx_bt):
     return x
 
 
+def _image_streams(params, cfg: UNetSDVideoConfig, x, f: int, ctx, image, local_image):
+    """The i2vgen conditioning (unet_i2vgen.py:280-325): x [B, F, H, W,
+    in_dim] with the first-frame concat stream appended on channels, and the
+    context with the 64 local-image tokens and the global tokens appended."""
+    b, _, h, w, _ = x.shape
+    dtype = x.dtype
+    li = local_image.to(dtype)                              # [B, H, W, 4]
+    xi = li[:, None]
+    if f > 1:
+        # frame 0 = the latent; frame k = the constant k / (f - 1)
+        pos = torch.arange(1, f, dtype=dtype, device=x.device) / (f - 1)
+        xi = torch.cat([xi, pos[None, :, None, None, None].expand(
+            b, f - 1, h, w, li.shape[-1])], dim=1)
+    xi = xi.reshape((b * f,) + xi.shape[2:])
+    cp = params["local_concat"]
+    xi = conv2d(xi, cp["conv0_w"], cp["conv0_b"], padding=1)
+    xi = conv2d(F.silu(xi), cp["conv1_w"], cp["conv1_b"], padding=1)
+    xi = conv2d(F.silu(xi), cp["conv2_w"], cp["conv2_b"], padding=1)
+    cd = xi.shape[-1]
+    # (b h w) sequences of f frames for the adapter transformer
+    tok = xi.reshape(b, f, h, w, cd).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, cd)
+    tok = transformer_v2(params["local_temporal"], tok, heads=2, dim_head=cd)
+    concat = tok.reshape(b, h, w, f, cd).permute(0, 3, 1, 2, 4) * 2.0  # added twice upstream
+    x = torch.cat([x, concat.to(dtype)], dim=-1)
+
+    lp = params["local_embed"]
+    lc = conv2d(li, lp["conv0_w"], lp["conv0_b"], padding=1)
+    lc = adaptive_avg_pool2d(F.silu(lc), (32, 32))
+    lc = conv2d(lc, lp["conv1_w"], lp["conv1_b"], stride=2, padding=1)
+    lc = conv2d(F.silu(lc), lp["conv2_w"], lp["conv2_b"], stride=2, padding=1)
+    ctx = torch.cat([ctx, lc.reshape(b, -1, lc.shape[-1])], dim=1)   # + [B, 64, ctx]
+    if image is not None:
+        ic = _mlp2(params["context_embed"], image.to(dtype))
+        ctx = torch.cat([ctx, ic.reshape(b, cfg.num_tokens, cfg.context_dim)], dim=1)
+    return x, ctx
+
+
 def forward(params: Dict[str, Any], cfg: UNetSDVideoConfig, x: torch.Tensor, t: torch.Tensor,
-            y: Optional[torch.Tensor] = None, fps: Optional[torch.Tensor] = None) -> torch.Tensor:
+            y: Optional[torch.Tensor] = None, fps: Optional[torch.Tensor] = None,
+            image: Optional[torch.Tensor] = None,
+            local_image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, F, H, W, in_dim] latents; t / fps [B]; y [B, L, context_dim]
-    text tokens (None -> params['zero_y'][:, :1]). Returns [B, F, H, W,
-    out_dim]. The t2v variant (unet_t2v.py:210-277)."""
-    if cfg.variant != "t2v":
-        raise NotImplementedError(f"the {cfg.variant!r} video UNet is not ported yet (task G, "
-                                  "ROADMAP A11)")
+    text tokens (None -> params['zero_y'][:, :1]); i2vgen only: image
+    [B, y_dim] global image embedding (None: no global tokens) and
+    local_image [B, H, W, in_dim] first-frame latent. Returns [B, F, H, W,
+    out_dim] (unet_i2vgen.py:243-346 / unet_t2v.py:210-277)."""
+    if cfg.variant not in ("t2v", "i2vgen"):
+        raise ValueError(f"unknown video UNet variant {cfg.variant!r}")
     b, f = x.shape[:2]
     dtype = x.dtype
     emb = _mlp2(params["time_embed"], sinusoidal_embedding(t, cfg.dim).to(dtype))
-    if cfg.use_fps_condition and fps is not None:
+    if cfg.variant == "i2vgen" or (cfg.use_fps_condition and fps is not None):
         emb = emb + _mlp2(params["fps_embed"], sinusoidal_embedding(fps, cfg.dim).to(dtype))
     emb_bt = emb.repeat_interleave(f, dim=0)  # (b f) ordering, b-major
     if y is None:
         y = params["zero_y"][:, :1].expand(b, 1, cfg.context_dim)
-    ctx_bt = y.to(dtype).repeat_interleave(f, dim=0)
+    ctx = y.to(dtype)
+    if cfg.variant == "i2vgen":
+        x, ctx = _image_streams(params, cfg, x, f, ctx, image, local_image)
+    ctx_bt = ctx.repeat_interleave(f, dim=0)
 
     input_plan, middle_plan, output_plan = block_plan(cfg)
     hs = []
@@ -286,12 +403,13 @@ def forward(params: Dict[str, Any], cfg: UNetSDVideoConfig, x: torch.Tensor, t: 
 
 
 def init_params(gen: torch.Generator, cfg: UNetSDVideoConfig, device) -> Dict[str, Any]:
-    """Random float32 t2v params with the JAX init's keys, shapes, scales and
+    """Random float32 params with the JAX init's keys, shapes, scales and
     zero leaves (each tconv block's conv3_w, every res block's conv2_w,
-    every proj_out_w, the out conv, fps_embed's last layer and the biases):
-    drawn on `device`, so a full-width UNet is made on the card."""
-    if cfg.variant != "t2v":
-        raise NotImplementedError(f"the {cfg.variant!r} video UNet is not ported yet")
+    every proj_out_w, the out conv, fps_embed's last layer and the biases),
+    with the i2vgen variant's image streams: drawn on `device`, so a
+    full-width UNet is made on the card."""
+    if cfg.variant not in ("t2v", "i2vgen"):
+        raise ValueError(f"unknown video UNet variant {cfg.variant!r}")
     f32 = torch.float32
     ed = cfg.embed_dim
 
@@ -374,6 +492,24 @@ def init_params(gen: torch.Generator, cfg: UNetSDVideoConfig, device) -> Dict[st
         "out_norm_s": ones(cfg.dim), "out_norm_b": zeros(cfg.dim),
         "out_w": conv(3, cfg.dim, cfg.out_dim, zero=True), "out_b": zeros(cfg.out_dim),
     }
-    if cfg.use_fps_condition:
+    if cfg.variant == "i2vgen" or cfg.use_fps_condition:
         params["fps_embed"] = mlp2(cfg.dim, ed, ed, zero_last=True)
+    if cfg.variant == "i2vgen":
+        cd, inner = cfg.concat_dim, 2 * cfg.concat_dim
+        params["context_embed"] = mlp2(cfg.y_dim, ed, cfg.context_dim * cfg.num_tokens)
+        params["local_concat"] = {
+            "conv0_w": conv(3, 4, cd * 4), "conv0_b": zeros(cd * 4),
+            "conv1_w": conv(3, cd * 4, cd * 4), "conv1_b": zeros(cd * 4),
+            "conv2_w": conv(3, cd * 4, cd), "conv2_b": zeros(cd)}
+        params["local_temporal"] = [
+            {"norm": ln(cd), "qkv_w": lin(cd, inner * 3), "out_w": lin(inner, cd),
+             "out_b": zeros(cd), "ff_w1": lin(cd, cd * 4), "ff_b1": zeros(cd * 4),
+             "ff_w2": lin(cd * 4, cd), "ff_b2": zeros(cd)}
+            for _ in range(cfg.adapter_transformer_layers)]
+        # upstream hardcodes 1024 output channels (unet_i2vgen.py:132),
+        # context_dim in every shipped config
+        params["local_embed"] = {
+            "conv0_w": conv(3, 4, cd * 8), "conv0_b": zeros(cd * 8),
+            "conv1_w": conv(3, cd * 8, cd * 16), "conv1_b": zeros(cd * 16),
+            "conv2_w": conv(3, cd * 16, cfg.context_dim), "conv2_b": zeros(cfg.context_dim)}
     return params

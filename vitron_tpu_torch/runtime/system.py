@@ -6,7 +6,8 @@ routing through the port's `runtime/router.py`). Of the task backends, B
 (image segmentation) and E (video tracking) run on SEEM (`register_seem`,
 :57-250), A (image generation) and C (image editing) on GLIGEN
 (`register_gligen`, :252-347), D (video generation) on the T2V pipeline
-(`register_text2video`, :349-357); C's edit mask comes from SEEM when no
+(`register_text2video`, :349-357), G (image to video) on the I2V pipeline
+(`register_image2video`, :359-371); C's edit mask comes from SEEM when no
 sketch and no region is given. A tool call for a backend not registered is answered
 as unavailable, as the JAX system answers it.
 """
@@ -250,6 +251,19 @@ class VitronSystem:
             return {"video": pipeline.generate(prompt).cpu().numpy()}
 
         self.registry.register("D", handle_d)
+
+    def register_image2video(self, pipeline):
+        """G image_to_video on an `Image2VideoPipeline`: the request image
+        (any size: the pipeline resizes it, C7) and the first instruction (or
+        the reply text) as the prompt."""
+
+        def handle_g(req: TaskRequest) -> Dict[str, Any]:
+            if req.image is None:
+                return {"status": "error", "error": "image_to_video needs an image"}
+            prompt = (req.instructions or [req.text])[0]
+            return {"video": pipeline.generate(np.asarray(req.image), prompt).cpu().numpy()}
+
+        self.registry.register("G", handle_g)
 
     def prepare(self, user_message: str, image: Optional[np.ndarray] = None,
                 video: Optional[np.ndarray] = None,
