@@ -123,9 +123,11 @@ Phases (any failure exits non-zero and prints no `ok` line):
    config's a step; step seconds, trained tokens/s, peak memory.
 20. training on the CPU and the card: one LoRA step's loss and gradients
    on a 2-layer full-width float32 model with int4 projections, pad_len 512.
-The line before the last is a JSON object with one entry per kernel (with
-its launches on each main path); the last line is {"ok": true, "device":
-{...}}.
+Then one line lists each bf16 B2 row (the 15 of phases 3, 4, 5b, 5d and 18
+that every main path's type gives it) with its kernel ms beside
+F.scaled_dot_product_attention's. The line before the last is a JSON object
+with one entry per kernel (with its launches on each main path); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -142,6 +144,14 @@ import numpy as np
 INT4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 INT4_TOL = 1e-2   # max |kernel - plain| / max |plain|: bf16 output rounding
 FLASH_TOL = 2e-2  # max |kernel - plain| on unit-normal bf16 inputs
+# B2 is also held at each query row's own scale: max |kernel - plain| over a
+# row's D outputs over that row's largest |plain| (a row whose plain outputs
+# are all 0 must be 0). The kernel rounds p against its running max and the
+# plain version against the row max, and both round the output to bf16: one
+# output flip is at most one bf16 ulp, 2^-7 of the row's largest. Dropping
+# one 64-key tile of 4,096 keys, or the 30-key ragged tail at 4,126, moves a
+# row by ~0.08 of its largest (unit-normal inputs).
+FLASH_ROW_REL = 2 ** -6
 CPU_GPU_TOL = 1e-3  # float32 on both sides: only the order of sums differs
 GEGLU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 GN_TOL = 1e-5  # max |kernel - plain| / max |plain|: float32 sums in two orders
@@ -270,6 +280,34 @@ def sdpa_ms(torch, q, k, v, attn_mask=None) -> float:
         qt, kt, vt, attn_mask=attn_mask, enable_gqa=gqa), iters=10)
 
 
+def flash_row_rel(got, want) -> float:
+    """max over query rows of max |got - want| over the row's D outputs
+    divided by the row's largest |want| (0/0 counts as 0), for [..., D]
+    outputs of B2."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    return (diff / scale.clamp_min(1e-30)).max().item()
+
+
+def check_flash(what: str, err: float, row_rel: float) -> None:
+    check(err <= FLASH_TOL and row_rel <= FLASH_ROW_REL,
+          f"flash_attention {what}: abs err {err} (limit {FLASH_TOL}), row rel err {row_rel} "
+          f"(limit {FLASH_ROW_REL})")
+
+
+# B2's rows in the smoke: the chat path's (name, S, T, N, KH, q_offset,
+# valid slots; B 1, D 128, causal), the GLIGEN path's ([B, S, N, D], keys S,
+# non-causal, shift 0), the video paths' (`video_flash_sites`) and the
+# trainer's (TRAIN_FLASH_CASES); `b2_shapes` lists them all
+CHAT_FLASH_CASES = (
+    ("prefill", 384, 512, 32, 32, 0, 305),
+    ("cached-chunk", 64, 512, 32, 32, 128, 192),
+    ("gqa", 384, 512, 32, 8, 0, 305),
+)
+GLIGEN_FLASH_SHAPES = ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80), (2, 1054, 8, 80),
+                       (1, 4096, 1, 512))
+
+
 def phase_kernels(torch, card: str):
     from vitron_tpu_torch.kernels import flash_attention as fa
     from vitron_tpu_torch.kernels import int4_matmul as i4
@@ -300,12 +338,7 @@ def phase_kernels(torch, card: str):
             rows["int4"].append(r)
 
     b, d = 1, 128
-    cases = [  # name, S, T, N, KH, q_offset, valid slots
-        ("prefill", 384, 512, 32, 32, 0, 305),
-        ("cached-chunk", 64, 512, 32, 32, 128, 192),
-        ("gqa", 384, 512, 32, 8, 0, 305),
-    ]
-    for name, s_len, t_len, nh, kh, off, n_valid in cases:
+    for name, s_len, t_len, nh, kh, off, n_valid in CHAT_FLASH_CASES:
         q = torch.randn((b, s_len, nh, d), generator=g, device=dev).to(torch.bfloat16)
         k = torch.randn((b, t_len, kh, d), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((b, t_len, kh, d), generator=g, device=dev).to(torch.bfloat16)
@@ -315,17 +348,20 @@ def phase_kernels(torch, card: str):
         want = fa.flash_attention_plain(q, k, v, kv_mask=mask, q_offset=off).float()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
+        row_rel = flash_row_rel(got, want)
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, kv_mask=mask, q_offset=off))
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, kv_mask=mask,
                                                                    q_offset=off))
         visible = fa._visible(b, s_len, t_len, dev, mask, off, True)[:, 0, 0]  # [B, S, T]
         lib_ms = sdpa_ms(torch, q, k, v, visible[:, None])
-        r = row(err, rel, ms, plain_ms, nbytes(q, k, v, mask, got.to(torch.bfloat16)),
-                4 * d * nh * int(visible.sum()), "bf16_tensor", lib_ms)
+        flops = 4 * d * nh * int(visible.sum())
+        r = dict(row(err, rel, ms, plain_ms, nbytes(q, k, v, mask, got.to(torch.bfloat16)),
+                     flops, "bf16_tensor", lib_ms), b2=f"chat {name}")
         print(f"flash_attention {name} S={s_len} T={t_len} N={nh} K={kh} D={d} "
-              f"q_offset={off}: abs_err={err:.3e} rel_err={rel:.3e} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
-        check(err <= FLASH_TOL, f"flash_attention {name} abs err {err} > {FLASH_TOL}")
+              f"q_offset={off}: abs_err={err:.3e} rel_err={rel:.3e} row_rel_err={row_rel:.3e} "
+              f"kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s) plain "
+              f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+        check_flash(name, err, row_rel)
         rows["flash"].append(r)
     del flush
     return rows
@@ -342,8 +378,7 @@ def phase_diffusion_kernels(torch, card: str):
     g = torch.Generator(device=dev).manual_seed(2)
     rows = {"flash_gligen": [], "geglu": [], "gn": []}
     bf16 = torch.bfloat16
-    for b, s_len, heads, d in ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80),
-                               (2, 1054, 8, 80), (1, 4096, 1, 512)):
+    for b, s_len, heads, d in GLIGEN_FLASH_SHAPES:
         q, k, v = (torch.randn((b, s_len, heads, d), generator=g, device=dev).to(bf16)
                    for _ in range(3))
         call = dict(causal=False, softmax_shift=0.0)
@@ -351,16 +386,18 @@ def phase_diffusion_kernels(torch, card: str):
         want = fa.flash_attention_plain(q, k, v, **call).float()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
+        row_rel = flash_row_rel(got, want)
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **call), iters=10)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=10)
         flops = 4 * b * heads * s_len * s_len * d
         tflops = flops / (ms * 1e-3) / 1e12
-        r = row(err, rel, ms, plain_ms, 4 * nbytes(q), flops, "bf16_tensor",
-                sdpa_ms(torch, q, k, v))
+        r = dict(row(err, rel, ms, plain_ms, 4 * nbytes(q), flops, "bf16_tensor",
+                     sdpa_ms(torch, q, k, v)), b2=f"gligen [{b},{s_len},{heads},{d}]")
         print(f"flash_attention gligen [{b},{s_len},{heads},{d}] bf16 non-causal shift 0: "
-              f"abs_err={err:.3e} kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain "
-              f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
-        check(err <= FLASH_TOL, f"flash_attention D={d} S={s_len} abs err {err} > {FLASH_TOL}")
+              f"abs_err={err:.3e} rel_err={rel:.3e} row_rel_err={row_rel:.3e} kernel "
+              f"{ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {plain_ms:.4f} ms {bound_text(r)} "
+              f"[{card}]", flush=True)
+        check_flash(f"D={d} S={s_len}", err, row_rel)
         rows["flash_gligen"].append(r)
         del q, k, v, got, want
 
@@ -1189,6 +1226,30 @@ def phase_video_kernels(torch, card: str):
                              t2v.text.max_length, seed=9)
 
 
+def video_flash_sites(ucfg, lh: int, lw: int, frames: int, n_ctx: int, encode: bool):
+    """(what, B, S, T, heads, D) of B2 on a video path: the VAE's
+    single-head mid attention at D 512 (the decode of the frames and, with
+    `encode`, the encode of one image) and the UNet's spatial sites (CFG
+    batch 2 x `frames`) that reach VITRON_FLASH_MIN (self-attention;
+    cross-attention when the `n_ctx` context tokens do too), non-causal,
+    shift 0, bf16 as `layers._mha` calls it."""
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
+
+    fmin = _flash_min()
+    sites = [("vae decode", frames, lh * lw, lh * lw, 1, 512)]
+    if encode:
+        sites.append(("vae encode", 1, lh * lw, lh * lw, 1, 512))
+    for e, n in sorted({(e, n) for e, n in video_plan(ucfg, lh, lw) if e[0] == "sattn"},
+                       key=lambda en: -en[1]):
+        if n >= fmin:
+            sites.append((f"unet self-attention C={e[1]}", 2 * frames, n, n, e[2],
+                          ucfg.head_dim))
+        if n >= fmin and n_ctx >= fmin:
+            sites.append((f"unet cross-attention C={e[1]}", 2 * frames, n, n_ctx, e[2],
+                          ucfg.head_dim))
+    return sites
+
+
 def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: int, n_ctx: int,
                       seed: int, encode_hw=None):
     """A video path's kernels against their plain versions at the shapes one
@@ -1210,7 +1271,6 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
     from vitron_tpu_torch.kernels import group_norm as gn
     from vitron_tpu_torch.kernels import temporal_attention as ta
     from vitron_tpu_torch.kernels import temporal_conv as tc
-    from vitron_tpu_torch.models.diffusion.layers import _flash_min
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1337,38 +1397,27 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
             del x, got, again, want
         del x32
 
-    # B2: the VAE's single-head mid attention at D 512 (the decode of the
-    # frames, the encode of one image) and the UNet's spatial sites that
-    # reach VITRON_FLASH_MIN (self-attention; cross-attention when the
-    # context does too), non-causal, shift 0
-    fmin = _flash_min()
-    sites = [("vae decode", frames, lh * lw, lh * lw, 1, 512)]
-    if encode_hw:
-        sites.append(("vae encode", 1, lh * lw, lh * lw, 1, 512))
-    for e, n in sorted({(e, n) for e, n in video_plan(ucfg, lh, lw) if e[0] == "sattn"},
-                       key=lambda en: -en[1]):
-        if n >= fmin:
-            sites.append((f"unet self-attention C={e[1]}", b * f, n, n, e[2], ucfg.head_dim))
-        if n >= fmin and n_ctx >= fmin:
-            sites.append((f"unet cross-attention C={e[1]}", b * f, n, n_ctx, e[2],
-                          ucfg.head_dim))
     call = dict(causal=False, softmax_shift=0.0)
-    for what, bb, s_len, t_len, nh, d in sites:
+    for what, bb, s_len, t_len, nh, d in video_flash_sites(ucfg, lh, lw, frames, n_ctx,
+                                                           encode_hw is not None):
         q = torch.randn((bb, s_len, nh, d), generator=g, device=dev).to(bf16)
         k, v = (torch.randn((bb, t_len, nh, d), generator=g, device=dev).to(bf16)
                 for _ in range(2))
         got = fa.flash_attention(q, k, v, **call)
-        err, rel = rel_err(got, fa.flash_attention_plain(q, k, v, **call))
+        want = fa.flash_attention_plain(q, k, v, **call)
+        err, rel = rel_err(got, want)
+        row_rel = flash_row_rel(got, want)
+        del want
         ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v, **call), calls=2)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=3)
         flops = 4 * bb * nh * s_len * t_len * d
-        r = row(err, rel, ms, plain_ms, nbytes(q, k, v, got), flops, "bf16_tensor",
-                sdpa_ms(torch, q, k, v))
+        r = dict(row(err, rel, ms, plain_ms, nbytes(q, k, v, got), flops, "bf16_tensor",
+                     sdpa_ms(torch, q, k, v)), b2=f"{what} [{bb},{s_len},{nh},{d}]")
         print(f"flash_attention {what} [{bb},{s_len},{nh},{d}] keys {t_len} bf16 non-causal "
-              f"shift 0: abs_err={err:.3e} rel_err={rel:.3e} kernel {ms:.4f} ms "
-              f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, graph-replayed) plain "
+              f"shift 0: abs_err={err:.3e} rel_err={rel:.3e} row_rel_err={row_rel:.3e} kernel "
+              f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, graph-replayed) plain "
               f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
-        check(err <= FLASH_TOL, f"flash_attention {what}: abs err {err} > {FLASH_TOL}")
+        check_flash(what, err, row_rel)
         rows["flash_vae"].append(r)
         del q, k, v, got
     return rows
@@ -1476,6 +1525,17 @@ def phase_i2v_kernels(torch, card: str):
                       ("gn_video", "B8"), ("flash_vae", "B2")):
         print_sums(f"task-G shapes, {name}", rows[key], card)
     return {f"{k}_i2v": v for k, v in rows.items()}
+
+
+def print_b2_rows(rs, card: str) -> None:
+    """One line of B2's bf16 rows (every main path's type; `b2` is None on
+    the float32 ones): each row's kernel ms beside
+    F.scaled_dot_product_attention's on the same inputs."""
+    bf = [r for r in rs if r["b2"]]
+    faster = sum(r["ms"] < r["library_ms"] for r in bf)
+    print("B2 bf16 rows, kernel ms / SDPA ms: "
+          + "; ".join(f"{r['b2']} {r['ms']:.4f} / {r['library_ms']:.4f}" for r in bf)
+          + f" ({faster} of {len(bf)} faster than SDPA) [{card}]", flush=True)
 
 
 def print_sums(what: str, rs, card: str) -> None:
@@ -1654,12 +1714,13 @@ def phase_task_g(torch, card: str, pipe):
     return launches
 
 
-# device kernels of a video UNet call by what launched them: the port's
+# device kernels of a video UNet call by what launched them: B2, the port's
 # GEMM template (mode 1 = B6's temporal conv, 0 and 2 = B3's two products,
 # plus its split-K reduction), B7, B8, cuDNN's convolutions, cuBLAS's
 # products (projections, attention einsums), and the rest (PyTorch's
 # elementwise and reduction kernels); the first pattern that matches counts
 VIDEO_KERNEL_GROUPS = (
+    ("B2 flash_attention", r"flash_fwd"),
     ("B6 temporal_conv_k3", r"gemm_(f32|bf16_tc)_kernel<1\b"),
     ("B3 geglu_ff", r"gemm_(f32|bf16_tc)_kernel<[02]\b|split_k_reduce"),
     ("B7 frame_attention", r"frame_attention_kernel"),
@@ -1971,7 +2032,7 @@ TRAIN_CPU_GPU_TOL = {"loss": 1e-4, "grad": 1e-3}  # grad: max |card - cpu| / max
 TRAIN_WORDS = (200, 350, 1000, 1250)
 TRAIN_KERNEL_GROUPS = (
     ("B1 int4_matmul", r"int4_(gemm|gemv|split_reduce)_kernel"),
-    ("B2 flash forward", r"flash_fwd_kernel"),
+    ("B2 flash forward", r"flash_fwd"),
     ("B5a flash dK/dV", r"flash_bwd_kv_kernel"),
     ("B5b flash dQ", r"flash_bwd_q_kernel"),
     ("products (cuBLAS)", r"gemm|cutlass|xmma"))
@@ -1980,6 +2041,41 @@ TRAIN_FLASH_CASES = [  # name, B, S, T, N, KH, D, q_offset, causal, valid slots 
     ("gqa", 2, 1024, 1536, 32, 8, 128, 512, True, (1536, 1402)),
     ("non-causal-d64", 2, 1024, 1024, 16, 16, 64, 0, False, (1024, 899)),
 ]
+
+
+def b2_shapes() -> list:
+    """Every shape the smoke holds B2 at, in the order of its phases (3, 4,
+    5b, 18, 5d): a label, the shape (B, S, T, N, KH, D), q_offset, causal,
+    the valid key slots of each batch row (None: no kv_mask), softmax_shift,
+    whether the LSE is returned, and the input type. `tools/flash_rows.py`
+    times these."""
+    from vitron_tpu_torch.models.diffusion.video_pipelines import (Image2VideoConfig,
+                                                                   Text2VideoConfig)
+
+    def shape(label, b, s, t, n, kh, d, off=0, causal=False, valid=None, shift=0.0, lse=False,
+              dtype="bfloat16"):
+        return dict(label=label, b=b, s=s, t=t, n=n, kh=kh, d=d, q_offset=off, causal=causal,
+                    valid=valid, shift=shift, lse=lse, dtype=dtype)
+
+    out = [shape(f"chat {name} [1,{s},{n},128]", 1, s, t, n, kh, 128, off, True, (n_valid,),
+                 None)
+           for name, s, t, n, kh, off, n_valid in CHAT_FLASH_CASES]
+    out += [shape(f"gligen [{b},{s},{n},{d}]", b, s, s, n, n, d)
+            for b, s, n, d in GLIGEN_FLASH_SHAPES]
+    t2v = Text2VideoConfig()
+    out += [shape(f"task D {what} [{b},{s},{n},{d}]", b, s, t, n, n, d)
+            for what, b, s, t, n, d in video_flash_sites(t2v.unet, *VIDEO_LATENT, VIDEO_FRAMES,
+                                                         t2v.text.max_length, False)]
+    out += [shape(f"train {name} [{b},{s},{n},{d}]", b, s, t, n, kh, d, off, causal, valid,
+                  None, True, dtype)
+            for dtype in ("bfloat16", "float32")
+            for name, b, s, t, n, kh, d, off, causal, valid in TRAIN_FLASH_CASES]
+    i2v = Image2VideoConfig()
+    out += [shape(f"task G {what} [{b},{s},{n},{d}]", b, s, t, n, n, d)
+            for what, b, s, t, n, d in video_flash_sites(
+                i2v.unet, I2V_LATENT, I2V_LATENT, I2V_FRAMES,
+                i2v_context(i2v.unet, i2v.text.max_length), True)]
+    return out
 
 
 def train_kernels():
@@ -2056,6 +2152,7 @@ def phase_train_kernels(torch, card: str):
             want_dk, want_dv = fa.flash_attention_bwd_kv_plain(*args, out, lse, dout)
             want_dq = fa.flash_attention_bwd_q_plain(*args, out, lse, dout)
             live = want_lse > -1e30
+            row_rel = flash_row_rel(out, want_out)
             errs = {"out": rel_err(out, want_out), "lse": rel_err(lse[live], want_lse[live]),
                     "dq": rel_err(dq, want_dq), "dk": rel_err(dk, want_dk),
                     "dv": rel_err(dv, want_dv)}
@@ -2072,9 +2169,10 @@ def phase_train_kernels(torch, card: str):
                 *args, out, lse, dout), iters=3, warmup=1)
             lib_bwd = sdpa_bwd_ms(torch, q, k, v, visible[:, None], dout)
             lib_fwd = sdpa_ms(torch, q, k, v, visible[:, None])
-            row_fwd = row(max(errs["out"][0], errs["lse"][0]), max(errs["out"][1], errs["lse"][1]),
-                          ms_fwd, plain_fwd, nbytes(q, k, v, mask, out, lse),
-                          4 * d * pairs, peak, lib_fwd)
+            row_fwd = dict(row(max(errs["out"][0], errs["lse"][0]),
+                               max(errs["out"][1], errs["lse"][1]), ms_fwd, plain_fwd,
+                               nbytes(q, k, v, mask, out, lse), 4 * d * pairs, peak, lib_fwd),
+                           b2=f"train {name}" if dtype == torch.bfloat16 else None)
             # B5a does 4 of the backward's products (scores, dP, dV, dK), B5b 3
             # (scores, dP, dQ); the SDPA backward (dq, dk, dv in one call)
             # stands beside B5a + B5b and is written on B5a's row
@@ -2088,14 +2186,17 @@ def phase_train_kernels(torch, card: str):
             print(f"train flash {name} {tn} B={b} S={s_len} T={t_len} N={nh} K={kh} D={d} "
                   f"q_offset={off} causal={causal}: rel_err "
                   + " ".join(f"{k_}={e[1]:.3e}" for k_, e in errs.items())
-                  + f" (limit {TRAIN_TOL[tn]}), same bits twice={same}; B2+LSE {ms_fwd:.4f} ms "
-                  f"plain {plain_fwd:.4f} {bound_text(row_fwd)}; B5a {ms_kv:.4f} ms plain "
+                  + f" (limit {TRAIN_TOL[tn]}), out row_rel_err={row_rel:.3e} (limit "
+                  f"{FLASH_ROW_REL}), same bits twice={same}; B2+LSE {ms_fwd:.4f} ms "
+                  f"({4 * d * pairs / (ms_fwd * 1e-3) / 1e12:.1f} TFLOP/s) plain "
+                  f"{plain_fwd:.4f} {bound_text(row_fwd)}; B5a {ms_kv:.4f} ms plain "
                   f"{plain_kv:.4f} {bound_text(row_kv)}; B5b {ms_q:.4f} ms plain {plain_q:.4f} "
                   f"{bound_text(row_q)}; B5a+B5b {ms_kv + ms_q:.4f} ms against the five "
                   f"products' bound {five:.4f} ms and the SDPA backward {lib_bwd:.4f} ms "
                   f"[{card}]", flush=True)
             check(all(e[1] <= TRAIN_TOL[tn] for e in errs.values()),
                   f"train flash {name} {tn}: {errs}")
+            check_flash(f"train {name} {tn}", errs["out"][0], row_rel)
             check(same, f"train flash {name} {tn}: two runs gave other bits")
             rows["flash_lse"].append(row_fwd)
             rows["bwd_kv"].append(row_kv)
@@ -2491,6 +2592,7 @@ def main() -> int:
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
+    print_b2_rows(rows["flash"], card)
     rows["geglu"] += rows.pop("geglu_video") + rows.pop("geglu_video_i2v")
     rows["gn"] += rows.pop("gn_video") + rows.pop("gn_video_i2v")
     rows["tconv"] += rows.pop("tconv_i2v")

@@ -36,6 +36,8 @@
 
 namespace {
 
+using vt_gemm::pack_bf16;
+
 constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
 constexpr int kAP = kBK + 8;  // A row pitch in shared memory (values): rows in distinct banks
 constexpr int kBP = kBN + 8;  // B row pitch
@@ -44,17 +46,12 @@ struct ConvShape {
   int B, H, W, C, D;
 };
 
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo at the lower address
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 // 8 consecutive values at p (16-byte aligned) as 8 bfloat16 in a uint4
 __device__ __forceinline__ uint4 load8_bf16(const float* p) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
-                    pack_bf16x2(b.z, b.w));
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                    pack_bf16(b.z, b.w));
 }
 __device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));

@@ -31,6 +31,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace vt_gemm {
 namespace {  // internal linkage: each source that includes this has its own copy
@@ -195,43 +196,14 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // sums float32, as on the CUDA-core path, only in another order). Tiles are
 // copied to shared memory with cp.async (16 bytes a thread, zero-filled
 // outside the matrix and outside the frame range), two stages deep, and read
-// into fragments with ldmatrix; rows are padded by 8 values so the eight
-// rows of each ldmatrix land in distinct banks. kGeglu interleaves the B
+// into fragments with ldmatrix (mma_sync.cuh); rows are padded by 8 values
+// so the eight rows of each ldmatrix land in distinct banks. kGeglu interleaves the B
 // tile in 8-column groups (a h0.., g h0.., a h0+8.., ...), so one thread
 // holds the a and g sums of the same hidden columns.
 
 constexpr int kTK = 32;           // depth per stage
 constexpr int kAP = kTK + 8;      // A row pitch in shared memory (values)
 constexpr int kBP = kBN + 8;      // B row pitch
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -294,7 +266,7 @@ gemm_bf16_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __
       const bool ok = b_ok[i] && k < ke;
       cp_async16(&Bs[st][b_k[i]][b_n[i]], ok ? B + (size_t)k * s.ldb + b_col[i] : B, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
 
   float acc[4][4][4];
@@ -311,9 +283,9 @@ gemm_bf16_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
       load_stage((kt + 1) & 1, kb + (kt + 1) * kTK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();
     const int st = kt & 1;

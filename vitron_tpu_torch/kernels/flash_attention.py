@@ -81,22 +81,20 @@ def flash_attention_plain(q, k, v, kv_mask=None, q_offset=0, scale=None, causal=
     """Plain PyTorch version of the forward kernel: float32 logits and
     softmax, exp(logit - rowmax) (or exp(min(logit - shift, 60)) with
     softmax_shift) over visible slots, out = (p @ v) / max(sum p, 1e-30) --
-    zeros for a row with no visible key.
+    zeros for a row with no visible key. As the kernel (TPU and CUDA) does,
+    q * scale is rounded to q's dtype before the logits and p to v's dtype
+    before p @ v, while the sum adds the unrounded float32 p (for float32
+    both roundings are the identity).
 
     return_lse=True gives (out, lse) with lse [B, N, S] float32 = (rowmax, or
-    the shift) + log(max(sum p, 1e-30)), and rounds q * scale to q's dtype
-    before the logits, as the kernel does when it writes the LSE."""
+    the shift) + log(max(sum p, 1e-30))."""
     b, s, n, d = q.shape
     t, kv_heads = k.shape[1], k.shape[2]
     groups = n // kv_heads
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if return_lse:
-        qq = _scaled_q(q, scale).reshape(b, s, kv_heads, groups, d)
-        logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(torch.float32))
-    else:
-        qq = q.to(torch.float32).reshape(b, s, kv_heads, groups, d)
-        logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(torch.float32)) * scale
+    qq = _scaled_q(q, scale).reshape(b, s, kv_heads, groups, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qq, k.to(torch.float32))
     mask = _visible(b, s, t, q.device, kv_mask, q_offset, causal)
     logits = torch.where(mask, logits, NEG_INF)
     if softmax_shift is None:
@@ -107,7 +105,8 @@ def flash_attention_plain(q, k, v, kv_mask=None, q_offset=0, scale=None, causal=
         p = torch.exp(torch.clamp(logits - softmax_shift, max=60.0))
     p = torch.where(mask, p, 0.0)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32)) / denom.permute(
+    pv = p.to(v.dtype).to(torch.float32)
+    out = torch.einsum("bkgst,btkd->bskgd", pv, v.to(torch.float32)) / denom.permute(
         0, 3, 1, 2, 4)
     out = out.reshape(b, s, n, d).to(q.dtype)
     if not return_lse:
@@ -218,6 +217,8 @@ def _forward(q, k, v, kv_mask, q_offset, scale, causal, softmax_shift, want_lse)
     lse = torch.empty((b, n, s), dtype=torch.float32, device=q.device) if want_lse else None
     if out.numel() == 0:
         return out, lse
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 bytes at a time
+        q, k, v = (_build.aligned16(x) for x in (q, k, v))
     rc = _build.lib().vt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
