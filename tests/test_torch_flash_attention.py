@@ -293,3 +293,39 @@ def test_row_limit_catches_dropped_keys(t, drop):
     assert chip_smoke.flash_row_rel(one_ulp, want) <= 2 ** -7 < chip_smoke.FLASH_ROW_REL
     diff = (faulty.float() - want.float()).abs().amax(-1) / want.float().abs().amax(-1)
     assert diff.min().item() > chip_smoke.FLASH_ROW_REL
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_row_limit_catches_dropped_tiles(d):
+    """The per-row limit the card checks hold bf16 B5a and B5b to
+    (`chip_smoke.flash_row_rel` with FLASH_BWD_ROW_FLOOR) sits between one bf16 ulp of every
+    output (passes) and a dq missing one 64-key tile or a dk/dv missing one
+    64-query tile (fails in every row), on unit-normal inputs as the card
+    checks use (non-causal, 512 queries and keys)."""
+    import chip_smoke
+
+    s = t = 512
+    rs = np.random.RandomState(d)
+    q, k, v, dout = (torch.from_numpy(rs.randn(2, n, 2, d).astype(np.float32)).to(torch.bfloat16)
+                     for n in (s, t, t, s))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, None, 0, scale, False, return_lse=True)
+    args = (None, 0, scale, False)
+    want_dq = fa.flash_attention_bwd_q_plain(q, k, v, *args, out, lse, dout)
+    want_dk, want_dv = fa.flash_attention_bwd_kv_plain(q, k, v, *args, out, lse, dout)
+    keep = torch.ones(t, dtype=torch.bool)
+    keep[192:256] = False  # one 64-slot tile
+    faults = {
+        "dq": (fa.flash_attention_bwd_q_plain(q, k[:, keep], v[:, keep], *args, out, lse, dout),
+               want_dq)}
+    dk, dv = fa.flash_attention_bwd_kv_plain(q[:, keep], k, v, *args, out[:, keep],
+                                             lse[:, :, keep], dout[:, keep])
+    faults.update(dk=(dk, want_dk), dv=(dv, want_dv))
+    limit = chip_smoke.FLASH_BWD_ROW_REL["bfloat16"]
+    for what, (faulty, want) in faults.items():
+        one_ulp = (want.float() * (1 + 2 ** -8)).to(torch.bfloat16)
+        assert (one_ulp != want).any()
+        floor = chip_smoke.FLASH_BWD_ROW_FLOOR
+        assert chip_smoke.flash_row_rel(one_ulp, want, floor) <= 2 ** -7 < limit, what
+        diff = (faulty.float() - want.float()).abs().amax(-1) / want.float().abs().amax(-1)
+        assert diff.min().item() > limit, (what, diff.min().item())

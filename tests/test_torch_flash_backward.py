@@ -153,6 +153,12 @@ CARD_CASES = {  # name: (S, T, N, KH, q_offset, causal, valid, shift)
     "non_causal": (150, 140, 4, 1, 0, False, 120, None),
     "softmax_shift": (96, 96, 2, 2, 0, True, None, 3.0),
     "no_visible_key": (70, 130, 2, 2, 0, True, -40, None),
+    # the tensor-core kernels' edges: S and T one past a multiple of the
+    # 64-row and 64/128-key tiles; a GQA group of 4 heads over 4 query tiles
+    # with q_offset off the tile grid
+    "one_past_tiles": (129, 257, 4, 4, 128, True, None, None),
+    "one_past_tiles_non_causal": (129, 257, 4, 2, 0, False, 200, None),
+    "gqa4_q_offset": (200, 300, 8, 2, 100, True, 280, None),
 }
 
 
@@ -175,6 +181,12 @@ def _card_inputs(cuda, name, d, dtype):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_kernels_match_plain(cuda, name, d, dtype):
+    """B2 with its LSE, B5a and B5b against their plain versions: within
+    TOL of the largest output (1e-4 in float32 on the card), each output row
+    (query rows of dq, key rows of dk and dv) within the smoke's per-row
+    limit (`chip_smoke.flash_row_rel` with its floor), and the same bits twice."""
+    import chip_smoke
+
     q, k, v, g, mask, off, causal, shift = _card_inputs(cuda, name, d, dtype)
     scale = 1.0 / d ** 0.5
     out, lse = fa._forward(q, k, v, mask, off, scale, causal, shift, True)
@@ -194,6 +206,8 @@ def test_kernels_match_plain(cuda, name, d, dtype):
     for what, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
         assert torch.equal(a, b), f"{what}: two runs differ"
         assert _rel(a.float().cpu(), w.float().cpu()) <= tol, what
+        row_rel = chip_smoke.flash_row_rel(a, w, chip_smoke.FLASH_BWD_ROW_FLOOR)
+        assert row_rel <= chip_smoke.FLASH_BWD_ROW_REL[dtype], (what, row_rel)
 
 
 @pytest.mark.cuda

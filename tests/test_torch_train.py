@@ -302,9 +302,9 @@ def _batches(tmp_path, jcfg, tcfg, jbase, tbase, trainable):
 @pytest.mark.parametrize("remat", [False, True])
 def test_lora_step_matches_jax(tmp_path, remat):
     """Loss and every trainable gradient of one LoRA step over an int4 base;
-    the region extractor's gradient is zero on both sides (ROADMAP C9:
-    `_build_batch` drops region_boxes). With remat the port recomputes each
-    layer in the backward and gives the same gradients."""
+    the region extractor's gradient is zero on both sides (the samples carry
+    no bbox). With remat the port recomputes each layer in the backward and
+    gives the same gradients."""
     import jax
 
     from vitron_tpu.kernels.quantization import promote_int4
@@ -451,10 +451,15 @@ def test_checkpoint_rotation_and_resume(tmp_path):
 
 
 def test_region_boxes_are_dropped_as_in_jax(tmp_path):
-    """ROADMAP C9, held as it stands: `_build_batch` never puts a sample's
-    region_boxes into the batch, on either side. A sample with a bbox keeps
-    its <objs> slot, which then gathers past the image features: JAX's loss
-    comes out NaN and the port raises IndexError."""
+    """ROADMAP C9, repaired on the port's side. The JAX trainer still drops
+    a sample's region_boxes: its `<objs>` slot then gathers past the image
+    features and JAX's loss comes out NaN (the reference fault, kept as it
+    is). The port's `_build_batch` puts the boxes and their image blocks
+    into the batch: the loss is finite, the region extractor gets a finite,
+    non-zero gradient, and the spliced embeddings of each row (its region
+    features among them) equal those of the inference path for the same
+    image and box (`prepare_batch` without labels, boxes and
+    `plan.region_blocks` as `Generator.generate` passes them)."""
     import jax
 
     from vitron_tpu.models import vitron_model as jvm
@@ -463,10 +468,11 @@ def test_region_boxes_are_dropped_as_in_jax(tmp_path):
     from vitron_tpu.train.losses import causal_lm_loss
     from vitron_tpu.train.trainer import TrainConfig as JTrainConfig
     from vitron_tpu.train.trainer import Trainer as JTrainer
+    from vitron_tpu_torch.runtime.engine import MediaItem, prepare_batch
 
     items = [{"conversations": [{"from": "human", "value": "<image>\nwhat is in <objs> here?"},
                                 {"from": "gpt", "value": "a red car parked"}],
-              "image": f"img_{i}.png", "bbox": [[2, 3, 20, 25]]} for i in range(2)]
+              "image": f"img_{i}.png", "bbox": [[2 + i, 3, 20, 25 - i]]} for i in range(2)]
     path = tmp_path / "d.json"
     path.write_text(json.dumps(items))
     jcfg, tcfg = _configs()
@@ -482,10 +488,40 @@ def test_region_boxes_are_dropped_as_in_jax(tmp_path):
     assert jds[0].region_boxes is not None and tds[0].region_boxes is not None
     jb = jtr._build_batch(jds, [0, 1], _media_loader, IMAGE_LEN)
     tb = ttr._build_batch(tds, [0, 1], _media_loader, IMAGE_LEN)
-    assert "region_boxes" not in jb and "region_boxes" not in tb
+    assert "region_boxes" not in jb
     params = {**jbase, "llm": jlora.merge(jbase["llm"], jtr.trainable["lora"], jtr.train_cfg.lora)}
     logits, _ = jvm.forward(params, jcfg, jb["token_ids"], jb["media_idx"], jb["use_media"],
                             jb["positions"], jb["attn_mask"], images=jb["images"])
     assert not np.isfinite(float(causal_lm_loss(logits, jb["labels"])))
-    with pytest.raises(IndexError):
-        ttrainer.make_lora_loss(tcfg, ttr.train_cfg)(ttr.trainable, tbase, tb)
+
+    np.testing.assert_array_equal(tb["region_boxes"].numpy(), [[2, 3, 20, 25], [3, 3, 20, 24]])
+    assert tb["region_block_idx"].tolist() == [0, 1]
+    loss = ttrainer.make_lora_loss(tcfg, ttr.train_cfg)(ttr.trainable, tbase, tb)
+    assert np.isfinite(float(loss.detach()))
+    loss.backward()
+    region = [t.grad for p, t in tstep.named_leaves(ttr.trainable) if p[0] == "region"]
+    assert region and all(g is not None and bool(torch.isfinite(g).all()) for g in region)
+    assert any(bool(g.abs().max() > 0) for g in region)
+
+    params = {**tbase, "region": ttr.trainable["region"], "projector": ttr.trainable["projector"]}
+    with torch.no_grad():
+        train_embeds = tvm.spliced_embeds(
+            params, tcfg, tb["token_ids"], tb["media_idx"], tb["use_media"],
+            images=tb["images"], region_boxes=tb["region_boxes"],
+            region_block_idx=tb["region_block_idx"])
+        for i in range(2):
+            sample = tds[i]
+            plan, images, _, _ = prepare_batch(
+                [sample.input_ids],
+                [MediaItem("image", torch.as_tensor(_media_loader("image", f"img_{i}.png")))],
+                image_len=IMAGE_LEN)
+            infer = tvm.spliced_embeds(
+                params, tcfg, torch.as_tensor(plan.token_ids, dtype=torch.long),
+                torch.as_tensor(plan.media_idx, dtype=torch.long),
+                torch.as_tensor(plan.use_media), images=images,
+                region_boxes=torch.as_tensor(sample.region_boxes),
+                region_block_idx=torch.as_tensor(plan.region_blocks, dtype=torch.long))
+            n = int(plan.seq_lens[0])
+            region_rows = plan.media_idx[0, :n] >= plan.n_image_blocks * IMAGE_LEN
+            assert plan.use_media[0, :n][region_rows].sum() == 1  # the <objs> slot
+            torch.testing.assert_close(train_embeds[i, :n], infer[0, :n], rtol=1e-5, atol=1e-5)

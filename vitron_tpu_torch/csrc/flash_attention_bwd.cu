@@ -15,38 +15,101 @@
 //   dQ[i] = scale sum_j round(ds) k[j]
 // where round() is to the input type (bf16 or float32), as the TPU kernel
 // rounds q * scale (_scaled_q :85-89) and casts p and ds before its products
-// (:330-335, :370-372). Sums run in float32. A query row that sees no valid
-// key has p = 0 everywhere and gets zero gradients.
+// (:330-335, :370-372); ds takes the unrounded float32 p, and dK the
+// unscaled q. Sums run in float32. A query row that sees no valid key has
+// p = 0 everywhere (from the visibility test, never from exp of its
+// -FLT_MAX LSE) and gets zero gradients.
 //
-// Design. The TPU grid runs in order and carries dK/dV (or dQ) in scratch
-// from one grid step to the next; here the sequential axis is a loop inside
-// the block and the sum stays in registers:
-//   B5a: one block per (key tile of 64, KV head, batch). It walks the
-//     visible query tiles of every query head of its GQA group and keeps
-//     dK and dV of its 64 keys in float32 registers, so the GQA reduction
-//     (:465-469) happens there too and dK/dV are written once, in [B,T,KH,D].
-//   B5b: one block per (query tile of 64, query head, batch), walking the
-//     key tiles up to the last one its rows can see.
-// No atomics: two runs give the same bits. Tiles wholly in the causal
+// The TPU grid runs in order and carries dK/dV (or dQ) in scratch from one
+// grid step to the next; here the sequential axis is a loop inside the
+// block and the sums stay in registers. JAX's split into two kernels stays:
+// B5b recomputes the scores and dP that B5a computes, seven products where
+// FlashAttention-2's fused backward takes five, but the fused form adds dQ
+// across key blocks with atomics, and two runs must give the same bits. No
+// atomics here: every sum runs in one fixed order. GQA dK/dV are reduced
+// inside B5a's block over the group's query heads (JAX's :465-469), in
+// float32, and written once in [B,T,KH,D]. Tiles wholly in the causal
 // future are skipped (:320, :360).
 //
-// What bounds it on the H100: the five products of the backward (scores,
-// dP, dV, dK, dQ; halved when causal) are ~1.7e11 FLOP a layer at the
-// trainer's [2, 2048, 32, 128]: 0.17 ms on the bf16 tensor cores. This
-// first version computes them on the FMA pipes in float32 (B5a recomputes
-// the scores and dP that B5b recomputes too, seven products in all), so it
-// is bound by the FMA rate and the shared-memory loads feeding it: 256
-// threads as a 16 x 16 grid, each scoring a 4 x 4 block of the 64 x 64
-// tile (rows and columns strided by 16 so that the float32 tiles, padded by
-// one word a row, are read without bank conflicts) and owning 4 x D/16 of
-// the [64, D] accumulators. Shared memory: 198 KB at D = 128 for B5a (K, V,
+// bfloat16 (the trainer's type: every main path) runs on the tensor cores,
+// mma.sync m16n8k16 with bf16 fragments and float32 sums (mma_sync.cuh):
+// - B5b, dQ, has the forward's shape: a block owns 64 query rows of one
+//   (b, head), 16 a warp; it copies its Q and dout rows once (cp.async),
+//   and each warp keeps round(q * scale) and dout as A fragments in
+//   registers for the whole key loop. K and V tiles of 64 keys come through
+//   a 2-stage cp.async ring, with each tile's slot bytes. Per tile:
+//   S = Qs K^T and dP = dO V^T from ldmatrix'ed K and V fragments; p and
+//   ds on the C fragments in registers; round(ds) packed into A fragments
+//   (two m16n8 C tiles are one m16n8k16 A operand); dQ += dS K with K
+//   fragments from ldmatrix.trans.
+// - B5a, dK and dV, takes the transposed products, so that no fragment
+//   passes through shared memory: a block owns 128 keys of one (b, KV
+//   head), 16 a warp, the keys the M dimension: S^T = K Qs^T and
+//   dP^T = V dO^T; the C fragments of round(p^T) and round(ds^T) are then
+//   the A fragments of dV += P^T dO and dK += dS^T Q (dO and Q fragments
+//   from ldmatrix.trans). lse and delta are indexed by column. The block
+//   walks the visible query tiles (64 rows) of every query head of its
+//   GQA group as one sequence, so the 2-stage cp.async ring of round(q *
+//   scale), q, dout, lse and delta never drains between heads. round(q *
+//   scale) is a copy made once before the main kernel, by a small kernel
+//   in the same launch, as _scaled_q rounds it: rounding it per tile would
+//   cost a shared-memory pass and a barrier a tile. K and V stay in shared
+//   memory and their A fragments are re-read each tile (16 ldmatrix a warp
+//   against 128 for the tile's B operands): in registers they would take
+//   64 more a thread at D 128, beside the 128 of the dK/dV sums and the 64
+//   of S^T and dP^T. A block whose keys are all masked or past T writes
+//   zeros and loads nothing; a warp whose keys are all masked computes
+//   nothing.
+// Rows are padded by 8 values (16 bytes) in shared memory, so the eight
+// rows of each ldmatrix land in distinct banks. exp is one ex2 a logit,
+// log2(e) folded into one FMA after the float32 product, the LSE scaled by
+// log2(e) once a row.
+// Schedules (registers and shared memory a block, on 227 KB and 64K
+// registers an SM; `-Xptxas -v` for sm_90a shows no spills):
+//   B5b: 4 warps, 64 rows, 64-key tiles; 54 KB (D 64) / 102 KB (D 128) of
+//     shared memory, 215 / 253 registers a thread (round(q*scale) and dout
+//     fragments, KS = D/16 x 4 registers each; the dQ sum, D/2; S and dP,
+//     32 each): two blocks an SM;
+//   B5a: 8 warps, 128 keys, 64-query tiles; 91 KB / 171 KB (K, V, and two
+//     stages of round(q*scale), q and dout), 233 / 255 registers (the dK
+//     and dV sums, D/2 each; S^T and dP^T, 32 each): one block an SM.
+//   4-warp blocks, 32-row query tiles in B5a and 32-key tiles in B5b were
+//   no faster at D 128 on the H100.
+// What bounds it on the H100: at the trainer's [2, 2048, 32, 128] (causal,
+// right-padded: 1.31e8 visible pairs) the seven products are 2.34e11 FLOP,
+// 0.24 ms on the bf16 tensor cores at 989 TFLOP/s (the five of a fused
+// backward 0.17 ms); the bytes (q, k, v, dout, dq, dk, dv, lse, delta once)
+// take 0.07 ms. So the tensor pipes bound it. mma.sync reaches them only
+// through registers: each warp loads every B fragment it uses from shared
+// memory (one 512-byte ldmatrix per two MMAs), and the registers these
+// tiles need leave two warps a scheduler to hide the latency of that
+// stream. Both kernels run at about the same rate per product as SDPA's
+// backward does per product of its five; the split's two extra products
+// are what is left between them. A deterministic fused backward and wgmma
+// with TMA and warp specialisation (operands read by the tensor cores from
+// shared memory, FlashAttention-3's shape) are the next steps.
+//
+// float32 inputs (no main path; the CPU-versus-card checks and the tests)
+// keep the FMA schedule on the CUDA cores: the port holds float32 to 1e-4
+// of the TPU kernel's exact float32, which TF32 or bf16 tensor cores would
+// break. 256 threads as a 16 x 16 grid, each scoring a 4 x 4 block of the
+// 64 x 64 tile (rows and columns strided by 16 so that the float32 tiles,
+// padded by one word a row, are read without bank conflicts) and owning
+// 4 x D/16 of the [64, D] accumulators; B5a a block per 64 keys, B5b per 64
+// query rows. Shared memory: 198 KB at D = 128 for B5a (K, V,
 // round(q*scale), q, dout, p, ds), 149 KB for B5b; one block an SM.
-// mma/wgmma belong to a later change.
+#include <algorithm>
 #include <cfloat>
+#include <cmath>
 
 #include "common.cuh"
+#include "flash_tile.cuh"
+#include "mma_sync.cuh"
 
 namespace {
+
+// ------------------------------------------------------------ float32, FMA
+
 
 constexpr int kThreads = 256;
 constexpr int BQ = 64;  // query rows per tile
@@ -367,24 +430,495 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
   return Args{q, k, v, dout, lse, delta, kv_mask, B, S, Tk, N, KH, q_offset, scale, causal};
 }
 
+// ------------------------------------------------------ bfloat16, mma.sync
+
+using vt_gemm::cp_async16;
+using vt_gemm::cp_async_commit;
+using vt_gemm::cp_async_wait;
+using vt_gemm::ldmatrix_x4;
+using vt_gemm::ldmatrix_x4_trans;
+using vt_gemm::mma_bf16;
+using vt_gemm::pack_bf16;
+using vt_flash::ex2;
+using vt_flash::kLog2e;
+using vt_flash::load_rows;
+using vt_flash::scaled_q;
+
+struct MArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* qs;  // round(q * scale) (B5a), or null
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const float* delta;
+  const uint8_t* kv_mask;  // [B, T] or null
+  __nv_bfloat16* dq;       // B5b
+  __nv_bfloat16* dk;       // B5a
+  __nv_bfloat16* dv;       // B5a
+  int S, Tk, N, KH, q_offset;
+  float scale;
+  int causal;
+};
+
+// round(q * scale) of every q value, 8 a thread a step
+__global__ void flash_bwd_kv_scaled_q_kernel(const uint4* __restrict__ q, uint4* __restrict__ qs,
+                                             size_t n16, float scale) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n16;
+       i += (size_t)gridDim.x * blockDim.x) {
+    uint4 r = q[i];
+    r.x = scaled_q(r.x, scale), r.y = scaled_q(r.y, scale);
+    r.z = scaled_q(r.z, scale), r.w = scaled_q(r.w, scale);
+    qs[i] = r;
+  }
+}
+
+// The A fragment of an m16n8k16 product from a [16][P] shared tile (rows
+// the M dimension, columns the depth, starting at column c0).
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const __nv_bfloat16* tile, int c0,
+                                       int lane, int P) {
+  ldmatrix_x4(a, tile + (lane & 15) * P + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles (rows n0..n0+15 of a [n][depth] shared tile,
+// depth columns c0..c0+15): {b0, b1} of the first, {b2, b3} of the second.
+__device__ __forceinline__ void load_b(unsigned (&b)[4], const __nv_bfloat16* tile, int n0,
+                                       int c0, int lane, int P) {
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles from a [depth][n] shared tile (depth rows
+// k0..k0+15, columns n0..n0+15), transposed by ldmatrix.
+__device__ __forceinline__ void load_b_trans(unsigned (&b)[4], const __nv_bfloat16* tile, int k0,
+                                             int n0, int lane, int P) {
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * P + n0 + (lane >> 4) * 8);
+}
+
+// C fragments c[2j], c[2j+1] (16 x 16, float32) rounded to bf16 as the A
+// fragment of the next product's k-step j
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+template <int D>
+struct QTile {  // B5b: 16 query rows a warp, 64 keys a tile
+  static constexpr int P = D + 8;  // shared row pitch (values)
+  static constexpr int WARPS = 4, BQ = WARPS * 16, BK = 64, THREADS = WARPS * 32;
+  // Q and dout, then K and V in two stages each, then two stages of slot bytes
+  static constexpr size_t bytes =
+      sizeof(__nv_bfloat16) * (2 * (size_t)BQ * P + 4 * (size_t)BK * P) + 2 * BK;
+};
+
+// B5b: dQ for 64 query rows of head blockIdx.y, the last tile first: in
+// causal order it sees the most keys, and the blocks start in index order.
+template <int D>
+__global__ void __launch_bounds__(QTile<D>::THREADS)
+flash_bwd_q_mma_kernel(const MArgs a) {
+  using L = QTile<D>;
+  constexpr int P = L::P, BQ = L::BQ, BK = L::BK, THREADS = L::THREADS;
+  constexpr int KS = D / 16;  // k-steps of S and dP
+  constexpr int NT = BK / 8;  // n-tiles of S and dP
+  constexpr int DT = D / 8;   // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_q[];
+  __nv_bfloat16* Qst = reinterpret_cast<__nv_bfloat16*>(smem_q);  // [BQ][P]
+  __nv_bfloat16* Ost = Qst + BQ * P;                               // [BQ][P]
+  __nv_bfloat16* Ks = Ost + BQ * P;                                // [2][BK][P]
+  __nv_bfloat16* Vs = Ks + 2 * BK * P;                             // [2][BK][P]
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + 2 * BK * P);       // [2][BK] slot ok
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n = blockIdx.y, b = blockIdx.z;
+  const int kvh = n / (a.N / a.KH);
+  const int s0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int w0 = s0 + warp * 16;  // the warp's first query row
+  const uint8_t* mask_b = a.kv_mask != nullptr ? a.kv_mask + (size_t)b * a.Tk : nullptr;
+
+  int n_tiles = (a.Tk + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (a.q_offset + min(a.S, s0 + BQ) - 1) / BK + 1);
+
+  load_rows<BQ, D, D, P, THREADS>(Qst, a.q, b, s0, a.S, a.N, n, tid);
+  load_rows<BQ, D, D, P, THREADS>(Ost, a.dout, b, s0, a.S, a.N, n, tid);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_rows<BK, D, D, P, THREADS>(Ks, a.k, b, 0, a.Tk, a.KH, kvh, tid);
+    load_rows<BK, D, D, P, THREADS>(Vs, a.v, b, 0, a.Tk, a.KH, kvh, tid);
+    if (tid < BK) Ms[tid] = tid < a.Tk && (mask_b == nullptr || mask_b[tid] != 0);
+  }
+  cp_async_commit();
+
+  // this thread's two rows: lse (times log2 e) and delta; 0 past S, where
+  // q and dout are zero and nothing is written
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    const size_t o = ((size_t)b * a.N + n) * a.S + row;
+    l2[r] = row < a.S ? a.lse[o] * kLog2e : 0.f;
+    dl[r] = row < a.S ? a.delta[o] : 0.f;
+  }
+
+  cp_async_wait<1>();
+  __syncthreads();  // Q and dout have landed
+  unsigned qf[KS][4], of[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    load_a(qf[ks], Qst + warp * 16 * P, ks * 16, lane, P);
+    load_a(of[ks], Ost + warp * 16 * P, ks * 16, lane, P);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[ks][i] = scaled_q(qf[ks][i], a.scale);
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1, t0 = kt * BK;
+    uint8_t ok_next = 0;
+    if (kt + 1 < n_tiles) {  // the next tile's copy overlaps this tile's products
+      load_rows<BK, D, D, P, THREADS>(Ks + (st ^ 1) * BK * P, a.k, b, t0 + BK, a.Tk, a.KH, kvh,
+                                   tid);
+      load_rows<BK, D, D, P, THREADS>(Vs + (st ^ 1) * BK * P, a.v, b, t0 + BK, a.Tk, a.KH, kvh,
+                                   tid);
+      const int t = t0 + BK + tid;
+      if (tid < BK) ok_next = t < a.Tk && (mask_b == nullptr || mask_b[t] != 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt and its slot bytes are visible
+
+    // rows at or past S, or all before the tile in causal order, skip it
+    if (w0 < a.S && (!a.causal || a.q_offset + w0 + 15 >= t0)) {
+      const __nv_bfloat16* Kt = Ks + st * BK * P;
+      const __nv_bfloat16* Vt = Vs + st * BK * P;
+      const uint8_t* ok = Ms + st * BK;
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned kb[4], vb[4];
+          load_b(kb, Kt, np * 16, ks * 16, lane, P);
+          load_b(vb, Vt, np * 16, ks * 16, lane, P);
+          mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+          mma_bf16(dp[2 * np], of[ks], vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], of[ks], vb[2], vb[3]);
+        }
+      const bool masked =
+          mask_b != nullptr || t0 + BK > a.Tk || (a.causal && a.q_offset + w0 < t0 + BK - 1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, j = nt * 8 + 2 * tq + (e & 1);
+          float p = ex2(fmaf(s[nt][e], kLog2e, -l2[r]));
+          if (masked && (!ok[j] || (a.causal && a.q_offset + w0 + g + 8 * r < t0 + j))) p = 0.f;
+          s[nt][e] = p * (dp[nt][e] - dl[r]);  // ds, from the unrounded p
+        }
+      // dQ += round(ds) K
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned da[4];
+        pack_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          unsigned kb[4];
+          load_b_trans(kb, Kt, kk * 16, dp2 * 16, lane, P);
+          mma_bf16(acc[2 * dp2], da, kb[0], kb[1]);
+          mma_bf16(acc[2 * dp2 + 1], da, kb[2], kb[3]);
+        }
+      }
+    }
+    if (kt + 1 < n_tiles && tid < BK) Ms[(st ^ 1) * BK + tid] = ok_next;
+    __syncthreads();  // stage st is free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= a.S) continue;
+    __nv_bfloat16* out = a.dq + (((size_t)b * a.S + row) * a.N + n) * D + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<unsigned*>(out + dt * 8) =
+          pack_bf16(acc[dt][2 * r] * a.scale, acc[dt][2 * r + 1] * a.scale);
+  }
+}
+
+template <int D>
+struct KvTile {  // B5a
+  static constexpr int P = D + 8;
+  static constexpr int WARPS = 8, THREADS = WARPS * 32;
+  static constexpr int BKB = WARPS * 16;  // keys a block, 16 a warp
+  static constexpr int BQ = 64;           // query rows a tile
+  // K and V, then two stages of round(q*scale), q and dout, then two stages
+  // of lse * log2(e) and of delta
+  static constexpr size_t bytes = sizeof(__nv_bfloat16) *
+                                      (2 * (size_t)BKB * P + 6 * (size_t)BQ * P) +
+                                  sizeof(float) * 4 * BQ;
+};
+
+// B5a: dK, dV for the keys [blockIdx.x * 128, + 128) of KV head blockIdx.y.
+template <int D>
+__global__ void __launch_bounds__(KvTile<D>::THREADS, 1)
+flash_bwd_kv_mma_kernel(const MArgs a) {
+  using L = KvTile<D>;
+  constexpr int P = L::P, BKB = L::BKB, BQ = L::BQ, THREADS = L::THREADS;
+  constexpr int KS = D / 16;  // k-steps of S^T and dP^T
+  constexpr int NT = BQ / 8;  // n-tiles of S^T and dP^T (queries)
+  constexpr int DT = D / 8;   // n-tiles of dK and dV
+  static_assert(2 * BQ <= THREADS, "one thread a row for lse and one for delta");
+  extern __shared__ __align__(16) unsigned char smem_kv[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_kv);  // [BKB][P]
+  __nv_bfloat16* Vs = Ks + BKB * P;                                // [BKB][P]
+  __nv_bfloat16* Qss = Vs + BKB * P;     // [2][BQ][P] round(q * scale)
+  __nv_bfloat16* Qrs = Qss + 2 * BQ * P;  // [2][BQ][P] q
+  __nv_bfloat16* Os = Qrs + 2 * BQ * P;   // [2][BQ][P] dout
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * P);  // [2][BQ] lse * log2(e)
+  float* Dl = Ls + 2 * BQ;                                 // [2][BQ] delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int groups = a.N / a.KH;
+  const int t0 = blockIdx.x * BKB;
+  const int tw = t0 + warp * 16;  // the warp's first key
+  const uint8_t* mask_b = a.kv_mask != nullptr ? a.kv_mask + (size_t)b * a.Tk : nullptr;
+
+  // this thread's two keys (rows g and g + 8 of the warp's C fragments)
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = tw + g + 8 * r;
+    kok[r] = t < a.Tk && (mask_b == nullptr || mask_b[t] != 0);
+  }
+  const bool warp_live = __any_sync(0xffffffffu, kok[0] || kok[1]);
+  const bool block_live = __syncthreads_or(warp_live) != 0;
+
+  // the query tiles from the first holding a row that can see key t0, for
+  // each query head of the group: one sequence of n_tiles tiles
+  const int nq = (a.S + BQ - 1) / BQ;
+  const int iq0 = a.causal ? max(0, t0 - a.q_offset) / BQ : 0;
+  const int n_tiles = block_live ? groups * max(0, nq - iq0) : 0;
+
+  // rows of tile (n, iq) into stage st: q, round(q*scale) and dout by
+  // cp.async; lse and delta returned to the threads that stage them
+  auto issue = [&](int st, int n, int iq) {
+    const int s0 = iq * BQ;
+    load_rows<BQ, D, D, P, THREADS>(Qss + st * BQ * P, a.qs, b, s0, a.S, a.N, n, tid);
+    load_rows<BQ, D, D, P, THREADS>(Qrs + st * BQ * P, a.q, b, s0, a.S, a.N, n, tid);
+    load_rows<BQ, D, D, P, THREADS>(Os + st * BQ * P, a.dout, b, s0, a.S, a.N, n, tid);
+    cp_async_commit();
+    const int row = s0 + (tid & (BQ - 1));
+    const size_t o = ((size_t)b * a.N + n) * a.S + row;
+    if (tid >= 2 * BQ || row >= a.S) return 0.f;
+    return tid < BQ ? a.lse[o] * kLog2e : a.delta[o];
+  };
+  auto stage = [&](int st, float x) {  // lse: threads 0..63, delta: 64..127
+    if (tid < 2 * BQ) (tid < BQ ? Ls : Dl)[st * BQ + (tid & (BQ - 1))] = x;
+  };
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+
+  int n = kvh * groups, iq = iq0;  // the head and query tile of tile j
+  if (n_tiles > 0) {
+    load_rows<BKB, D, D, P, THREADS>(Ks, a.k, b, t0, a.Tk, a.KH, kvh, tid);
+    load_rows<BKB, D, D, P, THREADS>(Vs, a.v, b, t0, a.Tk, a.KH, kvh, tid);
+    stage(0, issue(0, n, iq));  // one group: K, V and tile 0
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    int n_next = n, iq_next = iq + 1;
+    if (iq_next == nq) iq_next = iq0, ++n_next;
+    float x_next = 0.f;
+    if (j + 1 < n_tiles) {  // the next tile's copy overlaps this tile's products
+      x_next = issue(st ^ 1, n_next, iq_next);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and K, V) visible
+
+    const int s0 = iq * BQ;
+    // a warp with no valid key, or whose keys all follow the tile's last row
+    // in causal order, skips it
+    if (warp_live && (!a.causal || a.q_offset + min(a.S, s0 + BQ) - 1 >= tw)) {
+      const __nv_bfloat16* Qs = Qss + st * BQ * P;
+      const __nv_bfloat16* Qr = Qrs + st * BQ * P;
+      const __nv_bfloat16* Ot = Os + st * BQ * P;
+      const float* lt = Ls + st * BQ;
+      const float* dt_ = Dl + st * BQ;
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        unsigned ka[4], va[4];  // re-read each tile from shared memory
+        load_a(ka, Ks + warp * 16 * P, ks * 16, lane, P);
+        load_a(va, Vs + warp * 16 * P, ks * 16, lane, P);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned qb[4], ob[4];
+          load_b(qb, Qs, np * 16, ks * 16, lane, P);
+          load_b(ob, Ot, np * 16, ks * 16, lane, P);
+          mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+          mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      const bool masked = mask_b != nullptr || tw + 16 > a.Tk || s0 + BQ > a.S ||
+                          (a.causal && a.q_offset + s0 < tw + 15);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = nt * 8 + 2 * tq + (e & 1);  // key row, query column
+          float p = ex2(fmaf(s[nt][e], kLog2e, -lt[c]));
+          if (masked && (!kok[r] || s0 + c >= a.S ||
+                         (a.causal && a.q_offset + s0 + c < tw + g + 8 * r)))
+            p = 0.f;
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - dt_[c]);  // ds^T, from the unrounded p
+        }
+      // dV += round(p^T) dout, dK += round(ds^T) q
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        unsigned pa[4], da[4];
+        pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+        pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          unsigned ob[4], qb[4];
+          load_b_trans(ob, Ot, kk * 16, dp2 * 16, lane, P);
+          load_b_trans(qb, Qr, kk * 16, dp2 * 16, lane, P);
+          mma_bf16(dv[2 * dp2], pa, ob[0], ob[1]);
+          mma_bf16(dv[2 * dp2 + 1], pa, ob[2], ob[3]);
+          mma_bf16(dk[2 * dp2], da, qb[0], qb[1]);
+          mma_bf16(dk[2 * dp2 + 1], da, qb[2], qb[3]);
+        }
+      }
+    }
+    if (j + 1 < n_tiles) stage(st ^ 1, x_next);
+    __syncthreads();  // stage st is free for tile j + 2
+    n = n_next, iq = iq_next;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = tw + g + 8 * r;
+    if (t >= a.Tk) continue;
+    const size_t base = (((size_t)b * a.Tk + t) * a.KH + kvh) * D + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<unsigned*>(a.dk + base + dt * 8) =
+          pack_bf16(dk[dt][2 * r] * a.scale, dk[dt][2 * r + 1] * a.scale);
+      *reinterpret_cast<unsigned*>(a.dv + base + dt * 8) =
+          pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_kv_mma(const MArgs& a, int B, __nv_bfloat16* qs, cudaStream_t st) {
+  using L = KvTile<D>;
+  const size_t n16 = (size_t)B * a.S * a.N * D / 8;
+  const int blocks = (int)std::min<size_t>((n16 + 255) / 256, 132 * 16);
+  flash_bwd_kv_scaled_q_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<const uint4*>(a.q),
+                                                       reinterpret_cast<uint4*>(qs), n16,
+                                                       a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_kv_mma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  MArgs m = a;
+  m.qs = qs;
+  dim3 grid((a.Tk + L::BKB - 1) / L::BKB, a.KH, B);
+  flash_bwd_kv_mma_kernel<D><<<grid, L::THREADS, L::bytes, st>>>(m);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_q_mma(const MArgs& a, int B, cudaStream_t st) {
+  using L = QTile<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_q_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.S + L::BQ - 1) / L::BQ, a.N, B);
+  flash_bwd_q_mma_kernel<D><<<grid, L::THREADS, L::bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+MArgs make_margs(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* kv_mask, int S, int Tk, int N, int KH,
+                 int q_offset, float scale, int causal) {
+  MArgs m{};
+  m.q = static_cast<const __nv_bfloat16*>(q);
+  m.k = static_cast<const __nv_bfloat16*>(k);
+  m.v = static_cast<const __nv_bfloat16*>(v);
+  m.dout = static_cast<const __nv_bfloat16*>(dout);
+  m.lse = static_cast<const float*>(lse);
+  m.delta = static_cast<const float*>(delta);
+  m.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  m.S = S, m.Tk = Tk, m.N = N, m.KH = KH, m.q_offset = q_offset;
+  m.scale = scale, m.causal = causal;
+  return m;
+}
+
+// ---------------------------------------------------------------- entries
+
 }  // namespace
 
 // B5a. q, dout [B,S,N,D] and k, v, dk, dv [B,T,KH,D], all float32 or all
 // bfloat16 (is_bf16); lse, delta [B,N,S] float32; kv_mask a [B,T] bool or
-// null. D is 64 or 128 and N a multiple of KH. Returns cudaGetLastError()
-// after the launch.
+// null; qs a [B,S,N,D] bf16 scratch that takes round(q * scale) (bf16
+// only; null for float32). D is 64 or 128 and N a multiple of KH; bf16
+// tensors 16-byte aligned. Returns cudaGetLastError() after the launches.
 extern "C" int vt_flash_attention_bwd_kv(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
-                                         const void* kv_mask, void* dk, void* dv, int B, int S,
-                                         int Tk, int N, int KH, int D, int q_offset, float scale,
-                                         int causal, int is_bf16, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, kv_mask, B, S, Tk, N, KH, q_offset, scale,
-                           causal);
+                                         const void* kv_mask, void* qs, void* dk, void* dv,
+                                         int B, int S, int Tk, int N, int KH, int D,
+                                         int q_offset, float scale, int causal, int is_bf16,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return is_bf16 ? launch_kv<__nv_bfloat16, 64>(a, dk, dv, st)
-                              : launch_kv<float, 64>(a, dk, dv, st);
-  if (D == 128) return is_bf16 ? launch_kv<__nv_bfloat16, 128>(a, dk, dv, st)
-                               : launch_kv<float, 128>(a, dk, dv, st);
+  if (!is_bf16) {
+    const Args a = make_args(q, k, v, dout, lse, delta, kv_mask, B, S, Tk, N, KH, q_offset,
+                             scale, causal);
+    if (D == 64) return launch_kv<float, 64>(a, dk, dv, st);
+    if (D == 128) return launch_kv<float, 128>(a, dk, dv, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (qs == nullptr || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(qs) || !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorInvalidValue;
+  MArgs m = make_margs(q, k, v, dout, lse, delta, kv_mask, S, Tk, N, KH, q_offset, scale, causal);
+  m.dk = static_cast<__nv_bfloat16*>(dk);
+  m.dv = static_cast<__nv_bfloat16*>(dv);
+  __nv_bfloat16* scratch = static_cast<__nv_bfloat16*>(qs);
+  if (D == 64) return launch_kv_mma<64>(m, B, scratch, st);
+  if (D == 128) return launch_kv_mma<128>(m, B, scratch, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -394,12 +928,19 @@ extern "C" int vt_flash_attention_bwd_q(const void* q, const void* k, const void
                                         const void* kv_mask, void* dq, int B, int S, int Tk,
                                         int N, int KH, int D, int q_offset, float scale,
                                         int causal, int is_bf16, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, kv_mask, B, S, Tk, N, KH, q_offset, scale,
-                           causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return is_bf16 ? launch_q<__nv_bfloat16, 64>(a, dq, st)
-                              : launch_q<float, 64>(a, dq, st);
-  if (D == 128) return is_bf16 ? launch_q<__nv_bfloat16, 128>(a, dq, st)
-                               : launch_q<float, 128>(a, dq, st);
+  if (!is_bf16) {
+    const Args a = make_args(q, k, v, dout, lse, delta, kv_mask, B, S, Tk, N, KH, q_offset,
+                             scale, causal);
+    if (D == 64) return launch_q<float, 64>(a, dq, st);
+    if (D == 128) return launch_q<float, 128>(a, dq, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+    return (int)cudaErrorInvalidValue;
+  MArgs m = make_margs(q, k, v, dout, lse, delta, kv_mask, S, Tk, N, KH, q_offset, scale, causal);
+  m.dq = static_cast<__nv_bfloat16*>(dq);
+  if (D == 64) return launch_q_mma<64>(m, B, st);
+  if (D == 128) return launch_q_mma<128>(m, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,10 +43,10 @@ _SIGNATURES = {
     # use_shift, shift, is_bf16, stream
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _F, _I, _P],
-    # q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, T, N, KH, D, q_offset,
-    # scale, causal, is_bf16, stream
-    "vt_flash_attention_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, kv_mask, qs (bf16 scratch), dk, dv, B, S, T, N,
+    # KH, D, q_offset, scale, causal, is_bf16, stream
+    "vt_flash_attention_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, dout, lse, delta, kv_mask, dq, B, S, T, N, KH, D, q_offset,
     # scale, causal, is_bf16, stream
     "vt_flash_attention_bwd_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

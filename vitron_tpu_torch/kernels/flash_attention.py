@@ -23,9 +23,10 @@ plain version only for CPU tensors; other head dims raise. When a gradient
 is wanted (grad mode on and q, k or v requiring grad) it goes through
 `FlashAttention`, a `torch.autograd.Function` in place of the JAX
 `custom_vjp` (:473-498): the forward also writes the per-row log-sum-exp,
-and the backward launches B5a and B5b on the card (D 64/128) or runs
-`flash_attention_bwd_plain` on the CPU. `launches`, `bwd_kv_launches` and
-`bwd_q_launches` count the launches of the three kernels.
+and the backward launches B5a and B5b on the card (D 64/128; bf16 on the
+tensor cores, float32 on FMA pipes) or runs `flash_attention_bwd_plain` on
+the CPU. `launches`, `bwd_kv_launches` and `bwd_q_launches` count the
+launches of the three kernels.
 """
 from __future__ import annotations
 
@@ -277,11 +278,17 @@ def flash_attention_bwd_kv(q, k, v, kv_mask, q_offset, scale, causal, out, lse, 
         return dk.zero_(), dv.zero_()
     if delta is None:
         delta = _delta(out, dout)
+    bf16 = q.dtype == torch.bfloat16
+    qs = None
+    if bf16:  # the tensor-core kernel copies 16 bytes at a time; qs takes round(q * scale)
+        q, k, v, dout = (_build.aligned16(x) for x in (q, k, v, dout))
+        qs = torch.empty_like(q)
     rc = _build.lib().vt_flash_attention_bwd_kv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), kv_mask.data_ptr() if kv_mask is not None else None,
-        dk.data_ptr(), dv.data_ptr(), b, s, t, n, kv_heads, d, int(q_offset), float(scale),
-        int(causal), int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+        qs.data_ptr() if qs is not None else None, dk.data_ptr(), dv.data_ptr(), b, s, t, n,
+        kv_heads, d, int(q_offset), float(scale), int(causal), int(bf16),
+        _build.stream_handle(q.device))
     _build.check(rc, "flash_attention backward (dK, dV)")
     bwd_kv_launches += 1
     return dk, dv
@@ -302,6 +309,8 @@ def flash_attention_bwd_q(q, k, v, kv_mask, q_offset, scale, causal, out, lse, d
         return dq.zero_()
     if delta is None:
         delta = _delta(out, dout)
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (_build.aligned16(x) for x in (q, k, v, dout))
     rc = _build.lib().vt_flash_attention_bwd_q(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), kv_mask.data_ptr() if kv_mask is not None else None,

@@ -13,9 +13,11 @@ reference: vitron/train/train.py:1029-1264 + llava_trainer.py):
   `non_lora_trainables` (projector/region) in the same .npz files the JAX
   trainer writes (train.py:1251-1264), so either runtime loads the other's.
 
-Like the JAX trainer, `_build_batch` never puts a sample's `region_boxes`
-into the batch, so the region extractor trains on zero gradients (ROADMAP
-C9); the port keeps that for parity.
+`_build_batch` puts the samples' `region_boxes` (their "bbox", one box an
+`<objs>` slot) into the batch with the image block of each slot, as the
+chat path does, so a bbox sample trains the region extractor. The JAX
+trainer drops them, and its loss on such a sample is NaN (ROADMAP C9);
+batches without a bbox are the same on both sides.
 """
 from __future__ import annotations
 
@@ -186,11 +188,13 @@ class Trainer:
     def _build_batch(self, dataset, idxs, media_loader, image_len):
         from vitron_tpu_torch.runtime.engine import MediaItem, prepare_batch
 
-        rows, labels, media = [], [], []
+        rows, labels, media, boxes = [], [], [], []
         for i in idxs:
             s = dataset[i]
             rows.append(s.input_ids)
             labels.append(s.labels)
+            if s.region_boxes is not None:
+                boxes.append(np.asarray(s.region_boxes, np.float32).reshape(-1, 4))
             for kind, path in zip(s.media_kinds, s.media_paths):
                 if media_loader is None:
                     return None
@@ -216,6 +220,14 @@ class Trainer:
             batch["videos"] = videos.to(dev)
         if perm is not None:
             batch["block_perm"] = torch.as_tensor(perm, dtype=torch.long, device=dev)
+        n_boxes = sum(len(b) for b in boxes)
+        if n_boxes != len(plan.region_blocks):
+            raise ValueError(f"batch {list(idxs)}: {len(plan.region_blocks)} <objs> slots but "
+                             f"{n_boxes} region boxes")
+        if n_boxes:  # in batch order, as plan_splice numbers the <objs> slots
+            batch["region_boxes"] = torch.as_tensor(np.concatenate(boxes), device=dev)
+            batch["region_block_idx"] = torch.as_tensor(plan.region_blocks, dtype=torch.long,
+                                                        device=dev)
         return batch
 
     # ------------------------------------------------------------- ckpt
