@@ -9,8 +9,12 @@ Phases (any failure exits non-zero and prints no `ok` line):
 2. build: the hand CUDA kernels from `vitron_tpu_torch/csrc/` (one nvcc per
    source, all started together, sm_90a).
 3. kernel vs plain at the chat path's shapes: int4_matmul (bf16 x, M in
-   {1, 384}, the four Vicuna-7B (K, N) pairs) and flash_attention (bf16,
-   D = 128: masked prefill, cached chunk, GQA); error and CUDA-event times.
+   {1, 384}, the four Vicuna-7B (K, N) pairs; each output row within
+   INT4_ROW_REL of its largest, the same bits twice, CUDA-event times with
+   the weights flushed from L2 by a read, GB/s at M 1 and TFLOP/s at M 384
+   beside the bound, and torch.matmul on the pre-dequantized bf16 weight
+   as a reference, not a library port) and flash_attention (bf16, D = 128:
+   masked prefill, cached chunk, GQA); error and CUDA-event times.
 4. kernel vs plain at the GLIGEN path's shapes: flash_attention (bf16,
    non-causal, shift 0, D 40/80/512 with the ragged fuser lengths),
    geglu_ff (the four UNet sites, float32 and bf16), group_norm_sums (two
@@ -115,7 +119,7 @@ Phases (any failure exits non-zero and prints no `ok` line):
    FLASH_BWD_ROW_REL), the same bits twice, CUDA-event times beside the
    bound, B5a + B5b's rate over the seven products they run and the SDPA
    backward; then B1 at the trainer's M = 4096 rows and the four (K, N)
-   pairs.
+   pairs (TFLOP/s beside the bound, per-row limit, the same bits twice).
 19. the LoRA trainer at full width: `Trainer.fit` on
    `VitronConfig.serving(llm=vicuna_7b(attn_impl="flash", max_seq_len=2048))`
    with random packed-int4 projections and lm_head and a bf16 ViT-L/14,
@@ -123,7 +127,8 @@ Phases (any failure exits non-zero and prints no `ok` line):
    2e-4 with warmup-cosine, TRAIN_BATCH rows of 2048, TRAIN_STEPS steps,
    twice from the same state: finite, equal losses; LoRA b and projector
    still at step 1 (learning rate 0) and moved at step 2; launches = the
-   config's a step; step seconds, trained tokens/s, peak memory.
+   config's a step; step seconds, trained tokens/s, peak memory; a profiled
+   step by kernel group, and the device time of B1's backward dequantize.
 20. training on the CPU and the card: one LoRA step's loss and gradients
    on a 2-layer full-width float32 model with int4 projections, pad_len 512.
 Then one line lists each bf16 B2 row (the 15 of phases 3, 4, 5b, 5d and 18
@@ -146,6 +151,11 @@ import numpy as np
 
 INT4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 INT4_TOL = 1e-2   # max |kernel - plain| / max |plain|: bf16 output rounding
+# B1's bf16 rows are also held at each output row's scale: max |kernel -
+# plain| over a row over that row's largest |plain|. Both sides round the
+# same float32 sums (summed in other orders) to bf16, so an output flips by
+# at most one bf16 ulp, 2^-7 of its own size.
+INT4_ROW_REL = 2 ** -7
 FLASH_TOL = 2e-2  # max |kernel - plain| on unit-normal bf16 inputs
 # B2 is also held at each query row's own scale: max |kernel - plain| over a
 # row's D outputs over that row's largest |plain| (a row whose plain outputs
@@ -208,15 +218,18 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
-    """Median CUDA-event time of fn() in ms; `flush` (a large buffer) is
-    rewritten before each run so the weights come from device memory, as
-    they do in decode."""
+    """Median CUDA-event time of fn() in ms; `flush` (a buffer larger than
+    the 50 MB L2) is read before each run, so the weights come from device
+    memory, as they do in decode, and the L2 holds clean lines, as it does
+    there (the previous projection's weights). Writing the buffer instead
+    would leave ~50 MB of dirty lines whose write-back the timed call pays:
+    ~15 us at 3.35 TB/s, a cost no decode step has."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.max()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -309,6 +322,51 @@ def flash_row_rel(got, want, floor: float = 0.0) -> float:
     return (diff / scale).max().item()
 
 
+def int4_row(torch, card: str, g, m: int, k: int, n: int, flush=None, iters: int = 20) -> dict:
+    """B1 against its plain version on x [m, k] bf16 and a random packed
+    [k/2, n] weight with scales: max |kernel - plain| over max |plain| and at
+    each output row's scale (INT4_ROW_REL), the same bits twice, CUDA-event
+    times of the kernel and the plain version (`flush` read before each run,
+    so the weights come from device memory as they do in decode), the
+    bound and the rate (GB/s of packed bytes for the GEMV, TFLOP/s above).
+    Beside them, torch.matmul of x with the weight dequantized to bf16
+    beforehand: a reference only, on other inputs (four times the weight
+    bytes), not a library call of the same function -- no PyTorch call takes
+    this int4 packing."""
+    from vitron_tpu_torch.kernels import int4_matmul as i4
+
+    dev = torch.device("cuda")
+    q4 = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8, device=dev)
+    s = torch.rand((1, n), generator=g, device=dev) * 0.02 + 0.01
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    got, again = i4.int4_matmul(x, q4, s), i4.int4_matmul(x, q4, s)
+    want = i4.int4_matmul_plain(x, q4, s)
+    err, rel = rel_err(got, want)
+    row_rel = flash_row_rel(got, want)
+    same = bool(torch.equal(got, again))
+    del again, want
+    ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), iters=iters, flush=flush)
+    plain_ms = cuda_ms(torch, lambda: i4.int4_matmul_plain(x, q4, s), iters=min(iters, 5),
+                       flush=flush)
+    w = (i4.unpack_int4(q4).float() * s).to(torch.bfloat16)
+    ref_ms = cuda_ms(torch, lambda: torch.matmul(x, w), iters=iters, flush=flush)
+    del w
+    flops = 2 * m * k * n
+    r = dict(row(err, rel, ms, plain_ms, nbytes(x, q4, s, got), flops, "bf16_tensor"),
+             ref_ms=ref_ms, row_rel=row_rel)
+    rate = (f"{q4.numel() / (ms * 1e-3) / 1e9:.0f} GB/s packed" if m <= i4.GEMV_MAX_M
+            else f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"int4_matmul M={m} K={k} N={n} bf16: rel_err={rel:.3e} abs_err={err:.3e} "
+          f"row_rel_err={row_rel:.3e} (limit {INT4_ROW_REL:.3e}), same bits twice="
+          f"{same}; kernel {ms:.4f} ms ({rate}) plain {plain_ms:.4f} ms {bound_text(r)}; "
+          f"reference, not a port: torch.matmul on the pre-dequantized bf16 weight "
+          f"{ref_ms:.4f} ms [{card}]", flush=True)
+    check(rel <= INT4_TOL and row_rel <= INT4_ROW_REL and same,
+          f"int4_matmul M={m} K={k} N={n}: rel err {rel} (limit {INT4_TOL}), row rel err "
+          f"{row_rel} (limit {INT4_ROW_REL}), same bits twice {same}")
+    return r
+
+
 def check_flash(what: str, err: float, row_rel: float) -> None:
     check(err <= FLASH_TOL and row_rel <= FLASH_ROW_REL,
           f"flash_attention {what}: abs err {err} (limit {FLASH_TOL}), row rel err {row_rel} "
@@ -330,32 +388,15 @@ GLIGEN_FLASH_SHAPES = ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80), (2,
 
 def phase_kernels(torch, card: str):
     from vitron_tpu_torch.kernels import flash_attention as fa
-    from vitron_tpu_torch.kernels import int4_matmul as i4
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     rows = {"int4": [], "flash": []}
-    for k, n in INT4_SHAPES:
-        q4 = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8, device=dev)
-        s = torch.rand((1, n), generator=g, device=dev) * 0.02 + 0.01
-        for m in (1, 384):
-            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            got = i4.int4_matmul(x, q4, s).float()
-            want = i4.int4_matmul_plain(x, q4, s).float()
-            err = (got - want).abs().max().item()
-            rel = err / want.abs().max().item()
-            ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), flush=flush)
-            plain_ms = cuda_ms(torch, lambda: i4.int4_matmul_plain(x, q4, s), flush=flush)
-            gbs = q4.numel() / (ms * 1e-3) / 1e9
-            # no single PyTorch call takes this int4 packing: no library time
-            r = row(err, rel, ms, plain_ms, nbytes(x, q4, s, got.to(torch.bfloat16)),
-                    2 * m * k * n, "bf16_tensor")
-            print(f"int4_matmul M={m} K={k} N={n}: rel_err={rel:.3e} abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms ({gbs:.0f} GB/s packed) plain {plain_ms:.4f} ms "
-                  f"{bound_text(r)} [{card}]", flush=True)
-            check(rel <= INT4_TOL, f"int4_matmul M={m} K={k} N={n} rel err {rel} > {INT4_TOL}")
-            rows["int4"].append(r)
+    for m in (1, 384):
+        for k, n in INT4_SHAPES:
+            rows["int4"].append(int4_row(torch, card, g, m, k, n, flush=flush))
+        print_sums(f"B1 at M {m}", rows["int4"][-len(INT4_SHAPES):], card)
 
     b, d = 1, 128
     for name, s_len, t_len, nh, kh, off, n_valid in CHAT_FLASH_CASES:
@@ -1270,6 +1311,57 @@ def video_flash_sites(ucfg, lh: int, lw: int, frames: int, n_ctx: int, encode: b
     return sites
 
 
+def b7_shapes() -> list:
+    """(B, F, N, C, heads) of B7's rows: the t2v plan's four temporal levels
+    at 2 x VIDEO_FRAMES frames of VIDEO_LATENT (task D, phase 5b), then the
+    i2vgen plan's at 2 x I2V_FRAMES frames of I2V_LATENT^2 (task G, 5d)."""
+    from vitron_tpu_torch.models.diffusion.video_pipelines import (Image2VideoConfig,
+                                                                   Text2VideoConfig)
+
+    t2v, i2v = Text2VideoConfig(), Image2VideoConfig()
+    return ([(2, VIDEO_FRAMES, n, c, h) for n, c, h in video_sites(t2v.unet, *VIDEO_LATENT)]
+            + [(2, I2V_FRAMES, n, c, h)
+               for n, c, h in video_sites(i2v.unet, I2V_LATENT, I2V_LATENT)])
+
+
+def frame_attention_row(torch, card: str, qkv32, heads: int, dtype) -> dict:
+    """B7 against its plain version on q, k, v (float32 [B, F, N, C] tensors,
+    cast to `dtype`), `heads` heads of C / heads: max |kernel - plain| /
+    max |plain| (VIDEO_TOL), the same bits twice, device times from
+    CUDA-graph replay of the kernel, the plain version and
+    F.scaled_dot_product_attention on the [B N, H, F, D] copies (the layout
+    copies made outside the timed region), and the bound."""
+    import torch.nn.functional as F
+
+    from vitron_tpu_torch.kernels import temporal_attention as ta
+
+    b, f, n, c = qkv32[0].shape
+    d = c // heads
+    name = str(dtype).split(".")[-1]
+    q, k, v = (t.to(dtype) for t in qkv32)
+    got, again = (ta.frame_attention(q, k, v, heads, d ** -0.5) for _ in range(2))
+    want = ta.frame_attention_plain(q, k, v, heads, d ** -0.5)
+    err, rel = rel_err(got, want)
+    same = bool(torch.equal(got, again))
+    del again, want
+    qt, kt, vt = (t.reshape(b, f, n, heads, d).permute(0, 2, 3, 1, 4)
+                  .reshape(b * n, heads, f, d).contiguous() for t in (q, k, v))
+    ms = graph_ms(torch, lambda: ta.frame_attention(q, k, v, heads, d ** -0.5))
+    plain_ms = graph_ms(torch, lambda: ta.frame_attention_plain(q, k, v, heads, d ** -0.5),
+                        calls=2)
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    r = row(err, rel, ms, plain_ms, nbytes(q, k, v, got), 4 * b * n * heads * f * f * d,
+            "fp32" if dtype == torch.float32 else "bf16_tensor", lib_ms)
+    print(f"frame_attention [{b},{f},{n},{c}] heads={heads} D={d} {name}: rel_err={rel:.3e} "
+          f"same bits twice={same}; kernel {ms:.4f} ms "
+          f"({nbytes(q, k, v, got) / (ms * 1e-3) / 1e9:.0f} GB/s) plain {plain_ms:.4f} ms "
+          f"{bound_text(r)} (scaled_dot_product_attention on [B N, H, F, D]; graph-replayed "
+          f"device times) [{card}]", flush=True)
+    check(rel <= VIDEO_TOL[name] and same,
+          f"frame_attention [{b},{f},{n},{c}] {name}: rel err {rel}, same bits twice {same}")
+    return r
+
+
 def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: int, n_ctx: int,
                       seed: int, encode_hw=None):
     """A video path's kernels against their plain versions at the shapes one
@@ -1289,7 +1381,6 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
     from vitron_tpu_torch.kernels import flash_attention as fa
     from vitron_tpu_torch.kernels import geglu_ff as gf
     from vitron_tpu_torch.kernels import group_norm as gn
-    from vitron_tpu_torch.kernels import temporal_attention as ta
     from vitron_tpu_torch.kernels import temporal_conv as tc
 
     dev = torch.device("cuda")
@@ -1332,29 +1423,9 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
             del got, want, lib, xc, wc
         del x32, w32
 
-        d = c // heads
         qkv32 = [torch.randn((b, f, n, c), generator=g, device=dev) for _ in range(3)]
         for dtype in (f32, bf16):
-            name = str(dtype).split(".")[-1]
-            q, k, v = (t.to(dtype) for t in qkv32)
-            got = ta.frame_attention(q, k, v, heads, d ** -0.5)
-            want = ta.frame_attention_plain(q, k, v, heads, d ** -0.5)
-            err, rel = rel_err(got, want)
-            qt, kt, vt = (t.reshape(b, f, n, heads, d).permute(0, 2, 3, 1, 4)
-                          .reshape(b * n, heads, f, d).contiguous() for t in (q, k, v))
-            ms = graph_ms(torch, lambda: ta.frame_attention(q, k, v, heads, d ** -0.5))
-            plain_ms = graph_ms(torch, lambda: ta.frame_attention_plain(q, k, v, heads,
-                                                                         d ** -0.5), calls=2)
-            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            r = row(err, rel, ms, plain_ms, nbytes(q, k, v, got), 4 * b * n * heads * f * f * d,
-                    peak(dtype), lib_ms)
-            print(f"frame_attention [{b},{f},{n},{c}] heads={heads} D={d} {name}: rel_err="
-                  f"{rel:.3e} kernel {ms:.4f} ms ({nbytes(q, k, v, got) / (ms * 1e-3) / 1e9:.0f} "
-                  f"GB/s) plain {plain_ms:.4f} ms {bound_text(r)} (scaled_dot_product_attention "
-                  f"on [B N, H, F, D]; graph-replayed device times) [{card}]", flush=True)
-            check(rel <= VIDEO_TOL[name], f"frame_attention N={n} C={c} {name} rel err {rel}")
-            rows["tattn"].append(r)
-            del got, want, qt, kt, vt
+            rows["tattn"].append(frame_attention_row(torch, card, qkv32, heads, dtype))
         del qkv32
 
         fh = 4 * c
@@ -2051,7 +2122,7 @@ TRAIN_CPU_GPU_TOL = {"loss": 1e-4, "grad": 1e-3}  # grad: max |card - cpu| / max
 # the 256 image tokens a row fills 1,490-1,900 of the 2,048 slots
 TRAIN_WORDS = (200, 350, 1000, 1250)
 TRAIN_KERNEL_GROUPS = (
-    ("B1 int4_matmul", r"int4_(gemm|gemv|split_reduce)_kernel"),
+    ("B1 int4_matmul", r"int4_(gemm|gemm_tc|gemv|split_reduce)_kernel"),
     ("B2 flash forward", r"flash_fwd"),
     ("B5a flash dK/dV", r"flash_bwd_kv"),
     ("B5b flash dQ", r"flash_bwd_q"),
@@ -2098,13 +2169,6 @@ def b2_shapes() -> list:
     return out
 
 
-def train_kernels():
-    from vitron_tpu_torch.kernels import flash_attention as fa
-    from vitron_tpu_torch.kernels import int4_matmul as i4
-
-    return fa, i4
-
-
 def train_step_launches(llm_cfg) -> dict:
     """Kernel launches of one training step of the LLM: every projection and
     the lm_head on B1 and every layer's attention on B2 in the forward (both
@@ -2139,7 +2203,8 @@ def phase_train_kernels(torch, card: str):
     trainer's attention shape [2, 2048, 32, 128] (causal, right-padded),
     a GQA row with q_offset > 0 and a non-causal D 64 row, in bf16 and f32;
     then B1 at the trainer's M = 4096 rows and the four (K, N) pairs."""
-    fa, i4 = train_kernels()
+    from vitron_tpu_torch.kernels import flash_attention as fa
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     rows = {"flash_lse": [], "bwd_kv": [], "bwd_q": [], "int4_train": []}
@@ -2236,21 +2301,9 @@ def phase_train_kernels(torch, card: str):
 
     m = TRAIN_BATCH * TRAIN_SEQ
     for k, n in INT4_SHAPES:
-        q4 = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8, device=dev)
-        s = torch.rand((1, n), generator=g, device=dev) * 0.02 + 0.01
-        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        got = i4.int4_matmul(x, q4, s)
-        err, rel = rel_err(got, i4.int4_matmul_plain(x, q4, s))
-        ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), iters=5)
-        plain_ms = cuda_ms(torch, lambda: i4.int4_matmul_plain(x, q4, s), iters=5)
-        r = row(err, rel, ms, plain_ms, nbytes(x, q4, s, got), 2 * m * k * n, "bf16_tensor")
-        print(f"int4_matmul M={m} K={k} N={n}: rel_err={rel:.3e} kernel {ms:.4f} ms "
-              f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.4f} ms "
-              f"{bound_text(r)} [{card}]", flush=True)
-        check(rel <= INT4_TOL, f"int4_matmul M={m} K={k} N={n} rel err {rel} > {INT4_TOL}")
-        rows["int4_train"].append(r)
-        del q4, s, x, got
-    torch.cuda.empty_cache()
+        rows["int4_train"].append(int4_row(torch, card, g, m, k, n, iters=5))
+        torch.cuda.empty_cache()
+    print_sums(f"B1 at M {m}", rows["int4_train"], card)
     return rows
 
 
@@ -2280,6 +2333,24 @@ def train_media_loader(seed: int, size: int):
         return preprocess_image(pixels, size)
 
     return load
+
+
+def int4_dequant_ms(torch, llm) -> float:
+    """Device time, over one training step, of the int4 backward's
+    dequantize (`Int4Matmul.backward`: unpack_int4, the scale, the cast to
+    bf16, in plain torch: elementwise kernels that a profile counts in "the
+    rest"): CUDA events on one layer's seven packed projections, times the
+    layer count, and on the lm_head."""
+    from vitron_tpu_torch.kernels import int4_matmul as i4
+
+    def ms(q4, s):
+        return cuda_ms(torch, lambda: (i4.unpack_int4(q4).to(torch.float32) * s)
+                       .to(torch.bfloat16), iters=3, warmup=1)
+
+    layers = llm["layers"]
+    per_layer = sum(ms(layers[t]["q4"][0], layers[t]["s"][0])
+                    for t in ("wq", "wk", "wv", "wo", "gate", "up", "down"))
+    return layers["wq"]["q4"].shape[0] * per_layer + ms(llm["lm_head"]["q4"], llm["lm_head"]["s"])
 
 
 def phase_train(torch, card: str):
@@ -2373,6 +2444,9 @@ def phase_train(torch, card: str):
         torch.cuda.synchronize()
         profile_breakdown(torch, card, "train: one LoRA step (2 x 2048)", one_step,
                           (time.perf_counter() - t0) * 1e3, TRAIN_KERNEL_GROUPS)
+        print(f"train: of the profile's 'the rest', B1's backward dequantize (plain torch "
+              f"in Int4Matmul.backward) takes {int4_dequant_ms(torch, base['llm']):.1f} ms a "
+              f"step (CUDA events at the step's 225 weight shapes) [{card}]", flush=True)
         del tr2, step_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2627,9 +2701,13 @@ def main() -> int:
     rows["tconv"] += rows.pop("tconv_i2v")
     rows["tattn"] += rows.pop("tattn_i2v")
     print(json.dumps({"kernels": [
-        entry("int4_matmul", "vitron_tpu_torch/csrc/int4_matmul.cu",
-              "vitron_tpu/kernels/int4_matmul.py:108", "int4", chat["int4_matmul"],
-              paths("int4_matmul")),
+        dict(entry("int4_matmul", "vitron_tpu_torch/csrc/int4_matmul.cu",
+                   "vitron_tpu/kernels/int4_matmul.py:108", "int4", chat["int4_matmul"],
+                   paths("int4_matmul")),
+             reference_ms=sum(r["ref_ms"] for r in rows["int4"]),
+             reference_is="torch.matmul of x with the weight dequantized to bf16 beforehand, "
+                          "summed over the same rows: other inputs (four times the weight "
+                          "bytes), not a port and not a library call of this function"),
         entry("flash_attention", "vitron_tpu_torch/csrc/flash_attention_fwd.cu",
               "vitron_tpu/kernels/flash_attention.py:242", "flash",
               task_a["flash_attention"], paths("flash_attention")),

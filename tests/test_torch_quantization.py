@@ -149,6 +149,50 @@ def test_w8a8_w4a8_not_ported(key):
                                    "s": torch.ones(1, 4)})
 
 
+def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's __byte_perm(x, y, sel) on int64 tensors of 32-bit words: byte n
+    of the result is byte (sel >> 4n) & 7 of the eight bytes of x, y."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def _unpack_tensor_core(words: torch.Tensor, j: int):
+    """The tensor-core GEMM's unpack of byte j of packed words
+    (csrc/int4_matmul.cu nib_bf16x2): exponent of 128 over each biased
+    nibble, then a bf16x2 FMA r * 1 - 136 (exact, so done in float32)."""
+    x = words ^ 0x88888888
+    r = _byte_perm(x, x >> 4, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12))
+    r = (r & 0x000F000F) | 0x43004300
+    halves = torch.stack([r & 0xFFFF, r >> 16]).to(torch.int32)
+    as_bf16 = torch.where(halves >= 1 << 15, halves - (1 << 16), halves).to(torch.int16)
+    return as_bf16.view(torch.bfloat16).float() - 136.0  # [lo (K row 2r), hi (2r+1)]
+
+
+def _unpack_gemv(words: torch.Tensor, j: int):
+    """The GEMV's unpack of byte j of packed words (csrc/int4_matmul.cu
+    unpack_word, nib): the biased nibble in the mantissa of 2^23, minus 2^23 + 8."""
+    out = []
+    for sh in (0, 4):
+        biased = ((words >> sh) & 0x0F0F0F0F) ^ 0x08080808
+        bits = _byte_perm(biased, torch.full_like(words, 0x4B000000), 0x7540 | j)
+        out.append(torch.from_numpy(bits.numpy().astype(np.uint32).view(np.float32)) - 8388616.0)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("unpack", [_unpack_tensor_core, _unpack_gemv])
+def test_kernel_nibble_unpack_matches_unpack_int4(unpack):
+    """Every byte value, both nibbles: the kernels' bit tricks (emulated with
+    torch integer ops) give unpack_int4's values exactly."""
+    packed = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)[None]  # [1, 256]
+    b = packed.to(torch.int64) & 0xFF
+    words = b[:, 0::4] | b[:, 1::4] << 8 | b[:, 2::4] << 16 | b[:, 3::4] << 24  # [1, 64]
+    got = torch.empty(2, 256)
+    for j in range(4):
+        got[:, j::4] = unpack(words, j)[:, 0]
+    want = i4.unpack_int4(packed).float()  # [2, 256]: lo nibbles, hi nibbles
+    assert torch.equal(got, want)
+
+
 def test_int4_matmul_rejects_bad_shapes():
     with pytest.raises(ValueError):
         i4.int4_matmul(torch.zeros(2, 6), torch.zeros(4, 8, dtype=torch.int8),
@@ -176,6 +220,54 @@ def test_int4_kernel_matches_plain(cuda, dtype, m, k, n):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     err = (got.float() - want).abs().max() / want.abs().max()
     assert err.item() <= tol
+
+
+def _row_rel(got, want) -> float:
+    """max over output rows of max |got - want| / the row's max |want|"""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return (diff / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+# per output row: float32 differs by the order of the sums; bf16 may flip
+# one rounding of the output, at most one ulp, 2^-7 of the value
+ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k2,n", [(100, 196), (203, 1028), (2048, 4100), (517, 4096)])
+@pytest.mark.parametrize("m", [9, 70, 200, 384, 1000])
+def test_int4_gemm_rows_match_plain_at_ragged_shapes(cuda, m, k2, n, dtype):
+    """M > 8 (the tensor-core GEMM in bf16, the FMA GEMM in float32) at
+    ragged K2 (not a multiple of the 32-row stage; odd, so rows of x are
+    not 16-byte aligned) and N (4 mod 8), and at whole tiles: every output
+    row within ROW_REL of its largest, the same bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(m + k2 + n)
+    x = torch.randn((m, 2 * k2), generator=g, device=cuda).to(dtype)
+    q4 = torch.randint(-128, 128, (k2, n), generator=g, dtype=torch.int8, device=cuda)
+    s = torch.rand((1, n), generator=g, device=cuda) * 0.02 + 0.01
+    got, again = i4.int4_matmul(x, q4, s), i4.int4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _row_rel(got, i4.int4_matmul_plain(x, q4, s)) <= ROW_REL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k2,n", [(1, 2048, 4096), (1, 5504, 4100), (3, 2048, 11008),
+                                    (8, 2048, 1028)])
+def test_int4_gemv_split_rows_match_plain(cuda, m, k2, n, dtype):
+    """The decode GEMV with its rows split over blocks (a second pass adds
+    the splits in a fixed order), 16-byte and 4-byte loads."""
+    assert i4._splits(m, k2, n, dtype) > 1
+    g = torch.Generator(device=cuda).manual_seed(m * k2 + n)
+    x = torch.randn((m, 2 * k2), generator=g, device=cuda).to(dtype)
+    q4 = torch.randint(-128, 128, (k2, n), generator=g, dtype=torch.int8, device=cuda)
+    s = torch.rand((1, n), generator=g, device=cuda) * 0.02 + 0.01
+    got, again = i4.int4_matmul(x, q4, s), i4.int4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _row_rel(got, i4.int4_matmul_plain(x, q4, s)) <= ROW_REL[dtype]
 
 
 @pytest.mark.cuda

@@ -292,6 +292,25 @@ def test_frame_attention_kernel_other_shapes(cuda, b, f, n, heads, d, dtype):
     assert _rel_t(got, want) <= (F32_TOL if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 45, 180])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("f", [1, 2, 16, 24, 32])
+def test_frame_attention_kernel_every_frame_count_and_head_dim(cuda, f, d, n, dtype):
+    """Every frame bucket (2 or 4 lanes a key at F <= 16), head dim and a
+    pixel count of 1, the same bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(1000 * f + 10 * d + n)
+    q, k, v = (torch.randn((2, f, n, 2 * d), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = ta.launches
+    got, again = (ta.frame_attention(q, k, v, 2, d ** -0.5) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ta.launches == before + 2 and torch.equal(got, again)
+    want = ta.frame_attention_plain(q, k, v, 2, d ** -0.5)
+    assert _rel_t(got, want) <= (F32_TOL if dtype == torch.float32 else 1e-2)
+
+
 # (M, C) of the video UNet's feed-forward sites (CFG batch 2 x 24 frames) and
 # a ragged M
 GEGLU_VIDEO_SITES = [(138240, 512), (34560, 1024), (8640, 2048), (2160, 2048), (1001, 1024)]

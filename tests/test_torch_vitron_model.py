@@ -204,3 +204,13 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK chat" in proc.stdout
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(capsys):
+    from vitron_tpu_torch.apps import cli
+
+    assert cli.build_argparser().parse_args(["--prompt", "hi"]).device == "cuda"
+    assert cli.build_argparser().parse_args(["--prompt", "hi", "--device", "cpu"]).device == "cpu"
+    if not torch.cuda.is_available():  # the default is an error here, never the CPU
+        assert cli.main(["--demo", "--prompt", "hi"]) == 2
+        assert "no CUDA device" in capsys.readouterr().err

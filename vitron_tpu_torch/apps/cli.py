@@ -6,9 +6,9 @@
 
 `--demo` runs the tiny random-weight model with a whitespace tokenizer; the
 image is a uint8 [H, W, 3] array saved with numpy (`--image x.npy`) or, if
-none is given, random pixels from `--seed`. The device is explicit: asking
-for `cuda` on a machine without a CUDA device is an error, never a switch to
-the CPU. Loading real checkpoints is not ported yet (ROADMAP A7).
+none is given, random pixels from `--seed`. It runs on the card unless
+`--device cpu` asks for the CPU: `cuda` (the default) on a machine without
+a CUDA device is an error, never a switch to the CPU. Loading real checkpoints is not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ class DemoTokenizer:
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Vitron PyTorch/CUDA CLI inference")
-    p.add_argument("--device", required=True, help="torch device, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs on the host)")
     p.add_argument("--demo", action="store_true",
                    help="random tiny weights, whitespace tokenizer (no checkpoints)")
     p.add_argument("--image", help="uint8 [H, W, 3] image saved with numpy (.npy)")

@@ -37,8 +37,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of every C entry point in csrc/
 _SIGNATURES = {
-    # x, q4, s, y, part, M, K2, N, splits, is_bf16, stream
-    "vt_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, q4, s, y, part, ticket, M, K2, N, splits, is_bf16, stream
+    "vt_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, kv_mask, out, lse, B, S, T, N, KH, D, q_offset, scale, causal,
     # use_shift, shift, is_bf16, stream
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

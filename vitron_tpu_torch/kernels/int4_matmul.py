@@ -2,9 +2,13 @@
 
 Replaces the Pallas TPU kernel `vitron_tpu/kernels/int4_matmul.py::_kernel`
 (pallas_call at :108). The kernel is `csrc/int4_matmul.cu`; its note says
-what bounds it on the H100 (device-memory bandwidth in decode) and how the
-design answers that (packed bytes read once, split-K GEMV for M <= 8, a
-tiled FMA GEMM for prefill).
+what bounds it on the H100 (device-memory bandwidth in decode, operations
+in prefill and training) and how the design answers that: a split-K GEMV
+for M <= 8 (bf16 x on the tensor cores; the last block of a column strip
+adds the splits in a fixed order, counted on `_tickets`), a bf16
+tensor-core GEMM (mma.sync, nibbles unpacked straight into B fragments) for
+larger M with bf16 x, and an FMA GEMM for larger M with float32 x (TF32
+would round x).
 
 `int4_matmul(x, q4, s)` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. When x needs a gradient it goes through
@@ -19,11 +23,13 @@ import torch
 from vitron_tpu_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
+_tickets = {}  # (device, stream) -> int32 counters of the GEMV's split-K, 0 between launches
 
 GEMV_MAX_M = 8
-_GEMV_COLS = 128   # columns per GEMV block (csrc kGemvCols)
-_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
-_MIN_SPLIT_ROWS = 64
+# columns per GEMV block (csrc kMvCols for bf16 x, kGemvCols for float32 x)
+_GEMV_COLS = {torch.bfloat16: 128, torch.float32: 512}
+_TARGET_BLOCKS = 264  # one wave of two blocks on each of the H100's 132 SMs
+_MIN_SPLIT_ROWS = 256  # a split gives each of a block's 8 warps 4 k16 steps (32 rows)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -44,13 +50,23 @@ def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> tor
     return ((x.to(torch.float32) @ w) * s.to(torch.float32)).to(x.dtype)
 
 
-def _splits(m: int, k2: int, n: int) -> int:
-    """Row splits of the decode GEMV so the grid fills the card."""
+def _ticket(device, stream: int, strips: int) -> torch.Tensor:
+    """The GEMV's per-column-strip counters for launches on `stream`: zeroed
+    once, and every launch leaves them 0 (its last block per strip resets
+    its own)."""
+    t = _tickets.get((device, stream))
+    if t is None or t.numel() < strips:
+        t = torch.zeros(max(strips, 256), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = t
+    return t
+
+
+def _splits(m: int, k2: int, n: int, dtype) -> int:
+    """Row splits of the decode GEMV so that its grid is about one wave."""
     if m > GEMV_MAX_M:
         return 1
-    col_blocks = -(-n // _GEMV_COLS)
-    want = -(-_TARGET_BLOCKS // col_blocks)
-    return max(1, min(want, k2 // _MIN_SPLIT_ROWS))
+    strips = -(-n // _GEMV_COLS[dtype])
+    return max(1, min(round(_TARGET_BLOCKS / strips), k2 // _MIN_SPLIT_ROWS))
 
 
 class Int4Matmul(torch.autograd.Function):
@@ -102,13 +118,17 @@ def _int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Te
     if m == 0:
         return torch.empty((0, n), dtype=x.dtype, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    splits = _splits(m, k2, n)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    splits = _splits(m, k2, n, x.dtype)
+    stream = _build.stream_handle(x.device)
+    part = ticket = None
+    if splits > 1:
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        ticket = _ticket(x.device, stream, -(-n // _GEMV_COLS[x.dtype]))
     rc = _build.lib().vt_int4_matmul(
         x.data_ptr(), q4.data_ptr(), s.data_ptr(), y.data_ptr(),
-        part.data_ptr() if part is not None else None, m, k2, n, splits,
-        int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+        part.data_ptr() if part is not None else None,
+        ticket.data_ptr() if ticket is not None else None, m, k2, n, splits,
+        int(x.dtype == torch.bfloat16), stream)
     _build.check(rc, "int4_matmul")
     launches += 1
     return y

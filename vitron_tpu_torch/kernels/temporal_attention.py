@@ -13,10 +13,13 @@ independently at every pixel (`unet_sd_video._temporal_mha`). The scale is
 applied to the float32 scores, as the JAX package's einsum form does (its
 Pallas entry folded it into q first).
 
-The kernel is `csrc/temporal_attention.cu`: one warp per (b, n, h) reads
-the [B, F, N, H*D] layout in place, stages q, k and v in shared memory and
-keeps one key frame per lane, so F <= 32 and D in {32, 64, 128}; other
-shapes on the card raise. The JAX gate `usable` (TPU backend, bf16,
+The kernel is `csrc/temporal_attention.cu`: each warp walks a stream of
+(b, n, h) items, reading the [B, F, N, H*D] layout in place with 16-byte
+copies into shared memory (in the input type; the next item's q and k in
+flight while the current one computes); lanes own register tiles of
+(key, query) scores, a query row for the softmax and (query, depth) tiles
+of the product with v, so F <= 32 and D in {32, 64, 128}; other shapes on
+the card raise. The JAX gate `usable` (TPU backend, bf16,
 `VITRON_TATTN=fused`, a pixel count its block tiling divides) recorded TPU
 facts, as B3's and B8's gates did; here every CUDA call launches the kernel,
 in float32 and bfloat16. Where JAX's default bf16 path rounds the
@@ -74,7 +77,7 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
     if f > MAX_FRAMES or d not in HEAD_DIMS:
         raise NotImplementedError(f"frame_attention: no CUDA kernel for F={f}, head dim {d} "
                                   f"(F <= {MAX_FRAMES}, D in {HEAD_DIMS})")
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():
         rc = _build.lib().vt_frame_attention(
