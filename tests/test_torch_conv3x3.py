@@ -15,17 +15,25 @@ a bf16 output (one rounding of the output on each side). The gradients
 (dx through the same conv with the flipped filter, dw from the unrounded
 taps) are held against `jax.vjp` of the interpret-mode kernel at 1e-5.
 
+The box planner (`plan_boxes`, the pixel rectangle of one block, whose A
+tile is a TMA box) is held on the CPU: at every shape it covers each output
+pixel exactly once, and its boxes stay within TMA's limits.
+
 The `cuda`-marked tests hold the hand kernel against the plain version on
 the card at every eligible 3x3 conv of the i2vgen UNet at task G's 64x64
 latents (batch 2 x 16 frames; `unet_sd_video.conv3x3_sites`, from the
-block plan), float32 and bf16, its gradients against `conv3x3_vjp_plain`, and
-check that the wrapper launches the kernel at eligible shapes, runs the
-exact conv at the others and raises where it has no kernel.
+block plan), at ragged shapes and with every box shape the planner can
+choose, float32 and bf16: within the global tolerance, within
+`chip_smoke.PIXEL_REL` of each output pixel's largest |plain| (which a
+dropped 64-channel block of one tap fails), and the same bits twice; its gradients against `conv3x3_vjp_plain`; and that the wrapper
+launches the kernel at eligible shapes, runs the exact conv at the others
+and raises where it has no kernel.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vitron_tpu_torch.kernels import conv2d as cv
 
 F32_TOL, BF16_TOL = 1e-5, 1e-2
@@ -172,6 +180,66 @@ def test_gradients_match_jax_vjp(shape):
     assert torch.equal(dx, tx.grad) and torch.equal(dw, tw.grad)
 
 
+# shapes the planner meets: task G's four levels (batch 32), the card
+# tests' ragged ones, a single image and a row wider than any box
+PLANNED = [(32, 64, 64), (32, 32, 32), (32, 16, 16), (32, 8, 8), (3, 5, 8), (1, 9, 24),
+           (1, 7, 8), (2, 6, 8), (1, 1, 8), (5, 3, 40), (1, 16, 1024)]
+
+
+def _coverage(b, h, w, box):
+    count = np.zeros((b, h, w), np.int32)
+    bb, bh, bw = box
+    for b0, h0, w0 in cv.box_tiles(b, h, w, box):
+        count[b0:b0 + bb, h0:h0 + bh, w0:w0 + bw] += 1
+    return count
+
+
+@pytest.mark.parametrize("shape", PLANNED)
+def test_box_planner_covers_every_pixel_once(shape):
+    """The planner's rectangle tiles [B, H, W]: each output pixel in one
+    block, the blocks the fewest of any box shape, and the TMA box {64, bw,
+    bh, bb} within TMA's limits (each extent <= 256, the inner one 128
+    bytes, as the 128-byte swizzle needs)."""
+    box = cv.plan_boxes(*shape)
+    bb, bh, bw = box
+    assert box in cv.BOX_SHAPES and bb * bh * bw == cv.BLOCK_PIXELS
+    assert max(64, bw, bh, bb) <= 256 and 64 * 2 == 128
+    assert (_coverage(*shape, box) == 1).all()
+    n = len(cv.box_tiles(*shape, box))
+    assert n == min(len(cv.box_tiles(*shape, other)) for other in cv.BOX_SHAPES)
+
+
+@pytest.mark.parametrize("box", cv.BOX_SHAPES)
+def test_every_box_shape_tiles_a_ragged_shape_once(box):
+    assert (_coverage(3, 9, 24, box) == 1).all()
+
+
+def test_task_g_boxes():
+    """Task G's levels take one image's rows whole where W allows."""
+    assert [cv.plan_boxes(32, n, n) for n in (64, 32, 16, 8)] == [
+        (1, 2, 64), (1, 4, 32), (1, 8, 16), (2, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pixel_limit_catches_a_dropped_k_block(dtype):
+    """A kernel that skipped one 64-channel block of one tap for one block
+    of 128 pixels fails the per-pixel limit; one-ulp flips of a bf16
+    output pass it."""
+    x, w, _ = _inputs(2, 8, 16, 256, 128, seed=11)
+    tx, tw = _t(x, dtype), _t(w, dtype)
+    want = cv.conv3x3_plain(tx, tw)
+    f32 = torch.float32
+    xp = torch.nn.functional.pad(tx.to(torch.bfloat16).to(f32), (0, 0, 1, 1, 1, 1))
+    tap = xp[:, 1:9, 2:18, 64:128] @ tw.to(torch.bfloat16).to(f32)[1, 2, 64:128]
+    bad = want.to(f32).clone()
+    bad[0] -= tap[0]  # the first image's 128 pixels: one block of the kernel
+    bad = bad.to(tx.dtype)
+    assert chip_smoke.flash_row_rel(bad, want) > chip_smoke.PIXEL_REL[dtype]
+    if dtype == "bfloat16":  # one ulp up wherever the plain output is positive
+        flip = (want.view(torch.int16) + (want > 0).to(torch.int16)).view(torch.bfloat16)
+        assert chip_smoke.flash_row_rel(flip, want) <= chip_smoke.PIXEL_REL[dtype]
+
+
 def test_bad_shapes_raise():
     with pytest.raises(ValueError):
         cv.conv3x3_same(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 4, 8))
@@ -203,7 +271,17 @@ def test_kernel_matches_plain_at_the_task_g_sites(cuda, site, dtype):
     got = cv.conv3x3_same(x, k)
     torch.cuda.synchronize()
     assert cv.launches == before + 1 and got.dtype == dtype
-    assert _rel(got, cv.conv3x3_plain(x, k)) <= (F32_TOL if dtype == torch.float32 else BF16_TOL)
+    _assert_matches_plain(got, x, k, cv.conv3x3_same(x, k))
+
+
+def _assert_matches_plain(got, x, k, again):
+    """Within the global tolerance and the smoke's per-pixel limit of the
+    plain version, and the same bits as a second call."""
+    want = cv.conv3x3_plain(x, k)
+    name = str(x.dtype).split(".")[-1]
+    assert _rel(got, want) <= (F32_TOL if x.dtype == torch.float32 else BF16_TOL)
+    assert chip_smoke.flash_row_rel(got, want) <= chip_smoke.PIXEL_REL[name]
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -217,7 +295,22 @@ def test_kernel_matches_plain_at_ragged_shapes(cuda, shape, dtype):
     k = (torch.randn((3, 3, c, d), generator=gen, device=cuda) * 0.05).to(dtype)
     got = cv.conv3x3_same(x, k)
     torch.cuda.synchronize()
-    assert _rel(got, cv.conv3x3_plain(x, k)) <= (F32_TOL if dtype == torch.float32 else BF16_TOL)
+    _assert_matches_plain(got, x, k, cv.conv3x3_same(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("box", cv.BOX_SHAPES)
+def test_kernel_with_every_box_shape(cuda, box, dtype):
+    """Each rectangle the planner may choose, forced on one ragged shape
+    (rectangles overrun H, W and B, TMA boxes leave the tensor on every
+    side)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(box))
+    x = torch.randn((3, 9, 24, 128), generator=gen, device=cuda).to(dtype)
+    k = (torch.randn((3, 3, 128, 256), generator=gen, device=cuda) * 0.05).to(dtype)
+    got = cv._launch(x, k, box)
+    torch.cuda.synchronize()
+    _assert_matches_plain(got, x, k, cv._launch(x, k, box))
 
 
 @pytest.mark.cuda

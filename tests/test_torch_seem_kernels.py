@@ -4,8 +4,13 @@ On the CPU the plain version is held against the JAX kernel run as the JAX
 package's own tests run it, `_dw_pallas(..., interpret=True)`, and against
 its `reference` shift-and-add: float32 to 1e-5 of the output scale (only
 the order of at most 81 products differs), bf16 to 2e-2 (output rounding).
-The `cuda`-marked tests hold the hand kernel against its plain version on
-the card at FocalNet-L's shapes and a ragged one, and check that
+The grid planner (`plan`) is held on the CPU: every (pixel, channel) in
+one block, at least one block per SM of the H100's 132 at every
+FocalNet-L stage, and a block's threads and shared memory within what the
+kernel and the card take. The `cuda`-marked tests hold the hand kernel
+against its plain version on the card at FocalNet-L's shapes and ragged
+ones: within the global tolerance, within `chip_smoke.PIXEL_REL` of each
+output pixel's largest |plain|, the same bits twice; and check that
 unsupported kernels and dtypes raise. JAX is imported inside the CPU tests
 only.
 """
@@ -13,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from vitron_tpu_torch.kernels import depthwise_conv as dw
 
 
@@ -84,6 +90,46 @@ def test_never_falls_back_off_cpu():
                             torch.zeros((3, 3, 8), device=meta))
 
 
+# ---------------------------------------------------------------- the planner
+
+FOCALNET_STAGES = [(1, 128, 128, 192), (1, 64, 64, 384), (1, 32, 32, 768), (1, 16, 16, 1536)]
+RAGGED = [(2, 37, 53, 200), (1, 5, 3, 48), (3, 1, 70, 33), (2, 9, 130, 20)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", FOCALNET_STAGES + RAGGED)
+def test_grid_covers_every_pixel_and_channel_once(shape, itemsize):
+    """The blocks of `plan` tile [B, H, W, C] exactly once, as the kernel
+    reads its block indices, at every kernel size; their threads and shared
+    memory fit a block."""
+    b, h, w, c = shape
+    for k in dw.KERNEL_SIZES:
+        p = dw.plan(*shape, k, itemsize)
+        count = np.zeros(shape, np.int8)
+        segs = p.grid[2] // b
+        for gx in range(p.grid[0]):
+            for gy in range(p.grid[1]):
+                for gz in range(p.grid[2]):
+                    bi, h0 = gz // segs, (gz % segs) * p.hs
+                    rows = min(p.hs, h - h0)
+                    assert rows > 0
+                    count[bi, h0:h0 + rows, gy * p.tw:(gy + 1) * p.tw,
+                          gx * p.channels:(gx + 1) * p.channels] += 1
+        assert (count == 1).all(), k
+        assert p.threads <= dw.MAX_THREADS and p.tw % dw.COLS == 0
+        assert p.lanes & (p.lanes - 1) == 0
+        assert p.vec in (1, 16 // itemsize) and (p.vec == 1 or c % p.vec == 0)
+        assert p.smem_bytes(k) <= 227 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", FOCALNET_STAGES)
+def test_grid_fills_the_card_at_every_focalnet_stage(shape, itemsize):
+    for k in dw.KERNEL_SIZES:
+        p = dw.plan(*shape, k, itemsize)
+        assert p.blocks >= dw.SM_COUNT and p.vec == 16 // itemsize, k
+
+
 # ---------------------------------------------------------------- on the card
 
 # FocalNet-L at a 512x512 input (stage x, k = 3/5/7/9) and ragged cases
@@ -91,7 +137,8 @@ DW_SITES = ([((1, 128, 128, 192), k) for k in (3, 5, 7, 9)]
             + [((1, 64, 64, 384), k) for k in (3, 5, 7, 9)]
             + [((1, 32, 32, 768), k) for k in (3, 5, 7, 9)]
             + [((1, 16, 16, 1536), k) for k in (3, 5, 7, 9)]
-            + [((2, 37, 53, 200), 5), ((1, 5, 3, 48), 9), ((3, 1, 70, 33), 7)])
+            + [((2, 37, 53, 200), 5), ((1, 5, 3, 48), 9), ((3, 1, 70, 33), 7),
+               ((2, 9, 130, 20), 3)])
 
 
 @pytest.mark.cuda
@@ -109,6 +156,9 @@ def test_kernel_matches_plain(cuda, shape, k, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item(), err
+    name = str(dtype).split(".")[-1]
+    assert chip_smoke.flash_row_rel(got, want) <= chip_smoke.PIXEL_REL[name]
+    assert torch.equal(got, dw.depthwise_conv2d(x, w))
 
 
 @pytest.mark.cuda

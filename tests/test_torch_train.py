@@ -525,3 +525,72 @@ def test_region_boxes_are_dropped_as_in_jax(tmp_path):
             region_rows = plan.media_idx[0, :n] >= plan.n_image_blocks * IMAGE_LEN
             assert plan.use_media[0, :n][region_rows].sum() == 1  # the <objs> slot
             torch.testing.assert_close(train_embeds[i, :n], infer[0, :n], rtol=1e-5, atol=1e-5)
+
+
+def test_smoke_dataset_boxes_reach_the_batch(tmp_path):
+    """ROADMAP C10: `chip_smoke.train_dataset(..., boxes=1)` asks its first
+    conversation about a region (an `<objs>` slot and a "bbox"), and the
+    port's `_build_batch` carries that box and its image block into the
+    batch, as the card's training check builds it; the other sample has
+    none."""
+    import chip_smoke
+    from vitron_tpu_torch.models.vision.vit import ViTConfig
+    from vitron_tpu_torch.models.vitron_model import VitronConfig
+
+    path = chip_smoke.train_dataset(tmp_path / "d.json", 2, 1, words=(4, 6, 5, 8), boxes=1)
+    items = json.loads(path.read_text())
+    assert items[0]["bbox"] == [chip_smoke.TRAIN_BOX] and "bbox" not in items[1]
+    assert "<objs>" in items[0]["conversations"][0]["value"]
+    ds = tdata.SupervisedDataset(str(path), DemoTokenizer(), model_max_length=128)
+    assert ds[1].region_boxes is None
+    np.testing.assert_array_equal(ds[0].region_boxes, [chip_smoke.TRAIN_BOX])
+    cfg = VitronConfig(llm=LlamaConfig.tiny(vocab_size=32000), image_tower=ViTConfig.tiny(),
+                       video_tower=ViTConfig.tiny(add_time_attn=True))
+    gen = torch.Generator().manual_seed(0)
+    tr = ttrainer.Trainer(cfg, ttrainer.TrainConfig(batch_size=2, pad_len=128),
+                          tvm.init_params(gen, cfg, "cpu"), str(tmp_path / "t"))
+    batch = tr._build_batch(ds, [0, 1], _media_loader, IMAGE_LEN)
+    np.testing.assert_array_equal(batch["region_boxes"].numpy(), [chip_smoke.TRAIN_BOX])
+    assert batch["region_block_idx"].tolist() == [0]
+
+
+def _bf16_grad(x, w, split=None, drop=None):
+    """x @ w with bf16 inputs and float32 sums, rounded to bf16 as a bf16
+    step's gradient is: summed over K in `split` parts (another order), or
+    without K rows drop[0]:drop[1] (a dropped chunk)."""
+    xb, wb = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    if drop is not None:
+        xb = xb.clone()
+        xb[:, drop[0]:drop[1]] = 0
+    if split is None:
+        return (xb @ wb).to(torch.bfloat16)
+    parts = torch.tensor_split(torch.arange(x.shape[1]), split)
+    return sum(xb[:, p] @ wb[p] for p in parts).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,within", [
+    ("reordered in two halves", True), ("reordered in seven parts", True),
+    ("a dropped 64-deep chunk of K 4096", False), ("a dropped 64-deep chunk of K 11008", False),
+    ("a dropped 64-column block", False)])
+def test_bf16_grad_limit_passes_reordered_sums_and_fails_dropped_chunks(case, within):
+    """ROADMAP C11: `chip_smoke.grads_within` under TRAIN_BF16_GRAD_LIMIT
+    passes a product summed in another order (bf16 roundings flip) and
+    fails one that lost a 64-deep K chunk, as a B1 tile would, or a block
+    of 64 output columns."""
+    import chip_smoke
+
+    rs = np.random.RandomState(3)
+    k = 11008 if "11008" in case else 4096
+    x = torch.from_numpy(rs.randn(256, k).astype(np.float32))
+    w = torch.from_numpy(rs.randn(k, 512).astype(np.float32) / k ** 0.5)
+    want = {"g": _bf16_grad(x, w)}
+    if case.startswith("reordered"):
+        got = _bf16_grad(x, w, split=2 if "two" in case else 7)
+        assert not torch.equal(got, want["g"])  # some roundings flipped
+    elif "column" in case:
+        got = want["g"].clone()
+        got[:, 64:128] = 0
+    else:
+        got = _bf16_grad(x, w, drop=(64, 128))
+    (cos, rel, ok), = chip_smoke.grads_within({"g": got}, want).values()
+    assert ok == within, (cos, rel)

@@ -17,6 +17,20 @@ cosine similarity and the share of elements whose sign flips. A gradient
 that moves as much under the halves as under the kernel is dominated by
 the rounding of float32 sums, and an optimizer that normalizes each element
 (AdamW) turns that noise into different steps. Needs one CUDA device.
+
+    python3 tools/grad_noise.py --check [--root CHECKOUT]
+
+measures instead what the smoke's bf16 training check (ROADMAP C11,
+`chip_smoke.phase_train_cpu_vs_card`) holds: the same 2-layer state with a
+bf16 LLM and one bbox sample, one LoRA step on the CPU with the plain
+versions (the reference) and on the card with B1's and B5's kernels, with
+B1's plain version on the card (the same function summed in another
+order), and with two faults put in on purpose: every B1 call without its
+second 64-deep K chunk, and B5a and B5b without the second 64-key tile of
+every row. For each it prints every gradient's cosine with the
+reference's and ||card - cpu|| / ||cpu||, and whether
+`chip_smoke.grads_within` holds it under TRAIN_BF16_GRAD_LIMIT: the two
+right versions must pass and the two faults fail.
 """
 from __future__ import annotations
 
@@ -29,10 +43,68 @@ from pathlib import Path
 from flash_rows import HERE, load_smoke
 
 
+def check_limits(torch, smoke) -> int:
+    """The bf16 training check's noise and two faults against its limit."""
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.kernels import flash_attention as fa
+    from vitron_tpu_torch.kernels import int4_matmul as i4
+    from vitron_tpu_torch.train.data import SupervisedDataset
+
+    card = smoke.nvidia_smi_line()
+    cfg, params, trainable, tc = smoke.train_cpu_vs_card_setup(torch)
+    cfg, params = smoke.bf16_llm(torch, cfg, params)
+    kernel, bwd = i4._int4_matmul, fa.flash_attention_bwd
+
+    def no_chunk(x, q4, s):  # B1 without K rows 64..127
+        x = x.clone()
+        x[:, 64:128] = 0
+        return kernel(x, q4, s)
+
+    def no_tile(q, k, v, kv_mask, *rest):  # B5 without keys 64..127
+        mask = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device) if kv_mask is None \
+            else kv_mask.clone()
+        mask[:, 64:128] = False
+        return bwd(q, k, v, mask, *rest)
+
+    variants = (("kernels", kernel, bwd, True), ("B1 plain on the card", i4.int4_matmul_plain,
+                                                 bwd, True),
+                ("B1 dropped K chunk", no_chunk, bwd, False),
+                ("B5 dropped key tile", kernel, no_tile, False))
+    failures = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SupervisedDataset(str(smoke.train_dataset(pathlib.Path(tmp) / "d.json", 2, 1,
+                                                       words=(40, 60, 100, 140), boxes=1)),
+                               DemoTokenizer(), model_max_length=512)
+        loss, want, _, sec = smoke.lora_step(torch, cfg, tc, params, trainable, ds,
+                                             torch.device("cpu"), tmp)
+        print(f"check: CPU bf16 plain step loss {loss:.6f} in {sec:.1f} s [{card}]", flush=True)
+        for name, b1, b5, right in variants:
+            i4._int4_matmul, fa.flash_attention_bwd = b1, b5
+            try:
+                loss, got, _, sec = smoke.lora_step(torch, cfg, tc, params, trainable, ds,
+                                                    torch.device("cuda"), tmp)
+            finally:
+                i4._int4_matmul, fa.flash_attention_bwd = kernel, bwd
+            held = smoke.grads_within(got, want)
+            ok = all(v[2] for v in held.values())
+            print(f"check: {name}: loss {loss:.6f}, lowest cosine "
+                  f"{min(v[0] for v in held.values()):.6f}, largest relative norm "
+                  f"{max(v[1] for v in held.values()):.3e}, within "
+                  f"{smoke.TRAIN_BF16_GRAD_LIMIT}: {ok} (should be {right}) [{card}]", flush=True)
+            for key in sorted(held):
+                print(f"  {name} {key}: cosine {held[key][0]:.6f}, relative norm "
+                      f"{held[key][1]:.3e}", flush=True)
+            failures += ok != right
+            torch.cuda.empty_cache()
+    return int(failures > 0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--check", action="store_true",
+                    help="the bf16 training check's noise and faults against its limit")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -52,6 +124,8 @@ def main() -> int:
         print("grad_noise: no CUDA device", file=sys.stderr)
         return 1
     smoke = load_smoke()
+    if args.check:
+        return check_limits(torch, smoke)
     card = smoke.nvidia_smi_line()
     dev = torch.device("cuda")
     cfg = VitronConfig(

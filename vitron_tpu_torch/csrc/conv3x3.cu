@@ -1,61 +1,70 @@
-// 3x3 stride-1 SAME convolution (B9) for Hopper (sm_90a).
+// 3x3 stride-1 SAME convolution (B9) for Hopper (sm_90a): wgmma fed by TMA.
 //
 // Replaces the Pallas TPU kernel vitron_tpu/kernels/conv2d.py::_kernel (:39,
 // pallas_call at :99 in _conv3x3 :70, entry conv3x3_same :150).
 //
 //   y[b, h, w, :] = sum_{dy, dx} x[b, h + dy - 1, w + dx - 1, :] @ w[dy, dx]
-//   x [B, H, W, C] (NHWC), w [3, 3, C, D] (HWIO), zero outside the image;
-//   y [B, H, W, D] in x's type
+//   x [B, H, W, C] (NHWC) bf16, w [3, 3, C, D] (HWIO) bf16, zero outside the
+//   image; y [B, H, W, D] in bf16 or float32
 //
-// The TPU kernel computes its nine tap products with the taps cast to
-// bfloat16 (for float32 inputs too) and float32 sums; so does this one. It
-// is an implicit GEMM of M = B * H * W output pixels, depth K = 9C and D
-// columns: A is never stored. The tile loader maps output row (b, h, w)
-// and depth t * C + c (tap t = 3 dy + dx) to x[b, h + dy - 1, w + dx - 1, c]
-// and reads zero outside the image, so no padded copy of x and no partial
-// product reaches device memory; B is w seen as [9C, D]. Both operands are
-// rounded to bfloat16 as they are staged into shared memory, whatever the
-// input type, and multiplied on the tensor cores (mma.sync m16n8k16, bf16
-// in, float32 sums); each step's 32 products are summed by the tensor
-// cores and added to the running float32 sum on the CUDA cores, so the
-// sums round to nearest; y is written once, rounded to x's type.
+// The TPU kernel multiplies taps cast to bfloat16 (for float32 inputs too)
+// and sums in float32; so does this one. The wrapper casts float32 x and w
+// to bf16 once, before the launch, as JAX's _conv3x3 does in XLA, and asks
+// for float32 output sums instead of bf16 ones.
 //
-// Tiles: a block of 256 threads owns 128 x 128 outputs and walks K in steps
-// of 32 (C is a multiple of 32, so a step never straddles two taps); its
-// eight warps (2 x 4) each multiply a 64 x 32 sub-tile, with the fragment
-// loads and products of tiled_gemm.cuh. The next step's values are loaded
-// into registers (16 bytes a load) while the current one is multiplied, then
-// converted and stored to the other shared buffer: one barrier a step.
+// An implicit GEMM of M = B H W output pixels, depth K = 9C and D columns.
+// A block owns 128 pixels x 128 columns. Its pixels are a rectangle of bb
+// images x bh rows x bw columns (bb bh bw = 128, chosen by the wrapper's
+// planner, kernels/conv2d.py::plan_boxes). The A tile of tap (dy, dx) and
+// channels c0 .. c0 + 63 is one 4-D TMA box {64, bw, bh, bb} of x seen as
+// [B, H, W, C] at (c0, w0 + dx - 1, h0 + dy - 1, b0): TMA fills the
+// coordinates that leave the tensor with zeros, one dimension at a time, so
+// SAME padding costs nothing and a row past H reads zero, never the next
+// image; pixels of the rectangle outside the output are masked at the store.
+// The B tile is w seen as [9C, D], rows t C + c0 .. + 63 (t = 3 dy + dx),
+// two 2-D boxes of 64 columns: the MN-major layout wgmma reads with its
+// transpose bit. Both land 128-byte swizzled in a ring of kStages stages of
+// 32 KB, each tracked by a "full" mbarrier (the TMA bytes) and an "empty"
+// one (both consumers done). One producer thread issues the loads; two
+// consumer warpgroups each multiply 64 pixel rows x 128 columns with
+// wgmma m64n128k16; setmaxnreg moves the producer's registers to them.
 //
-// What bounds it on the H100: the video UNet's 3x3 sites (2 x 16 frames of
-// 64x64 latents down to 8x8, C 512-4096) are 0.3-1.9 TFLOP each against
-// 0.05-0.9 GB of x, w and y, so they are bound by operations, at the bf16
-// tensor-core rate of 989 TFLOP/s for both input types. This first kernel
-// feeds mma.sync from register-staged loads; wgmma with TMA is the next step.
-#include "tiled_gemm.cuh"
+// Rounding: each k-block's four wgmma (64 deep) go into a fresh float32
+// accumulator, which is then added with one float32 add into the running
+// sum. The tensor cores' own accumulation truncates; over K = 9C up to
+// 36,864 deep one chain of products drifts past float32's 1e-5, and a
+// 64-deep chain followed by round-to-nearest adds does not. (Two partials
+// a consumer, so that one k-block's products run while the previous one is
+// added, measured no faster on the H100: PERF.md section 6.) Every output is
+// summed in one fixed order (k-blocks tap-major), so a call gives the same
+// bits twice.
+//
+// What bounds it on the H100: task G's 3x3 sites (2 x 16 frames of 64x64
+// latents down to 8x8, C 640-2560) are 0.3-1.9 TFLOP each against
+// 0.05-0.9 GB of x, w and y: bound by operations, at the bf16 tensor-core
+// rate of 989 TFLOP/s. wgmma is the only way to that rate; TMA keeps the
+// loads off the consumers' instruction stream.
+#include "common.cuh"
+#include "wgmma.cuh"
 
-namespace {
+// a named namespace: nvcc's host stub of a kernel that takes a
+// __grid_constant__ parameter cannot name a type of an anonymous one
+namespace vt_b9 {
 
-using vt_gemm::pack_bf16;
+using namespace vt_wgmma;
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
-constexpr int kAP = kBK + 8;  // A row pitch in shared memory (values): rows in distinct banks
-constexpr int kBP = kBN + 8;  // B row pitch
+constexpr int kBM = 128, kBN = 128, kBK = 64;  // kBK bf16 = one 128-byte swizzled row
+constexpr int kStages = 6;
+constexpr int kThreads = 384;  // consumers: warpgroups 0 and 1; producer: warpgroup 2
+constexpr int kABytes = kBM * kBK * 2, kBBytes = kBK * kBN * 2;
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + alignment
 
-struct ConvShape {
+struct ConvGeom {
   int B, H, W, C, D;
+  int bb, bh, bw;          // pixel rectangle of a block
+  int tiles_w, tiles_h;    // rectangles along W and H
 };
-
-// 8 consecutive values at p (16-byte aligned) as 8 bfloat16 in a uint4
-__device__ __forceinline__ uint4 load8_bf16(const float* p) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
-                    pack_bf16(b.z, b.w));
-}
-__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
 
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -64,151 +73,164 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-// two blocks an SM (at most 128 registers a thread), so one block's
-// loads and barrier overlap the other's products
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, ConvShape s) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kBM][kAP];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBK][kBP];
+template <typename TOut>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                     const __grid_constant__ CUtensorMap tmap_w, TOut* __restrict__ y,
+                     ConvGeom g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* a_ring = smem;                               // kStages x [128 pixels][64 ch]
+  uint8_t* b_ring = smem + kStages * kABytes;           // kStages x 2 x [64 k][64 d]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int M = s.B * s.H * s.W;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  // blocks in order (row tile, column tile), the column tile fastest: the
+  // D / 128 blocks of one pixel rectangle run together and share its x in L2
+  const int n_tiles = g.D / kBN;
+  const int n0 = (int)(blockIdx.x % n_tiles) * kBN;
+  int t = (int)(blockIdx.x / n_tiles);
+  const int w0 = (t % g.tiles_w) * g.bw;
+  t /= g.tiles_w;
+  const int h0 = (t % g.tiles_h) * g.bh;
+  const int b0 = (t / g.tiles_h) * g.bb;
+  const int chunks = g.C / kBK;
+  const int nk = 9 * chunks;
 
-  // each thread stages two 8-value chunks of A (rows a_row, depths a_kc..)
-  // and two of B (depths b_k, columns b_n..) per step
-  int a_row[2], a_kc[2], a_b[2], a_h[2], a_w[2], b_k[2], b_n[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int id = tid + i * kThreads;
-    a_row[i] = id >> 2;
-    a_kc[i] = (id & 3) * 8;
-    const int m = m0 + a_row[i];
-    a_ok[i] = m < M;
-    const int mm = a_ok[i] ? m : 0;
-    a_w[i] = mm % s.W;
-    a_h[i] = (mm / s.W) % s.H;
-    a_b[i] = mm / (s.W * s.H);
-    b_k[i] = id >> 4;
-    b_n[i] = (id & 15) * 8;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
   }
-
-  auto load = [&](int k0, uint4 (&ra)[2], uint4 (&rb)[2]) {
-    const int tap = k0 / s.C, c0 = k0 - tap * s.C;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int hh = a_h[i] + dy, ww = a_w[i] + dx;
-      const bool ok = a_ok[i] && hh >= 0 && hh < s.H && ww >= 0 && ww < s.W;
-      ra[i] = ok ? load8_bf16(x + (((size_t)a_b[i] * s.H + hh) * s.W + ww) * s.C + c0 + a_kc[i])
-                 : make_uint4(0, 0, 0, 0);
-      rb[i] = load8_bf16(w + (size_t)(k0 + b_k[i]) * s.D + n0 + b_n[i]);
-    }
-  };
-  auto store = [&](int buf, const uint4 (&ra)[2], const uint4 (&rb)[2]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&As[buf][a_row[i]][a_kc[i]]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[buf][b_k[i]][b_n[i]]) = rb[i];
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  uint4 ra[2], rb[2];
-  load(0, ra, rb);
-  store(0, ra, rb);
   __syncthreads();
 
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int nk = 9 * s.C / kBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) load((kt + 1) * kBK, ra, rb);  // in flight during the products
-    unsigned bfr[2][2][4];  // [16-deep half of the step][column pair]
-#pragma unroll
-    for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        vt_gemm::ldmatrix_x4_trans(bfr[kh][nj],
-                                   &Bs[st][kh * 16 + (lane & 15)][wn + nj * 16 + (lane >> 4) * 8]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int kh = 0; kh < 2; ++kh)
-        vt_gemm::ldmatrix_x4(af[kh],
-                             &As[st][wm + mi * 16 + (lane & 15)][kh * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        // the step's 32 products in a fresh accumulator, then one float32
-        // add (round to nearest) into the running sum: the tensor cores'
-        // own accumulation truncates, and over K = 9C up to 36,864 deep a
-        // single chain of mma's drifts by ~5e-5 of the output's scale
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh)
-          vt_gemm::mma_bf16(part, af[kh], bfr[kh][ni >> 1][(ni & 1) * 2],
-                            bfr[kh][ni >> 1][(ni & 1) * 2 + 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[r];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&tmap_x);
+      tma_prefetch_map(&tmap_w);
+      int tap = 0, c0 = 0, s = 0, phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+        const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+        tma_load_4d(a_ring + s * kABytes, &tmap_x, &full[s], c0, w0 + dx - 1, h0 + dy - 1, b0);
+        uint8_t* bs = b_ring + s * kBBytes;
+        tma_load_2d(bs, &tmap_w, &full[s], n0, tap * g.C + c0);
+        tma_load_2d(bs + kBBytes / 2, &tmap_w, &full[s], n0 + 64, tap * g.C + c0);
+        c0 += kBK;
+        if (c0 == g.C) {
+          c0 = 0;
+          ++tap;
+        }
+        if (++s == kStages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-    // the other buffer's readers finished before the previous barrier
-    if (more) store(st ^ 1, ra, rb);
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, tig = lane & 3;
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    float acc[64], part[64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+    int s = 0, phase = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[s], phase);
+      const uint32_t a_addr = smem_u32(a_ring + s * kABytes) + wg * (64 * 128);
+      const uint32_t b_addr = smem_u32(b_ring + s * kBBytes);
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBK / 16; ++k)
+        wgmma_m64n128k16_bf16_tn(part, desc_sw128(a_addr + k * 32, 16, 1024),
+                                 desc_sw128(b_addr + k * 2048, kBBytes / 2, 1024), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: rows of this thread -> pixels of the rectangle, masked
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mi * 16 + g + half * 8;
-      if (m >= M) continue;
+      const int r = wg * 64 + warp * 16 + gq + half * 8;
+      const int iw = r % g.bw, ih = (r / g.bw) % g.bh, ib = r / (g.bw * g.bh);
+      const int b = b0 + ib, h = h0 + ih, w = w0 + iw;
+      if (b >= g.B || h >= g.H || w >= g.W) continue;
+      TOut* out = y + (((size_t)b * g.H + h) * g.W + w) * g.D + n0 + 2 * tq;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + tig * 2;  // D is a multiple of 128: always in range
-        store2(y + (size_t)m * s.D + n, acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
-      }
+      for (int j = 0; j < 16; ++j)
+        store2(out + 8 * j, acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
   }
 }
 
-}  // namespace
-
-// x [B, H, W, C], w [3, 3, C, D], y [B, H, W, D], all of one type (float32
-// or bfloat16), contiguous and 16-byte aligned; C a multiple of 32, D of 128.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for other shapes.
-extern "C" int vt_conv3x3(const void* x, const void* w, void* y, int B, int H, int W, int C, int D,
-                          int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || C % kBK || D % kBN ||
-      !vt_gemm::aligned16(x) || !vt_gemm::aligned16(w) || !vt_gemm::aligned16(y))
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * H * W;
-  const long long row_tiles = (rows + kBM - 1) / kBM;
-  if (rows > 0x7fffffffLL || 9LL * C > 0x7fffffffLL || row_tiles > 0x7fffffffLL ||
-      D / kBN > 65535)
-    return (int)cudaErrorInvalidValue;
-  const ConvShape s{B, H, W, C, D};
-  const dim3 grid((unsigned)row_tiles, (unsigned)(D / kBN));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    conv3x3_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), s);
-  } else {
-    conv3x3_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), s);
+template <typename TOut>
+int launch(const CUtensorMap& mx, const CUtensorMap& mw, void* y, const ConvGeom& g,
+           unsigned blocks, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv3x3_wgmma_kernel<TOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
+  conv3x3_wgmma_kernel<TOut><<<blocks, kThreads, kSmemBytes, st>>>(mx, mw, static_cast<TOut*>(y),
+                                                                 g);
   return (int)cudaGetLastError();
+}
+
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+}  // namespace vt_b9
+
+using namespace vt_b9;
+
+// x [B, H, W, C] and w [3, 3, C, D] bfloat16, contiguous and 16-byte
+// aligned, C a multiple of 64 and D of 128; y [B, H, W, D] float32 when
+// out_f32, else bfloat16. (bb, bh, bw): powers of two with product 128, each
+// at most 128 (TMA's box limit is 256). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for other shapes or a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int vt_conv3x3(const void* x, const void* w, void* y, int B, int H, int W, int C,
+                          int D, int bb, int bh, int bw, int out_f32, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || C % kBK || D % kBN ||
+      !pow2(bb) || !pow2(bh) || !pow2(bw) || bb * bh * bw != kBM ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles_w = (W + bw - 1) / bw, tiles_h = (H + bh - 1) / bh,
+                  tiles_b = (B + bb - 1) / bb;
+  const long long row_tiles = tiles_w * tiles_h * tiles_b;
+  const long long blocks = row_tiles * (D / kBN);
+  if (9LL * C > 0x7fffffffLL || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                  (cuuint64_t)H * W * C * 2};
+  const cuuint32_t xbox[4] = {kBK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bb};
+  const cuuint64_t wdims[2] = {(cuuint64_t)D, 9 * (cuuint64_t)C};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t wbox[2] = {64, kBK};
+  if (!vt_wgmma::encode_bf16_sw128(&mx, x, 4, xdims, xstrides, xbox) ||
+      !vt_wgmma::encode_bf16_sw128(&mw, w, 2, wdims, wstrides, wbox))
+    return (int)cudaErrorInvalidValue;
+  const ConvGeom g{B, H, W, C, D, bb, bh, bw, (int)tiles_w, (int)tiles_h};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch<float>(mx, mw, y, g, (unsigned)blocks, st)
+                 : launch<__nv_bfloat16>(mx, mw, y, g, (unsigned)blocks, st);
 }

@@ -2,8 +2,8 @@
 // 16-byte asynchronous copies to shared memory and their commit/wait groups,
 // ldmatrix fragment loads, the bf16 mma.sync m16n8k16 with float32 sums and
 // the packing of two float32 values into one register of bf16. tiled_gemm.cuh (B3, B6),
-// conv3x3.cu (B9), flash_attention_fwd.cu (B2) and flash_attention_bwd.cu (B5a, B5b)
-// include it.
+// depthwise_conv.cu (B4), flash_attention_fwd.cu (B2) and flash_attention_bwd.cu (B5a,
+// B5b) include it; B9's wgmma kernel takes its primitives from wgmma.cuh.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4; two bf16
 // values a register, the lower column in the low half):

@@ -55,14 +55,14 @@ _SIGNATURES = {
     "vt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out, part, B, R, C, splits, is_bf16, stream
     "vt_group_norm_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, y, B, H, W, C, K, TH, TW, is_bf16, stream
-    "vt_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, K, vec, lanes, TW, HS, is_bf16, stream
+    "vt_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, bias, y, B, F, N, C, Co, is_bf16, stream
     "vt_temporal_conv_k3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, F, N, H, D, scale, is_bf16, stream
     "vt_frame_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # x, w, y, B, H, W, C, D, is_bf16, stream
-    "vt_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, D, bb, bh, bw, out_f32, stream
+    "vt_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,17 +18,21 @@ result is the exact conv in the input dtype (`F.conv2d`, JAX's
 alike. The bias is added after the conv with PyTorch's type promotion,
 which is JAX's here: a bf16 conv plus a float32 bias is float32.
 
-The kernel is `csrc/conv3x3.cu`: an implicit GEMM (M = B H W pixels, depth
-9C, D columns) whose loader gathers the shifted pixels of x in place and
-rounds both operands to bf16 as it stages them, bf16 mma.sync with float32
-sums. `conv3x3_same` launches it for CUDA tensors at eligible shapes (and
-raises when it cannot), and takes the plain version only for CPU tensors.
-`launches` counts kernel launches. A gradient goes through `Conv3x3`, a
-`torch.autograd.Function` in place of the JAX `custom_vjp`: dx is the same
-conv (the kernel on the card) of g with the flipped, in/out-swapped filter;
-dw is nine [C, BHW] @ [BHW, D] products of the unrounded, padded x taps
-with g in float32, cast to w's dtype (plain `torch.matmul`: JAX computes
-them in XLA, outside any Pallas kernel).
+The kernel is `csrc/conv3x3.cu`: an implicit GEMM (M = B H W pixels,
+depth 9C, D columns) on Hopper's wgmma, fed by TMA. A block owns 128
+pixels, a rectangle of bb images x bh rows x bw columns (`plan_boxes`),
+whose A tile of each tap and 64 channels is one 4-D TMA box of x: TMA's
+zero fill outside the tensor is the SAME padding, so no padded copy of x
+exists. Float32 x and w are cast to bf16 once, before the launch (JAX's
+`_conv3x3` casts in XLA, :98 and :118), and the same kernel then stores
+float32 sums. `conv3x3_same` launches it for CUDA tensors at eligible
+shapes (and raises when it cannot), and takes the plain version only for
+CPU tensors. `launches` counts kernel launches. A gradient goes through
+`Conv3x3`, a `torch.autograd.Function` in place of the JAX `custom_vjp`:
+dx is the same conv (the kernel on the card) of g with the flipped,
+in/out-swapped filter; dw is nine [C, BHW] @ [BHW, D] products of the
+unrounded, padded x taps with g in float32, cast to w's dtype (plain
+`torch.matmul`: JAX computes them in XLA, outside any Pallas kernel).
 
 No model path calls it, in JAX or in the port: the UNets' 3x3 convs run
 `layers.conv2d` (cuDNN), whose float32 arithmetic the bf16 taps would
@@ -46,6 +50,11 @@ from vitron_tpu_torch.kernels import _build
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
 _VMEM_LIMIT = 100 * 1024 * 1024  # the TPU kernel's VMEM budget, part of its rule
+BLOCK_PIXELS = 128  # output pixels a block of the kernel owns (csrc kBM)
+# every (bb, bh, bw) pixel rectangle the planner may choose: powers of two
+# with product 128 and bw >= 8 (eligible shapes have W a multiple of 8)
+BOX_SHAPES = tuple((BLOCK_PIXELS // (bh * bw), bh, bw) for bw in (128, 64, 32, 16, 8)
+                   for bh in (1, 2, 4, 8, 16) if bh * bw <= BLOCK_PIXELS)
 
 
 def _pick_block(total: int, target: int, quantum: int = 1) -> int:
@@ -83,6 +92,28 @@ def eligible(x_shape, d: int, dtype: torch.dtype) -> bool:
         and h % bh == 0
 
 
+def plan_boxes(b: int, h: int, w: int):
+    """(bb, bh, bw): the pixel rectangle of one block of the kernel, from
+    BOX_SHAPES, that tiles [b, h, w] with the fewest blocks (ties: the
+    widest rows, then the most of them). Rectangles overrun the edges of a
+    ragged shape; the kernel masks those pixels. The A tile of a tap is the
+    TMA box {64, bw, bh, bb} (64 bf16 channels = 128 bytes, each extent at
+    most 256)."""
+    def blocks(box):
+        bb, bh, bw = box
+        return -(-b // bb) * -(-h // bh) * -(-w // bw)
+
+    return min(BOX_SHAPES, key=lambda box: (blocks(box), -box[2], -box[1]))
+
+
+def box_tiles(b: int, h: int, w: int, box):
+    """The (b0, h0, w0) origin of every block's rectangle, in the kernel's
+    order (w fastest, then h, then b)."""
+    bb, bh, bw = box
+    return [(b0, h0, w0) for b0 in range(0, b, bb) for h0 in range(0, h, bh)
+            for w0 in range(0, w, bw)]
+
+
 def conv3x3_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The ineligible shapes' function: the conv in x's dtype, w cast to it."""
     out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype), padding=1)
@@ -116,7 +147,6 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The function without the bias: the kernel's (or its plain twin's on
     the CPU) at eligible shapes, the exact conv at the others."""
-    global launches
     _check(x, w)
     if not eligible(x.shape, w.shape[-1], x.dtype):
         return conv3x3_exact(x, w)
@@ -127,15 +157,22 @@ def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"conv3x3_same: no CUDA kernel for {x.dtype} (float32 and "
                                   "bfloat16 only)")
-    # w in x's type: exact for bf16 -> float32, and the same bf16 rounding
-    # as JAX's w.astype(bf16) for float32 -> bf16
-    x, w = _build.aligned16(x), _build.aligned16(w.to(x.dtype))
+    return _launch(x, w, plan_boxes(*x.shape[:3]))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, box) -> torch.Tensor:
+    """One launch of the kernel with the pixel rectangle `box` (the planner's
+    choice; the card tests force each of BOX_SHAPES). Float32 x and w are
+    cast to bf16 first, as JAX's `_conv3x3` casts them (:98, :118)."""
+    global launches
+    bf16 = torch.bfloat16
+    xb, wb = _build.aligned16(x.to(bf16)), _build.aligned16(w.to(bf16))
     b, h, ww, c = x.shape
     d = w.shape[-1]
     y = torch.empty((b, h, ww, d), dtype=x.dtype, device=x.device)
     if y.numel():
-        rc = _build.lib().vt_conv3x3(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, ww, c, d,
-                                     int(x.dtype == torch.bfloat16),
+        rc = _build.lib().vt_conv3x3(xb.data_ptr(), wb.data_ptr(), y.data_ptr(), b, h, ww, c, d,
+                                     *box, int(x.dtype == torch.float32),
                                      _build.stream_handle(x.device))
         _build.check(rc, "conv3x3_same")
         launches += 1

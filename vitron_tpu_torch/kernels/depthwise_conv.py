@@ -11,13 +11,18 @@ bias is added after the kernel, as the JAX entry adds it. FocalNet's focal
 levels (k = 3/5/7/9) call it.
 
 The kernel is `csrc/depthwise_conv.cu` (k in {3, 5, 7, 9}, x and w both
-float32 or both bfloat16). `depthwise_conv2d` launches it
+float32 or both bfloat16): a block streams the input rows of one image's
+segment of H, one strip of columns and one group of channels through a
+ring of k + 1 rows in shared memory, each thread holding one 16-byte
+vector of channels; `plan` sizes the grid. `depthwise_conv2d` launches it
 for CUDA tensors and takes the plain version only for CPU tensors; other k
 or dtypes on the card raise. `launches` counts kernel launches. Only the
 forward is ported: the JAX kernel's custom VJP (dx by the flipped filter, dw
 by a reduction, :108-135) comes with training.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,9 +31,74 @@ from vitron_tpu_torch.kernels import _build
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
 KERNEL_SIZES = (3, 5, 7, 9)
-_LANES = 32          # channels per block (csrc kLanes)
-_STRIP = 8           # output columns per thread step (csrc kStrip)
-_WANT_BLOCKS = 264   # two blocks for each of the H100's 132 SMs
+COLS = 4             # adjacent output columns a thread computes (csrc kCols)
+MAX_THREADS = 256    # threads a block (csrc kMaxThreads)
+SM_COUNT = 132       # the H100's SMs
+WANT_BLOCKS = 4 * SM_COUNT
+SMEM_LIMIT = 227 * 1024  # shared memory a block may take
+
+
+def _smem_bytes(k: int, tw: int, channels: int, itemsize: int) -> int:
+    """Shared memory of a block (csrc `smem_bytes`): the ring of k + 1 input
+    rows of tw + k - 1 pixels, then the k x k taps, both in x's type."""
+    ring = (k + 1) * (tw + k - 1) * channels * itemsize
+    return -(-ring // 16) * 16 + k * k * channels * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The kernel's grid for one call: `vec` channels a thread (one 16-byte
+    vector, or 1 where C is not a multiple of it), `lanes` threads across a
+    block's `lanes * vec` channels, `tw` output columns and `hs` output rows
+    a block; blocks (channel groups, column strips, B * segments)."""
+    vec: int
+    lanes: int
+    tw: int
+    hs: int
+    grid: tuple
+    itemsize: int
+
+    @property
+    def channels(self) -> int:
+        return self.lanes * self.vec
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.tw // COLS
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def smem_bytes(self, k: int) -> int:
+        return _smem_bytes(k, self.tw, self.channels, self.itemsize)
+
+
+def plan(b: int, h: int, w: int, c: int, k: int, itemsize: int) -> DwPlan:
+    """The grid for x [b, h, w, c] of `itemsize`-byte elements and a k x k
+    kernel, from a sweep of block shapes at FocalNet-L's sites on the H100
+    (PERF.md section 6). Up to 32 x 32 pixels at k <= 5 a block computes one
+    output row with 16 lanes (128 bf16 or 64 float32 channels), and so do
+    the 16 x 16 images at k = 7; otherwise 8 lanes and segments of H short
+    enough for WANT_BLOCKS blocks (half as many at k >= 7 on larger images,
+    whose rows cost more FMAs than loads), and at least one block for each
+    SM. A ragged C takes 32 one-channel lanes. Strips are up to 64 columns
+    wide, fewer where the ring would not fit."""
+    full = 16 // itemsize
+    vec = full if c % full == 0 else 1
+    small = h * w <= 32 * 32
+    wide = k <= 5 or (k == 7 and h * w <= 16 * 16)
+    lanes = 32 if vec == 1 else (16 if small and wide else 8)
+    tw = min(64, MAX_THREADS * COLS // lanes, -(-w // COLS) * COLS)
+    while tw > COLS and _smem_bytes(k, tw, lanes * vec, itemsize) > SMEM_LIMIT:
+        tw = max(COLS, tw // 2 // COLS * COLS)
+    per_seg = b * -(-c // (lanes * vec)) * -(-w // tw)
+    want = WANT_BLOCKS // 2 if k >= 7 and not small else WANT_BLOCKS
+    hs = 1 if small and k <= 5 else -(-h // min(h, -(-want // per_seg)))
+    while hs > 1 and per_seg * -(-h // hs) < SM_COUNT:
+        hs -= 1
+    return DwPlan(vec, lanes, tw, hs, (-(-c // (lanes * vec)), -(-w // tw), b * -(-h // hs)),
+                  itemsize)
 
 
 def _taps(w: torch.Tensor) -> torch.Tensor:
@@ -60,22 +130,25 @@ def depthwise_conv2d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def _tile(b: int, h: int, w: int, c: int):
-    """(rows, columns) of output per block: up to 8 x 32, fewer rows while
-    the grid would not fill the card twice."""
-    tw = min(32, -(-w // _STRIP) * _STRIP)
-    th = 8
-    strips = b * -(-c // _LANES) * -(-w // tw)
-    while th > 2 and strips * -(-h // th) < _WANT_BLOCKS:
-        th //= 2
-    return th, tw
+def _launch(x: torch.Tensor, w: torch.Tensor, p: DwPlan) -> torch.Tensor:
+    """One launch of the kernel on the grid `p`."""
+    global launches
+    x, w = _build.aligned16(x), _build.aligned16(w)
+    b, h, wd, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel():
+        rc = _build.lib().vt_depthwise_conv2d(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, w.shape[0], p.vec, p.lanes,
+            p.tw, p.hs, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+        _build.check(rc, "depthwise_conv2d")
+        launches += 1
+    return out
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, H, W, C], w [k, k, C] or [k, k, 1, C], bias [C] or None ->
     [B, H, W, C] in x's dtype."""
-    global launches
     w = _taps(w)
     if x.dim() != 4 or w.shape[2] != x.shape[-1]:
         raise ValueError(f"depthwise_conv2d: x [B, H, W, C] and w [k, k, C] do not match: "
@@ -94,17 +167,7 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
         if k not in KERNEL_SIZES:
             raise NotImplementedError(f"depthwise_conv2d: no CUDA kernel for k={k} "
                                       f"(k in {KERNEL_SIZES})")
-        x = x.contiguous()
-        w = w.contiguous()
-        b, h, wd, c = x.shape
-        out = torch.empty_like(x)
-        if out.numel():
-            th, tw = _tile(b, h, wd, c)
-            rc = _build.lib().vt_depthwise_conv2d(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, k, th, tw,
-                int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
-            _build.check(rc, "depthwise_conv2d")
-            launches += 1
+        out = _launch(x, w, plan(*x.shape, k, x.element_size()))
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
