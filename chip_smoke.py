@@ -8,13 +8,17 @@ Phases (any failure exits non-zero and prints no `ok` line):
    TF32 off for matmuls and cuDNN, deterministic cuDNN algorithms.
 2. build: the hand CUDA kernels from `vitron_tpu_torch/csrc/` (one nvcc per
    source, all started together, sm_90a).
-3. kernel vs plain at the chat path's shapes: int4_matmul (bf16 x, M in
-   {1, 384}, the four Vicuna-7B (K, N) pairs; each output row within
-   INT4_ROW_REL of its largest, the same bits twice, CUDA-event times with
-   the weights flushed from L2 by a read, GB/s at M 1 and TFLOP/s at M 384
-   beside the bound, and torch.matmul on the pre-dequantized bf16 weight
-   as a reference, not a library port) and flash_attention (bf16, D = 128:
-   masked prefill, cached chunk, GQA); error and CUDA-event times.
+3. kernel vs plain at the chat and serving paths' shapes: int4_matmul
+   (bf16 x, M in {1, 4, 8, 384}: the decode GEMV at batch 1, 4 and 8 and
+   the prefill GEMM, the four Vicuna-7B (K, N) pairs; each output row
+   within INT4_ROW_REL of its largest, the same bits twice, CUDA-event
+   times with the weights flushed from L2 by a read, GB/s at M <= 8 and
+   TFLOP/s at M 384 beside the bound, and torch.matmul on the
+   pre-dequantized bf16 weight as a reference, not a library port) and
+   flash_attention (bf16, D = 128: masked prefill, cached chunk, GQA, and
+   the ContinuousBatcher's two staged-admission chunks of the image chat
+   prompt: [1, 256] at q_offset 0 and [1, 128] at q_offset 256 over 384
+   slots); error and CUDA-event times.
 4. kernel vs plain at the GLIGEN path's shapes: flash_attention (bf16,
    non-causal, shift 0, D 40/80/512 with the ragged fuser lengths),
    geglu_ff (the four UNet sites, float32 and bf16), group_norm_sums (two
@@ -51,8 +55,29 @@ Phases (any failure exits non-zero and prints no `ok` line):
    where one PyTorch call computes the same function, that call's time.
 6. the chat slice at full width: VitronSystem.chat on Vicuna-7B with random
    packed-int4 projections and lm_head + bf16 ViT-L/14 tower, projector and
-   region extractor; a 336x448 image, a bbox, 128 greedy tokens, twice;
-   kernel launch counts, request / prefill / decode times, peak memory.
+   region extractor; a 336x448 image, a bbox, 128 greedy tokens, twice (the
+   decode chunk replays a captured CUDA graph; a replay counts the launches
+   its graph recorded); kernel launch counts, request / prefill / decode
+   times, peak memory.
+6b. the serving stack on the same system: generate_scan at
+   bench_e2e_request's shape (an image + 49 words, 128 greedy tokens),
+   replayed twice and run eagerly, identical, with the decode rate of each
+   and the launches of a replayed chunk; PagedServer.step_n at
+   bench_continuous_batching's shape (prefill 256, SERVE_CHUNKS chunks of
+   64 greedy tokens) at batch 1, 4 identical prompts (identical rows) and 4
+   prompts, each row held against the single-stream Generator on its
+   prompt (identical, or a first divergence where the single stream's
+   top-2 logits lie within DIVERGE_ULPS bf16 ulps), serve_batch1_tok_s,
+   serve_batch4_tok_s; four concurrent image chat requests (one sampled)
+   through ServingPipeline's ContinuousBatcher, staged with decode chunks
+   between their prefill chunks, and a short request admitted while they
+   are staged, the greedy replies held against each request served alone;
+   then apps/serve.py on 127.0.0.1: /health, POST /chat with a PNG (twice:
+   the first captures), /stats (the memory plan's budget is the card's total
+   memory). Each main-path run (the replayed generate_scan, the step_n
+   replays at batch 1 and 4, the batcher's requests, the second HTTP
+   request) is counted alone from zeroed counts and held to its exact
+   launches; their sum is the kernels line's `serve` count.
 7. the chat path on the CPU and the card: a 2-layer full-width float32
    model, one prefill of the same request on both, last-position logits
    compared.
@@ -150,6 +175,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -396,6 +422,11 @@ CHAT_FLASH_CASES = (
     ("prefill", 384, 512, 32, 32, 0, 305),
     ("cached-chunk", 64, 512, 32, 32, 128, 192),
     ("gqa", 384, 512, 32, 8, 0, 305),
+    # the ContinuousBatcher's staged admission of the image chat prompt
+    # (phase 6b: 313 slots in a 384 bucket, prefill_chunk 256): its two
+    # prefill chunks at the cache's offset over the bucket's 384 slots
+    ("staged-chunk-0", 256, 384, 32, 32, 0, 256),
+    ("staged-chunk-1", 128, 384, 32, 32, 256, 313),
 )
 GLIGEN_FLASH_SHAPES = ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80), (2, 1054, 8, 80),
                        (1, 4096, 1, 512))
@@ -408,7 +439,7 @@ def phase_kernels(torch, card: str):
     g = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     rows = {"int4": [], "flash": []}
-    for m in (1, 384):
+    for m in (1, 4, 8, 384):  # decode GEMV at batch 1, 4 and 8; the prefill GEMM
         for k, n in INT4_SHAPES:
             rows["int4"].append(int4_row(torch, card, g, m, k, n, flush=flush))
         print_sums(f"B1 at M {m}", rows["int4"][-len(INT4_SHAPES):], card)
@@ -1068,24 +1099,12 @@ def timed_route(torch, system, reply, **media):
     return out, time.perf_counter() - t0
 
 
-# every kernel's launch counter: its name in the kernels line, its module
-# under vitron_tpu_torch.kernels and the module's counter
-LAUNCH_COUNTERS = (
-    ("int4_matmul", "int4_matmul", "launches"),
-    ("flash_attention", "flash_attention", "launches"),
-    ("flash_attention_bwd_kv", "flash_attention", "bwd_kv_launches"),
-    ("flash_attention_bwd_q", "flash_attention", "bwd_q_launches"),
-    ("geglu_ff", "geglu_ff", "launches"),
-    ("group_norm_sums", "group_norm", "launches"),
-    ("depthwise_conv2d", "depthwise_conv", "launches"),
-    ("temporal_conv_k3", "temporal_conv", "launches"),
-    ("frame_attention", "temporal_attention", "launches"),
-    ("conv3x3_same", "conv2d", "launches"),
-)
-
-
 def _counters():
+    """(name in the kernels line, module, counter attribute) of every kernel
+    wrapper, from the port's one list (`kernels.LAUNCH_COUNTERS`)."""
     import importlib
+
+    from vitron_tpu_torch.kernels import LAUNCH_COUNTERS
 
     return [(name, importlib.import_module(f"vitron_tpu_torch.kernels.{mod}"), attr)
             for name, mod, attr in LAUNCH_COUNTERS]
@@ -1093,13 +1112,22 @@ def _counters():
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0: just before a run that is read."""
+    from vitron_tpu_torch.runtime import graphs
+
     for _, mod, attr in _counters():
         setattr(mod, attr, 0)
+    graphs.replayed.clear()
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count since `reset_launches`."""
-    return {name: getattr(mod, attr) for name, mod, attr in _counters()}
+    """Every kernel's launch count since `reset_launches`: the wrappers'
+    counts plus the launches that CUDA-graph replays of decode chunks made
+    (`runtime/graphs.replayed`, each replay counted as the launches its
+    graph recorded at capture; a capture itself counts none)."""
+    from vitron_tpu_torch.runtime import graphs
+
+    return {name: getattr(mod, attr) + graphs.replayed[(mod.__name__.rsplit(".", 1)[1], attr)]
+            for name, mod, attr in _counters()}
 
 
 def expect_launches(want: dict, what: str) -> dict:
@@ -2085,18 +2113,33 @@ def timed_chat(torch, system, image, sampling):
     return out, time.perf_counter() - t0
 
 
-def phase_slice(torch, card: str):
+def build_chat_system(torch):
+    """The chat path's full-width system (phases 6 and 6b): Vicuna-7B with
+    random packed-int4 projections and lm_head, flash prefill, bf16 ViT-L/14
+    -> (system, params, cfg)."""
     from vitron_tpu_torch.models.llm.llama import LlamaConfig
     from vitron_tpu_torch.models.vitron_model import VitronConfig
-    from vitron_tpu_torch.runtime.generation import SamplingConfig
 
-    dev = torch.device("cuda")
     cfg = VitronConfig.serving(llm=LlamaConfig.vicuna_7b(attn_impl="flash", max_seq_len=1024))
     t0 = time.perf_counter()
-    system, params = build_system(torch, cfg, dev, seed=0, int4_scale=2e-2)
+    system, params = build_system(torch, cfg, torch.device("cuda"), seed=0, int4_scale=2e-2)
     torch.cuda.synchronize()
     print(f"slice: Vicuna-7B int4 + ViT-L/14 bf16 random weights built on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return system, params, cfg
+
+
+def int4_weight_bytes(params) -> int:
+    """Packed int4 bytes and scales of the LLM's projections and lm_head:
+    what one decode step must read."""
+    return sum(leaf["q4"].numel() + leaf["s"].numel() * 4
+               for leaf in list(params["llm"]["layers"].values()) + [params["llm"]["lm_head"]]
+               if isinstance(leaf, dict))
+
+
+def phase_slice(torch, card: str, system, params, cfg):
+    from vitron_tpu_torch.runtime.generation import DEFAULT_DECODE_CHUNK, SamplingConfig
+
     image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
     sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
     timed_chat(torch, system, image, sampling)  # warm-up (library handles, allocator)
@@ -2110,8 +2153,12 @@ def phase_slice(torch, card: str):
     tokens1 = out1["reply"]["tokens"]
     n_layers = cfg.llm.num_layers
     per_forward = 7 * n_layers + 1
-    # int4: prefill + one forward per decode step; flash: the prefill's layers
-    launches = expect_launches({"int4_matmul": per_forward * NEW_TOKENS,
+    # int4: prefill + one forward per decode step, in whole chunks of
+    # DEFAULT_DECODE_CHUNK steps (the decode chunk's graph replayed, each
+    # replay counted as the launches it recorded; the host drops the tokens
+    # past the budget, as the JAX scan does); flash: the prefill's layers
+    steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
+    launches = expect_launches({"int4_matmul": per_forward * (1 + steps),
                                 "flash_attention": n_layers}, "slice")
     print(f"slice: status={out1['status']} tokens={len(tokens1)} prefill logits "
           f"{tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}", flush=True)
@@ -2123,16 +2170,371 @@ def phase_slice(torch, card: str):
     _, t_prefill = timed_chat(torch, system, image,
                               SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
     decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
-    weight_bytes = sum(leaf["q4"].numel() + leaf["s"].numel() * 4
-                       for leaf in list(params["llm"]["layers"].values()) +
-                       [params["llm"]["lm_head"]] if isinstance(leaf, dict))
+    weight_bytes = int4_weight_bytes(params)
     print(f"slice: request {t_req:.3f} s (128 tokens, same tokens twice), prefill request "
           f"(1 token) {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s "
           f"({weight_bytes * decode_tok_s / HBM_BYTES_PER_S:.3f} of the 3.35 TB/s weight-"
-          f"stream roofline), peak memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
-    del system, params, gen_, logits
-    torch.cuda.empty_cache()
+          f"stream roofline; the decode chunk replays a CUDA graph), peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
     return launches
+
+
+# ------------------------------------------------------------------ serving
+
+SCAN_NEW = 128         # bench_e2e_request's new tokens (generate_scan)
+SERVE_PREFILL = 256    # bench_continuous_batching's prompt tokens
+SERVE_CHUNK = 64       # ... and its step_n chunk
+SERVE_CHUNKS = 4       # step_n chunks a batch runs: the first captures, the best of 3 is timed
+SERVE_COMPARE = 128    # tokens of each paged row held against the single stream
+BATCHER_NEW = 64       # new tokens of each ContinuousBatcher request: 4 decode chunks of 16
+SERVE_SEQ_LEN = 313    # slots of the image chat prompt without a box (its pad bucket: 384)
+SERVE_SHORT = "Say hello to the user in one short sentence please now"
+DIVERGE_ULPS = 2       # a greedy divergence is allowed where the top-2 gap is this close
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def plan_arrays(plan) -> tuple:
+    """A splice plan as `generate_scan`'s plan arrays."""
+    return (plan.token_ids, plan.media_idx, plan.use_media, plan.position_ids,
+            plan.attention_mask, plan.seq_lens)
+
+
+def stream_logits(torch, gen_, arrays, images, tokens, j: int, slots: int, **kw):
+    """A single stream's logits [V] before its token j: the prefill into a
+    cache of `slots` slots (the decode chunk's), then j host-index decode
+    steps fed the stream's own tokens -- at the same slots and positions as
+    the chunk's device-index steps, with the same operations, so the same
+    logits the chunk's argmax read."""
+    from vitron_tpu_torch.models import vitron_model
+    from vitron_tpu_torch.models.llm.llama import KVCache
+
+    cache = KVCache.create(gen_.cfg.llm, 1, max_len=slots, device=gen_.device)
+    logits = gen_._prefill(cache, *arrays, images=images, **kw)[0]
+    pos = int(arrays[5][0])
+    for i in range(j):
+        tok = torch.tensor([[tokens[i]]], device=gen_.device)
+        step, _ = vitron_model.decode_step(gen_.params, gen_.cfg, tok,
+                                           torch.tensor([[pos + i]], device=gen_.device), cache)
+        logits = step[0, -1]
+    return logits.float()
+
+
+def check_divergence(what: str, got, want, logits_at, card: str) -> str:
+    """Greedy `got` against the single stream `want`: identical, or first
+    different at a token where the single stream's top-2 logits lie within
+    DIVERGE_ULPS bf16 ulps of the larger (a near-tie that another order of
+    sums may break either way). logits_at(j) gives the stream's logits."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        check(len(got) == len(want), f"{what}: {len(got)} tokens, single stream {len(want)}")
+        return "identical"
+    top = logits_at(j).topk(2).values.tolist()
+    gap, limit = top[0] - top[1], DIVERGE_ULPS * bf16_ulp(top[0])
+    msg = (f"first divergence at token {j} ({got[j]} vs {want[j]}): single stream's top-2 "
+           f"logits {top[0]:.4f} / {top[1]:.4f}, gap {gap:.4f} (limit {limit:.4f}, "
+           f"{DIVERGE_ULPS} bf16 ulps)")
+    print(f"{what}: {msg} [{card}]", flush=True)
+    check(gap <= limit, f"{what}: {msg}")
+    return f"near-tie at {j}"
+
+
+def staged_trace_checks(trace, n_chunks: int) -> dict:
+    """The batcher's event log: each staged admission is an `admit_embed`
+    then `n_chunks` `admit_chunk`s (one at a time). -> {"decode_between":
+    staged admissions with a decode between each two of their steps,
+    "fused_while_staged": fused admissions made while one was staged}."""
+    out = {"decode_between": 0, "fused_while_staged": 0, "staged": 0}
+    steps = []  # trace positions of the current staged admission's steps
+    for i, e in enumerate(trace):
+        if e == "admit_embed":
+            steps = [i]
+        elif e == "admit_chunk" and steps:
+            steps.append(i)
+            if len(steps) == n_chunks + 1:
+                out["staged"] += 1
+                out["decode_between"] += all("decode" in trace[a + 1:b]
+                                             for a, b in zip(steps, steps[1:]))
+                steps = []
+        elif e == "admit_fused" and steps:
+            out["fused_while_staged"] += 1
+    return out
+
+
+def batcher_launches(batcher, trace_from: int, captures: int, cfg) -> dict:
+    """The B1 and B2 launches a `ContinuousBatcher` made since its event
+    log held `trace_from` events: a forward (7 projections a layer and the
+    head, flash in every layer) for each prefill (a fused admission or a
+    staged admission's chunk), one B1 forward for each decode step (a
+    `step_n` chunk of `batcher.chunk` steps is a graph replay) and one for
+    the warm-up step of each of the `captures` chunks captured meanwhile."""
+    trace = batcher._trace[trace_from:]
+    per_forward, n_layers = 7 * cfg.llm.num_layers + 1, cfg.llm.num_layers
+    prefills = trace.count("admit_fused") + trace.count("admit_chunk")
+    steps = trace.count("decode") * batcher.chunk + captures
+    return {"int4_matmul": per_forward * (prefills + steps), "flash_attention": n_layers * prefills}
+
+
+def phase_serve(torch, card: str, system, params, cfg):
+    """Phase 6b: the serving stack on the chat path's system. Its main-path
+    runs (a replayed generate_scan, step_n chunks at batch 1 and 4, the
+    batcher's requests, the HTTP request) are each counted alone, from
+    zeroed counts, and held to their exact launches; their sum is the
+    `serve` path's count. The check's own runs (eager references, requests
+    served alone, captures) are not counted."""
+    from vitron_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from vitron_tpu_torch.models.llm.paged_cache import PagedServer
+    from vitron_tpu_torch.runtime import telemetry
+    from vitron_tpu_torch.runtime.engine import MediaItem, prepare_batch
+    from vitron_tpu_torch.runtime.generation import SamplingConfig, generate_scan
+
+    dev = torch.device("cuda")
+    gen_ = system.engine.generator
+    weight_bytes = int4_weight_bytes(params)
+    per_forward, n_layers = 7 * cfg.llm.num_layers + 1, cfg.llm.num_layers
+    counted = collections.Counter()  # the serve path's launches
+    idle = {name: 0 for name, _, _ in _counters()}
+
+    def count(what, want):
+        """Hold the launches since `reset_launches` to `want` (every other
+        kernel none) and add them to the serve path's count."""
+        got = expect_launches({**idle, **want}, f"serve {what}")
+        counted.update(got)
+        return got
+
+    # 1. generate_scan at bench_e2e_request's shape, replayed and eager
+    row = [1] + [7] * 24 + [IMAGE_TOKEN_INDEX] + [9] * 24
+    size = cfg.image_tower.image_size
+    px = torch.from_numpy(np.random.RandomState(1).rand(size, size, 3).astype(np.float32))
+    plan, images, _, _ = prepare_batch([row], [MediaItem("image", px)],
+                                       image_len=cfg.image_tower.num_patches)
+    arrays, images = plan_arrays(plan), images.to(dev)
+
+    def scan(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate_scan(params, cfg, arrays, n, images=images, generator=gen_).cpu()
+        return toks[0].tolist(), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    scan(SCAN_NEW)  # captures the chunk
+    t_capture = time.perf_counter() - t0
+    chunk = gen_.last_chunk
+    reset_launches()
+    toks1, t_req = scan(SCAN_NEW)
+    count("generate_scan", {"int4_matmul": per_forward * SCAN_NEW,
+                            "flash_attention": n_layers})
+    check(chunk.run.launches == {("int4_matmul", "launches"): per_forward * (SCAN_NEW - 1)},
+          f"generate_scan: the chunk's graph holds {chunk.run.launches}")
+    toks2, _ = scan(SCAN_NEW)
+    _, t_prefill = scan(1)
+    check(toks1 == toks2 and len(toks1) == SCAN_NEW,
+          f"generate_scan: a second identical request gave other tokens ({len(toks1)})")
+    pad_len = plan.token_ids.shape[1]
+    seq = torch.as_tensor(plan.seq_lens, device=dev)[:, None]
+
+    def decode(run):
+        chunk.start(torch.tensor([[toks1[0]]], device=dev), seq, pad_len, 0.0, 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return [toks1[0]] + chunk.emits[0].tolist(), time.perf_counter() - t0
+
+    eager, t_eager = decode(chunk.run.body)  # the same steps, eagerly
+    replayed, t_replay = decode(chunk.run)
+    check(eager == toks1 and replayed == toks1,
+          "generate_scan: the eager chunk or a bare replay gave other tokens than the scan")
+    steps = SCAN_NEW - 1
+    rate_r, rate_e = steps / t_replay, steps / t_eager
+    per_token = chunk.run.launches_per_call / steps
+    print(f"serve generate_scan: {SCAN_NEW} greedy tokens after an image + 49-word prefill, replayed "
+          f"twice and eagerly: identical; request {t_req:.3f} s, prefill-only request "
+          f"{t_prefill:.3f} s, first request (captures {steps} steps) {t_capture:.3f} s; "
+          f"decode replayed {rate_r:.1f} tok/s ({weight_bytes * rate_r / HBM_BYTES_PER_S:.3f} "
+          f"of the 3.35 TB/s weight-stream roofline), eager {rate_e:.1f} tok/s "
+          f"({rate_r / rate_e:.2f}x); launches a replayed chunk "
+          f"{dict((k[0], v) for k, v in chunk.run.launches.items())} "
+          f"({per_token:.0f} a token) [{card}]", flush=True)
+
+    # 2. PagedServer.step_n at bench_continuous_batching's shape, greedy
+    llm = params["llm"]
+    rs = np.random.RandomState(0)
+    prompts = [[int(t) for t in rs.randint(1, 30000, SERVE_PREFILL)] for _ in range(4)]
+    singles, single_arrays = [], []
+    for p in prompts:
+        pl, _, _, _ = prepare_batch([p], [], image_len=cfg.image_tower.num_patches)
+        single_arrays.append(plan_arrays(pl))
+        singles.append(generate_scan(params, cfg, single_arrays[-1], SERVE_COMPARE,
+                                     generator=gen_)[0].tolist())
+    slots = gen_.last_chunk.cache.k.shape[2]
+
+    def paged(batch, counted_as=None):
+        """step_n over `batch`: SERVE_CHUNKS chunks, the first captures; the
+        replays are counted as `counted_as` when it is given."""
+        srv = PagedServer(llm, cfg.llm, num_blocks=((SERVE_PREFILL + SERVE_CHUNKS * SERVE_CHUNK)
+                                                    // 16 + 2) * len(batch),
+                          block_size=16, max_blocks_per_seq=32)
+        sids = [srv.add_request(p, chunk=SERVE_PREFILL) for p in batch]
+        sampling = {sid: (0.0, 1.0, True) for sid in sids}
+        rows, times = {sid: [] for sid in sids}, []
+        for i in range(SERVE_CHUNKS):
+            if i == 1:
+                reset_launches()
+            sampling["uniforms"] = torch.zeros((SERVE_CHUNK, len(sids)), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = srv.step_n(SERVE_CHUNK, sampling=sampling)
+            times.append(time.perf_counter() - t0)
+            for sid in sids:
+                rows[sid] += out[sid]
+        if counted_as:
+            count(counted_as, {"int4_matmul": per_forward * SERVE_CHUNK * (SERVE_CHUNKS - 1)})
+        fn = srv._chunk_fns.lookup((SERVE_CHUNK, len(sids), srv.max_blocks, True))
+        check(fn.run.launches == {("int4_matmul", "launches"): per_forward * SERVE_CHUNK},
+              f"step_n batch {len(sids)}: the chunk's graph holds {fn.run.launches}")
+        return ([rows[s] for s in sids], len(sids) * SERVE_CHUNK / min(times[1:]),
+                fn.run.launches_per_call)
+
+    def held(what, got, i):
+        return check_divergence(
+            what, got[:SERVE_COMPARE], singles[i],
+            lambda j: stream_logits(torch, gen_, single_arrays[i], None, singles[i], j, slots),
+            card)
+
+    rows1, tok_s1, launches1 = paged([prompts[0]], "step_n batch 1")
+    same1 = held("serve step_n batch 1", rows1[0], 0)
+    rows4s, _, _ = paged([prompts[0]] * 4)
+    check(all(r == rows4s[0] for r in rows4s),
+          "step_n: four identical prompts gave rows that differ")
+    same4s = held("serve step_n batch 4 (identical prompts)", rows4s[0], 0)
+    rows4, tok_s4, launches4 = paged(prompts, "step_n batch 4")
+    same4 = [held(f"serve step_n batch 4 row {i}", r, i) for i, r in enumerate(rows4)]
+    print(f"serve step_n: prefill {SERVE_PREFILL}, {SERVE_CHUNKS} chunks of {SERVE_CHUNK} "
+          f"greedy tokens; against the single-stream Generator on the first {SERVE_COMPARE}: "
+          f"batch 1 {same1}, four identical prompts bit-identical rows ({same4s}), batch 4 "
+          f"{same4}; serve_batch1_tok_s {tok_s1:.1f}, serve_batch4_tok_s {tok_s4:.1f}, ratio "
+          f"{tok_s4 / tok_s1:.2f}; launches a replayed chunk {launches1} (batch 1), "
+          f"{launches4} (batch 4) [{card}]", flush=True)
+
+    # 3. ContinuousBatcher through ServingPipeline: four staged image requests
+    # (one sampled), then a short text-only one while they are staged
+    from vitron_tpu_torch.runtime.pipeline import ServingPipeline
+
+    greedy = SamplingConfig(greedy=True, max_new_tokens=BATCHER_NEW, eos_ids=())
+    hot = SamplingConfig(temperature=0.9, top_p=0.9, max_new_tokens=BATCHER_NEW, eos_ids=())
+    imgs = [np.random.RandomState(10 + i).randint(0, 256, (336, 448, 3), np.uint8)
+            for i in range(4)]
+    pipe = ServingPipeline(system)
+    batcher = pipe.batcher
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        futs = [pipe.submit(PROMPT, image=imgs[i], sampling=hot if i == 3 else greedy,
+                            gen=torch.Generator(device=dev).manual_seed(3) if i == 3 else None)
+                for i in range(4)]
+        while "admit_embed" not in batcher._trace and time.perf_counter() - t0 < 300:
+            time.sleep(0.005)
+        futs.append(pipe.submit(SERVE_SHORT, sampling=greedy))
+        results = [f.result(timeout=600) for f in futs]
+        t_all = time.perf_counter() - t0
+        trace, stats = list(batcher._trace), batcher.stats()
+        captures = batcher.server._chunk_fns.stats()["misses"]
+        count("batcher", batcher_launches(batcher, 0, captures, cfg))
+    finally:
+        pipe.close()
+    del pipe, batcher
+    check(all(len(r["reply"]["tokens"]) == BATCHER_NEW for r in results),
+          f"batcher: replies of {[len(r['reply']['tokens']) for r in results]} tokens")
+    staged = staged_trace_checks(trace, n_chunks=-(-SERVE_SEQ_LEN // 256))
+    print(f"serve batcher: 4 image requests (384-slot bucket, staged) + 1 short, "
+          f"{BATCHER_NEW} tokens each, in {t_all:.3f} s ({captures} step_n chunks captured "
+          f"on the way); stats {stats}; trace {staged}: "
+          f"{' '.join(trace)} [{card}]", flush=True)
+    check(staged["staged"] == 4 and staged["decode_between"] >= 3
+          and staged["fused_while_staged"] >= 1,
+          f"batcher: staged admissions {staged} (want 4 staged, decode chunks between the "
+          f"steps of every one after the first, the short request admitted while one is staged)")
+    held3 = []
+    for i in range(3):  # the greedy ones, each served alone
+        prepared = system.prepare(PROMPT, image=imgs[i])
+        pl, im, _, _, _ = system.engine.plan_turn(prepared["msg"], prepared["media"])
+        check(int(pl.seq_lens[0]) == SERVE_SEQ_LEN and pl.token_ids.shape[1] == 384,
+              f"batcher: the request has {int(pl.seq_lens[0])} slots, the B2 rows hold "
+              f"{SERVE_SEQ_LEN} in a 384 bucket")
+        alone = system.chat(PROMPT, image=imgs[i], sampling=greedy)["reply"]["tokens"]
+        n = gen_.last_chunk.cache.k.shape[2]
+        held3.append(check_divergence(
+            f"serve batcher request {i}", results[i]["reply"]["tokens"], alone,
+            lambda j: stream_logits(torch, gen_, plan_arrays(pl), im.to(dev), alone, j, n),
+            card))
+    print(f"serve batcher: greedy replies against each request served alone: {held3} "
+          f"[{card}]", flush=True)
+
+    # 4. the HTTP server on the full-width system
+    import base64
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from vitron_tpu_torch.apps.serve import serve
+
+    srv = serve(system, host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        buf = io.BytesIO()
+        Image.fromarray(imgs[0]).save(buf, format="PNG")
+        body = json.dumps({"prompt": PROMPT, "image": base64.b64encode(buf.getvalue()).decode(),
+                           "greedy": True, "max_new_tokens": 16}).encode()
+
+        def post():
+            req = urllib.request.Request(base + "/chat", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read()), time.perf_counter() - t0
+
+        first, t_first = post()  # captures the server's step_n chunk
+        http_batcher = srv.pipeline.batcher
+        mark = len(http_batcher._trace)
+        misses = http_batcher.server._chunk_fns.stats()["misses"]
+        reset_launches()
+        chat, t_http = post()
+        count("http", batcher_launches(
+            http_batcher, mark, http_batcher.server._chunk_fns.stats()["misses"] - misses, cfg))
+        check(chat.get("raw") == first.get("raw"), "http: a second identical request gave "
+              "another reply")
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.pipeline.close()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"serve http: /health {health}; POST /chat with a 336x448 PNG: status "
+          f"{chat.get('status')}, {len(chat.get('raw', '').split())} tokens in {t_http:.3f} s "
+          f"(the first, which captured, {t_first:.3f} s); "
+          f"/stats budget {stats['budget_bytes']} bytes (the card's total memory {total}), "
+          f"resident {stats['resident_bytes']}, fits {stats['fits']}, graph caches "
+          f"{stats['programs']}, batching {stats['batching']} [{card}]", flush=True)
+    check(health.get("status") == "ok" and chat.get("status") == "chat"
+          and len(chat.get("raw", "").split()) == 16 and stats["budget_bytes"] == total
+          and stats["fits"] and "llm+towers" in stats["entries"]
+          and stats["batching"]["finished"] == 2,
+          f"http: health {health}, chat {chat.get('status')}, stats {stats}")
+    launches = {name: counted[name] for name in idle}
+    print(f"serve: launches of the main-path runs {launches} [{card}]", flush=True)
+    print(f"serve graph caches: {telemetry.all_stats()} [{card}]", flush=True)
+    return launches
+
+
+HOST_BUDGET = 64 * 1024 ** 3  # the memory plan of a system on the host (no default there)
 
 
 def phase_cpu_vs_card(torch, card: str):
@@ -2141,6 +2543,7 @@ def phase_cpu_vs_card(torch, card: str):
     from vitron_tpu_torch.models.vitron_model import VitronConfig
     from vitron_tpu_torch.runtime.engine import VitronEngine
     from vitron_tpu_torch.runtime.generation import SamplingConfig
+    from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
     from vitron_tpu_torch.runtime.system import VitronSystem
     from vitron_tpu_torch.apps.cli import DemoTokenizer
 
@@ -2161,7 +2564,9 @@ def phase_cpu_vs_card(torch, card: str):
     for name, device, p in (("cuda", dev, params), ("cpu", torch.device("cpu"), tree_map(lambda a: a.cpu(), params))):
         engine = VitronEngine(p, cfg, DemoTokenizer(), device=device)
         t0 = time.perf_counter()
-        VitronSystem(engine).chat(PROMPT, image=image, region_box=BBOX, sampling=one)
+        plan = MemoryPlan.for_device(device) if name == "cuda" else MemoryPlan(HOST_BUDGET)
+        VitronSystem(engine, memory_plan=plan).chat(PROMPT, image=image, region_box=BBOX,
+                                                    sampling=one)
         logits[name] = engine.generator.last_prefill_logits.float().cpu()
         print(f"cpu-vs-card: {name} prefill {time.perf_counter() - t0:.1f} s", flush=True)
     err = (logits["cuda"] - logits["cpu"]).abs().max().item()
@@ -2757,7 +3162,11 @@ def main() -> int:
         rows.update(phase_video_kernels(torch, card))
         rows.update(phase_conv3x3(torch, card))
         rows.update(phase_i2v_kernels(torch, card))
-        chat = phase_slice(torch, card)
+        chat_system = build_chat_system(torch)
+        chat = phase_slice(torch, card, *chat_system)
+        serve = phase_serve(torch, card, *chat_system)
+        del chat_system
+        torch.cuda.empty_cache()
         phase_cpu_vs_card(torch, card)
         from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
         from vitron_tpu_torch.models.diffusion.unet2d import UNetConfig
@@ -2840,7 +3249,8 @@ def main() -> int:
                 "ms_is": f"sum over the {len(r)} main-path shapes above"}
 
     def paths(name):
-        return {"chat": chat[name], "task_a": task_a[name], "task_c": task_c[name],
+        return {"chat": chat[name], "serve": serve[name], "task_a": task_a[name],
+                "task_c": task_c[name],
                 "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name]}
 

@@ -28,6 +28,7 @@ from vitron_tpu_torch.models.diffusion import samplers as tsamp
 from vitron_tpu_torch.models.diffusion import unet2d as tunet
 from vitron_tpu_torch.models.diffusion import vae as tvae
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -349,7 +350,7 @@ def test_route_and_image_match_jax(nets, pipelines, module):
     jsys = JSystem(None)
     jsys.register_gligen(jpipe)
     want = route_model_output(jsys.registry, reply, image=image)
-    tsys = VitronSystem(None)
+    tsys = VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30))
     tsys.register_gligen(tpipe)
     with torch.no_grad():
         got = tsys.route(reply, image=image)
@@ -413,7 +414,7 @@ def test_handlers_call_generate_as_jax(pipelines, monkeypatch, branch):
     jsys = JSystem(None)
     jsys.register_gligen(jpipe)
     want = route_model_output(jsys.registry, reply, image=image, sketch_mask=sketch)
-    tsys = VitronSystem(None)
+    tsys = VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30))
     tsys.register_gligen(tpipe)
     with torch.no_grad():
         got = tsys.route(reply, image=image, sketch_mask=sketch)
@@ -434,7 +435,7 @@ def test_handlers_call_generate_as_jax(pipelines, monkeypatch, branch):
 
 
 def test_route_without_backend_is_unavailable():
-    out = VitronSystem(None).route("<module>A</module><instruction>a cat</instruction>")
+    out = VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30)).route("<module>A</module><instruction>a cat</instruction>")
     assert out["status"] == "unavailable"
 
 

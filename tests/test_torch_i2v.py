@@ -26,6 +26,7 @@ from vitron_tpu_torch.models.diffusion import unet_sd_video as tusv
 from vitron_tpu_torch.models.diffusion import video_pipelines as tvp
 from vitron_tpu_torch.models.diffusion.synthetic import (StubClipTokenizer, StubImageEmbedder,
                                                          fill_zero_leaves)
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
 
 MODULE_TOL, UNET_TOL = 1e-5, 1e-3
@@ -293,7 +294,7 @@ def test_route_g_matches_jax(pipelines, monkeypatch):
         monkeypatch.setattr(pipe, "generate", generate)
     jsys = JSystem(None)
     jsys.register_image2video(jpipe)
-    tsys = VitronSystem(None)
+    tsys = VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30))
     tsys.register_image2video(tpipe)
     want = route_model_output(jsys.registry, reply, image=img)
     with torch.no_grad():

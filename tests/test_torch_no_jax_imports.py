@@ -3,7 +3,9 @@
 level or inside a function; every port module imports with both made
 unimportable; and the host modules the port keeps its own copies of
 (constants, conversation templates, protocol, tokenization, sketch, the
-splice planner, the router) agree with their JAX-package originals.
+splice planner, the router, moderation, the program-cache telemetry) agree
+with their JAX-package originals. The copies that keep the original's text
+(moderation, telemetry) are held to the same code, docstrings aside.
 """
 import ast
 import dataclasses
@@ -206,3 +208,58 @@ def test_sketch_helpers_match_jax_package():
     assert states[0][0] == states[1][0]
     np.testing.assert_array_equal(states[0][1], states[1][1])
     assert tsketch.order_pick_k(list(range(10)), 4) == jsketch.order_pick_k(list(range(10)), 4)
+
+
+# the port's copies that keep the original's code as it is (docstrings aside)
+TEXT_COPIES = ["mm/moderation.py", "runtime/telemetry.py"]
+
+
+def _code(path: pathlib.Path) -> str:
+    """The module's syntax tree without its docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", TEXT_COPIES)
+def test_text_copies_keep_the_original_code(rel):
+    assert _code(REPO / "vitron_tpu_torch" / rel) == _code(REPO / "vitron_tpu" / rel)
+
+
+def test_the_code_comparison_sees_a_changed_line(tmp_path):
+    a, b = tmp_path / "a.py", tmp_path / "b.py"
+    a.write_text('"""doc a"""\ndef f(x):\n    """one"""\n    return x + 1\n')
+    b.write_text('"""doc b"""\ndef f(x):\n    """two"""\n    return x + 1\n')
+    assert _code(a) == _code(b)
+    b.write_text('"""doc b"""\ndef f(x):\n    return x + 2\n')
+    assert _code(a) != _code(b)
+
+
+def test_moderation_matches_jax_package(monkeypatch):
+    """Fail-open and the injected transport, on both copies; nothing posts."""
+    from vitron_tpu.mm import moderation as jmod
+    from vitron_tpu_torch.mm import moderation as tmod
+
+    calls = []
+
+    def flagged(url, data, headers, timeout):
+        calls.append((url, data, headers["Content-Type"], timeout))
+        return {"results": [{"flagged": b"bad" in data}]}
+
+    def broken(*a):
+        raise OSError("no route")
+
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    for mod in (tmod, jmod):
+        assert mod.violates_moderation("anything") is False  # no key, no transport
+        assert mod.violates_moderation("a bad\nword", post=flagged) is True
+        assert mod.violates_moderation("fine", post=flagged) is False
+        assert mod.violates_moderation("bad", post=broken) is False  # fails open
+        assert mod.violates_moderation("bad", post=lambda *a: {"results": []}) is False
+    assert calls[0] == calls[2] and calls[1] == calls[3]
+    assert calls[0][0] == tmod.MODERATION_URL == jmod.MODERATION_URL

@@ -32,6 +32,7 @@ from vitron_tpu_torch.models.seem import language as tlang
 from vitron_tpu_torch.models.seem import model as tmodel
 from vitron_tpu_torch.models.seem import pixel_decoder as tpix
 from vitron_tpu_torch.models.seem import postprocess as tpp
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
 
 RTOL = 1e-4
@@ -422,7 +423,7 @@ def systems(seem):
 
     jcfg, tcfg, jp, tp = seem
     tok = StubClipTokenizer(tcfg.lang.vocab_size)
-    jsys, tsys = JSystem(None), VitronSystem(None)
+    jsys, tsys = JSystem(None), VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30))
     jsys.register_seem(jp, jcfg, tok)
     tsys.register_seem(tp, tcfg, tok)
     jsys.register_gligen(_FakeGligen(16))

@@ -28,6 +28,7 @@ from vitron_tpu_torch.models.diffusion import unet_sd_video as tusv
 from vitron_tpu_torch.models.diffusion import video_pipelines as tvp
 from vitron_tpu_torch.models.diffusion import video_unet as tvu
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
 
 MODULE_TOL, UNET_TOL, BF16_TOL = 1e-5, 1e-3, 2e-2
@@ -359,7 +360,7 @@ def test_route_d_matches_jax(pipelines, monkeypatch):
     jsys = JSystem(None)
     jsys.register_text2video(jpipe)
     want = route_model_output(jsys.registry, reply)
-    tsys = VitronSystem(None)
+    tsys = VitronSystem(None, memory_plan=MemoryPlan(budget_bytes=8 << 30))
     tsys.register_text2video(tpipe)
     with torch.no_grad():
         got = tsys.route(reply)

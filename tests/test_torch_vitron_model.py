@@ -19,6 +19,7 @@ from vitron_tpu_torch.models.llm.llama import LlamaConfig
 from vitron_tpu_torch.models.vision.vit import ViTConfig
 from vitron_tpu_torch.runtime import generation as tgen
 from vitron_tpu_torch.runtime.engine import VitronEngine
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -150,7 +151,8 @@ def test_system_chat_matches_jax(tiny_jax, monkeypatch):
         "what is in the box?", sampling=JSampling(greedy=True, max_new_tokens=10, eos_ids=()),
         **kw)
     got = VitronSystem(VitronEngine(from_jax(params, "cpu"), tvm.VitronConfig.tiny(),
-                                    DemoTokenizer())).chat(
+                                    DemoTokenizer()),
+                       memory_plan=MemoryPlan(budget_bytes=8 << 30)).chat(
         "what is in the box?",
         sampling=tgen.SamplingConfig(greedy=True, max_new_tokens=10, eos_ids=()), **kw)
     assert got["reply"]["raw"] == want["reply"]["raw"] and got["status"] == want["status"]
@@ -164,7 +166,8 @@ def test_tool_call_routes_to_unavailable_backend(tiny_jax):
 
     _, params = tiny_jax
     system = VitronSystem(VitronEngine(from_jax(params, "cpu"), tvm.VitronConfig.tiny(),
-                                       DemoTokenizer()))
+                                       DemoTokenizer()),
+                          memory_plan=MemoryPlan(budget_bytes=8 << 30))
     out = route_model_output(system.registry,
                              "<module>D</module> <instruction>a dog</instruction>")
     assert out["status"] == "unavailable"

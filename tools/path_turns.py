@@ -2,7 +2,8 @@
 """Time the paths that the port's kernels move most, for one checkout of the
 repo, so a change can be held against its parent in turns on one card.
 
-    python3 tools/path_turns.py [--train | --chat | --video] [--root CHECKOUT] [--label NAME]
+    python3 tools/path_turns.py [--train | --chat | --cold | --video] [--root CHECKOUT]
+                                [--label NAME]
 
 It runs the smoke's own phases (`chip_smoke.py` of the checkout this script
 lies in) on the `vitron_tpu_torch` of `--root` (default: this checkout),
@@ -16,7 +17,10 @@ time, trained tokens/s and a profiled step by kernel group), where B1, B2,
 B5a and B5b run; with `--chat`, phase 6's chat request (`phase_slice`: the
 full-width Vicuna-7B int4 + ViT-L/14 request of 128 greedy tokens twice and
 the one-token prefill request), where B1 runs as the prefill GEMM and the
-decode GEMV; with `--video`, task D (`phase_task_d`: the full-width t2v
+decode GEMV; with `--cold`, the same system's chat requests of 128 greedy
+tokens in the order a fresh server meets them (`cold_chat`: the first
+request, pad buckets not seen before, a cache length not seen before), each
+timed alone; with `--video`, task D (`phase_task_d`: the full-width t2v
 request twice, a CFG UNet call timed alone and profiled by kernel group),
 where B3, B6, B7 and B8 run. Run it once a process, parent, change, change,
 parent, in one call: the host's share of these reads differs between
@@ -31,11 +35,50 @@ from pathlib import Path
 from flash_rows import HERE, load_smoke
 
 
+COLD_REQUESTS = (  # label, words of text (DemoTokenizer: a token a word), with the image
+    ("first request, image prompt (384-slot bucket)", 0, True),
+    ("the same again", 0, True),
+    ("text prompt (128-slot bucket, not seen before)", 60, False),
+    ("text prompt (256-slot bucket, not seen before)", 150, False),
+    ("text prompt (640-slot bucket, not seen before; 768 slots with the tokens)", 560, False),
+    ("the same again", 560, False),
+)
+
+
+def cold_chat(torch, smoke, card: str) -> None:
+    """Phase 6's system on a fresh process: chat requests of NEW_TOKENS
+    greedy tokens, each timed alone (host clock, synchronized), in the
+    order of COLD_REQUESTS, with the decode-graph cache's counters where
+    the checkout has one."""
+    import time
+
+    import numpy as np
+
+    from vitron_tpu_torch.runtime.generation import SamplingConfig
+
+    system, _, _ = smoke.build_chat_system(torch)
+    image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+    sampling = SamplingConfig(greedy=True, max_new_tokens=smoke.NEW_TOKENS, eos_ids=())
+    for label, words, with_image in COLD_REQUESTS:
+        prompt = " ".join(f"w{i}" for i in range(words)) if words else smoke.PROMPT
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = system.chat(prompt, image=image if with_image else None, sampling=sampling)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        chunks = getattr(system.engine.generator, "chunks", None)  # older checkouts: none
+        graphs = f", decode graphs {chunks.stats()}" if chunks is not None else ""
+        print(f"cold chat: {label}: {dt:.3f} s, {len(out['reply']['tokens'])} tokens"
+              f"{graphs} [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--train", action="store_true", help="phase 19's training step")
     which.add_argument("--chat", action="store_true", help="phase 6's chat requests")
+    which.add_argument("--cold", action="store_true",
+                       help="chat requests in pad buckets a fresh server has not seen")
     which.add_argument("--video", action="store_true", help="phase 15's task-D request")
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
@@ -62,8 +105,15 @@ def main() -> int:
         return 0
     dev = torch.device("cuda")
     with torch.no_grad():
+        if args.cold:
+            cold_chat(torch, smoke, f"{args.label}, {card}")
+            return 0
         if args.chat:
-            smoke.phase_slice(torch, f"{args.label}, {card}")
+            if hasattr(smoke, "build_chat_system"):  # older checkouts build it in phase_slice
+                smoke.phase_slice(torch, f"{args.label}, {card}",
+                                  *smoke.build_chat_system(torch))
+            else:
+                smoke.phase_slice(torch, f"{args.label}, {card}")
             return 0
         if args.video:
             from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig

@@ -56,17 +56,26 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+DEMO_HOST_BUDGET = 4 * 1024 ** 3  # the demo's memory budget off the card (tiny needs MBs)
+
+
 def build_demo_system(device, seed: int = 0):
+    """The tiny demo system on `device`: its memory plan's budget is the
+    card's memory, or DEMO_HOST_BUDGET off the card."""
     import torch
 
     from vitron_tpu_torch.models import vitron_model
     from vitron_tpu_torch.runtime.engine import VitronEngine
+    from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
     from vitron_tpu_torch.runtime.system import VitronSystem
 
+    device = torch.device(device)
     cfg = vitron_model.VitronConfig.tiny()
     gen = torch.Generator(device=device).manual_seed(seed)
     params = vitron_model.init_params(gen, cfg, device)
-    return VitronSystem(VitronEngine(params, cfg, DemoTokenizer(), device=device))
+    plan = None if device.type == "cuda" else MemoryPlan(budget_bytes=DEMO_HOST_BUDGET)
+    return VitronSystem(VitronEngine(params, cfg, DemoTokenizer(), device=device),
+                        memory_plan=plan)
 
 
 def main(argv=None) -> int:

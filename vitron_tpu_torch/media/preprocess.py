@@ -110,3 +110,80 @@ def preprocess_video(frames, size: int = VISION_IMAGE_SIZE) -> torch.Tensor:
     off by default in the JAX package too)."""
     x = _resize_short_side(_normalize(_as_float(frames)), size, "linear")
     return _center_crop(x, size)
+
+
+def resize_normalize_batch(images, out_size: int = VISION_IMAGE_SIZE,
+                           mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD) -> torch.Tensor:
+    """uint8 [N, H, W, 3] -> [N, out, out, 3] float32: the short side
+    resized to `out_size` by a fractional-scale bilinear sample (no
+    antialias), center-cropped, /255 and normalized. The arithmetic of the
+    JAX package's `media/native.py::resize_normalize_batch` (its C++ batch
+    resize and numpy fallback), in torch on the host: sample coordinates and
+    weights in float64, pixels in float32."""
+    imgs = torch.from_numpy(np.array(images, np.uint8))  # a writable copy
+    outs = []
+    for img in imgs:
+        h, w = img.shape[:2]
+        scale = h / out_size if h <= w else w / out_size
+        nh, nw = h / scale, w / scale  # fractional, like the C++ path
+        ys = (np.arange(out_size) + (nh - out_size) * 0.5 + 0.5) * scale - 0.5
+        xs = (np.arange(out_size) + (nw - out_size) * 0.5 + 0.5) * scale - 0.5
+        yf, xf = np.floor(ys).astype(np.int64), np.floor(xs).astype(np.int64)
+        wy = torch.from_numpy((ys - yf).astype(np.float32))[:, None, None]
+        wx = torch.from_numpy((xs - xf).astype(np.float32))[None, :, None]
+        y0, y1 = (torch.from_numpy(np.clip(a, 0, h - 1)) for a in (yf, yf + 1))
+        x0, x1 = (torch.from_numpy(np.clip(a, 0, w - 1)) for a in (xf, xf + 1))
+        f = img.to(torch.float32)
+        v = (f[y0][:, x0] * (1 - wy) * (1 - wx) + f[y0][:, x1] * (1 - wy) * wx
+             + f[y1][:, x0] * wy * (1 - wx) + f[y1][:, x1] * wy * wx) / 255.0
+        outs.append((v - torch.tensor(mean, dtype=torch.float32))
+                    / torch.tensor(std, dtype=torch.float32))
+    return torch.stack(outs)
+
+
+def load_image(path: str) -> np.ndarray:
+    """Host-side image decode -> uint8 [H, W, 3] RGB."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def load_video_frames(path: str, num_frames: int = 8) -> np.ndarray:
+    """Host-side decode: `num_frames` sampled uniformly -> uint8 [T, H, W, 3],
+    through decord, then OpenCV, then imageio, whichever is installed (the
+    JAX package's `backend="auto"` order, without its pytorchvideo branch)."""
+    try:
+        import decord
+
+        vr = decord.VideoReader(path, num_threads=1)
+        return vr.get_batch(uniform_frame_indices(len(vr), num_frames).tolist()).asnumpy()
+    except ImportError:
+        pass
+    try:
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        idx = set(uniform_frame_indices(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                                        num_frames).tolist())
+        frames, i = [], 0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            if i in idx:
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            i += 1
+        cap.release()
+        if frames:
+            while len(frames) < num_frames:  # short video: repeat last
+                frames.append(frames[-1])
+            return np.stack(frames[:num_frames])
+    except ImportError:
+        pass
+    try:
+        import imageio.v3 as iio
+
+        frames = iio.imread(path, plugin="pyav")
+        return np.stack([frames[i] for i in uniform_frame_indices(len(frames), num_frames)])
+    except ImportError as e:
+        raise RuntimeError("no video decode backend available (decord/cv2/imageio)") from e

@@ -140,9 +140,10 @@ class KVCache:
     k/v: [L, B, max_len, num_kv_heads, head_dim] buffers that `forward`
     writes by slice assignment at `index` (the counterpart of the JAX
     package's single-slot dynamic_update_slice); `index` is the host-side
-    fill level; `valid` [B, max_len] marks slots holding real tokens, so
-    right-padded rows never attend padding. `forward` mutates the cache and
-    returns the same object.
+    fill level (`decode_step` writes at a slot held on the device instead);
+    `valid` [B, max_len] marks slots holding real tokens, so right-padded
+    rows never attend padding. `forward` mutates the cache and returns the
+    same object.
     """
 
     k: torch.Tensor
@@ -202,8 +203,9 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
     Without a cache: causal prefill over S. With a cache: writes this
     chunk's K/V at cache.index (in place) and attends over the whole cache
     window; prefill chunks and single-token decode share this path.
+    `decode_step` is the single-token step at a device-held slot.
     """
-    b, s, h = input_embeds.shape
+    b, s, _ = input_embeds.shape
     x = input_embeds.to(cfg.compute_dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -226,24 +228,15 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
         mask = (key_pos <= q_pos) & cache.valid[:, None, None, :]
         kv_mask, q_offset = cache.valid, start
 
-    def layer(x, lp, li):
-        xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = matmul_maybe_quantized(xn, lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    def attend(q, k, v, li):
         if cache is not None:
             cache.k[li, :, start:start + s] = k.to(cache.k.dtype)
             cache.v[li, :, start:start + s] = v.to(cache.v.dtype)
             k, v = cache.k[li], cache.v[li]
-        attn_out = _attend(q, k, v, mask, scale, cfg.attn_impl, kv_mask=kv_mask,
-                           q_offset=q_offset)
-        x = x + matmul_maybe_quantized(attn_out.reshape(b, s, h), lp["wo"])
-        xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        gate = F.silu(matmul_maybe_quantized(xn, lp["gate"]))
-        return x + matmul_maybe_quantized(gate * matmul_maybe_quantized(xn, lp["up"]),
-                                          lp["down"])
+        return _attend(q, k, v, mask, scale, cfg.attn_impl, kv_mask=kv_mask, q_offset=q_offset)
+
+    def layer(x, lp, li):
+        return _block(x, lp, cfg, cos, sin, lambda q, k, v: attend(q, k, v, li))
 
     layers = params["layers"]
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
@@ -255,10 +248,60 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
             x = layer(x, lp, li)
     if cache is not None:
         cache.index = start + s
+    return _head(params, cfg, x), cache
 
+
+def decode_step(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor,
+                positions: torch.Tensor, cache: KVCache, index: torch.Tensor):
+    """One decode token [B, 1, H] at a cache slot held in a device tensor
+    `index` ([1] int64) -> (logits float32 [B, 1, V], cache): the
+    counterpart of the JAX package's cached forward at a traced
+    `cache.index` (S = 1). K/V are written at slot `index` (`index_copy_`)
+    and the validity mask is built from it, so the step syncs with no host
+    value, allocates only what its shapes fix, and can be captured in a CUDA
+    graph and replayed at every position. `cache.index`, the host fill
+    level, is left as it is: the caller advances `index`. The attention is
+    the einsum path, as single-token decode is on the host-index path."""
+    t = cache.k.shape[2]
+    x = input_embeds.to(cfg.compute_dtype)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    cache.valid.index_fill_(1, index, True)
+    key_pos = torch.arange(t, device=x.device)
+    mask = (key_pos <= index)[None, None, None, :] & cache.valid[:, None, None, :]
+
+    def attend(q, k, v, li):
+        cache.k[li].index_copy_(1, index, k.to(cache.k.dtype))
+        cache.v[li].index_copy_(1, index, v.to(cache.v.dtype))
+        return _attend_xla(q, cache.k[li], cache.v[li], mask, scale)
+
+    layers = params["layers"]
+    for li in range(cfg.num_layers):
+        x = _block(x, _layer_params(layers, li), cfg, cos, sin,
+                   lambda q, k, v, li=li: attend(q, k, v, li))
+    return _head(params, cfg, x), cache
+
+
+def _block(x, lp, cfg: LlamaConfig, cos, sin, attend):
+    """One decoder layer on x [B, S, H]; attend(q, k, v) gives the attention
+    output [B, S, N, D] (and writes the cache where there is one)."""
+    b, s, h = x.shape
+    xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = matmul_maybe_quantized(xn, lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn_out = attend(q, k, v)
+    x = x + matmul_maybe_quantized(attn_out.reshape(b, s, h), lp["wo"])
+    xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    gate = F.silu(matmul_maybe_quantized(xn, lp["gate"]))
+    return x + matmul_maybe_quantized(gate * matmul_maybe_quantized(xn, lp["up"]), lp["down"])
+
+
+def _head(params, cfg: LlamaConfig, x) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = matmul_maybe_quantized(x, params["lm_head"]).to(torch.float32)
-    return logits, cache
+    return matmul_maybe_quantized(x, params["lm_head"]).to(torch.float32)
 
 
 def forward_tokens(params, cfg: LlamaConfig, token_ids: torch.Tensor, **kw):

@@ -1,0 +1,420 @@
+"""Continuous-batching serving: concurrent chat requests co-batch decode.
+
+Port of `vitron_tpu/runtime/batching.py`. Single-token decode is bound by
+the weight stream: a step reads every weight to produce ONE token per
+sequence, so decoding B sequences in one program reads the weights once
+for B tokens. `ContinuousBatcher` turns that into a serving loop:
+
+- handler threads `submit()` prepared requests (splice plan + media, on
+  the host) and block on a Future;
+- ONE device loop thread owns all LLM device work: it moves requests to the
+  device, admits them (a multimodal spliced prefill into a dense cache,
+  copied into `PagedServer` pool blocks), then decodes `chunk` tokens for
+  every active sequence in one program (`PagedServer.step_n`, a CUDA graph
+  replay on the card, with per-row temperature/top_p/greedy sampling);
+- sequences join/leave at chunk boundaries; EOS / keyword-stop / budget are
+  enforced on the host between chunks, as on the single-stream chunked path
+  (runtime/generation.py `_generate_chunked`);
+- a prompt whose pad bucket is longer than `prefill_chunk` is admitted in
+  stages, one device step a loop iteration, with a decode chunk between
+  them: the spliced embeddings (media encode + splice), then the decoder
+  prefill in `prefill_chunk`-token chunks at the cache's offset
+  (`llama.forward`'s cache path: the flash kernel with `q_offset` and a
+  partial `kv_mask`), the last chunk running to the end of the pad bucket.
+  Prompts that fit in one chunk keep the fused admission (encode + splice +
+  prefill + sample). Admission-stall telemetry (`admit_step_s_max`, the
+  longest single admission device step) is in `stats()`.
+
+Three faults of the JAX loop are not carried over: its prefill chunk is
+`gcd(pad_len, prefill_chunk)` (a 384-slot bucket with chunk 256 became
+three chunks of 128; here 256 + 128); a short prompt queued behind a long
+one waits until the whole staged admission ends (here short prompts are
+admitted while a staged admission advances, one staged admission at a
+time); and `close()` fails the futures while the loop thread may still run
+(here it joins the thread first).
+
+Sampling: a request's first token and its decode columns draw their
+uniforms from the request's own `torch.Generator` when it gives one (else
+from the batcher's, seeded with `seed`), so a sampled request gives the
+same tokens whichever requests share its chunks. Multi-device serving (a
+`mesh`) is not ported (ROADMAP A16), nor is speculative decode here.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import dataclasses
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vitron_tpu_torch.models import vitron_model
+from vitron_tpu_torch.models.llm import llama
+from vitron_tpu_torch.models.llm.paged_cache import PagedServer, sample_token_batched
+from vitron_tpu_torch.runtime.generation import SamplingConfig, uniforms
+
+
+@dataclasses.dataclass
+class _Job:
+    arrays: Dict[str, Any]
+    seq_len: int
+    sampling: Any
+    stopper: Any
+    gen: Optional[torch.Generator]
+    future: "concurrent.futures.Future"
+    sid: Optional[int] = None
+    out: Optional[List[int]] = None
+
+    @property
+    def pad_len(self) -> int:
+        return self.arrays["token_ids"].shape[1]
+
+
+@dataclasses.dataclass
+class _Admission:
+    """In-flight staged admission: the spliced embeddings once `embeds` is
+    set, then the prefill advancing one cache-offset chunk per step."""
+    job: _Job
+    cache: Any           # llama.KVCache, index at the chunk frontier
+    n_chunks: int        # ceil(seq_len / chunk): padding-only chunks skipped
+    embeds: Any = None   # [1, pad_len, H] on the device
+    i: int = 0
+
+
+class ContinuousBatcher:
+    """Owns the LLM device loop for a serving process.
+
+    params/cfg are the full Vitron tree + config (the LLM sub-tree drives
+    the paged decode pool). Thread-safe `submit`; one daemon loop thread."""
+
+    def __init__(self, params, cfg, num_blocks: int = 512, block_size: int = 16,
+                 chunk: int = 16, max_active: int = 8, seed: int = 0, mesh=None,
+                 prefill_chunk: int = 256, device=None):
+        if mesh is not None:
+            raise NotImplementedError("serving over a device mesh is not ported yet "
+                                      "(ROADMAP A16)")
+        self.params = params
+        self.cfg = cfg
+        llm_params = params["llm"] if "llm" in params else params
+        self.device = torch.device(device) if device is not None else llm_params["embed"].device
+        self.server = PagedServer(llm_params, cfg.llm, num_blocks=num_blocks,
+                                  block_size=block_size, device=self.device)
+        self.chunk = chunk
+        self.max_active = max_active
+        self.prefill_chunk = prefill_chunk
+        self._queue: "queue.Queue[_Job]" = queue.Queue()
+        self._long: "collections.deque[_Job]" = collections.deque()  # waiting to be staged
+        self._active: Dict[int, _Job] = {}
+        self._admitting: Optional[_Admission] = None
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._trace: List[str] = []       # device-loop event log (tests, the smoke)
+        self._lock = threading.Lock()
+        self._stats = {"chunks": 0, "slot_tokens": 0, "emitted_tokens": 0,
+                       "admitted": 0, "finished": 0, "batch_sum": 0,
+                       "admit_steps": 0, "admit_step_s_sum": 0.0,
+                       "admit_step_s_max": 0.0}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="vitron-batcher")
+        self._thread.start()
+
+    # --------------------------------------------------------- device fns
+
+    def _sample0(self, job: _Job, logits: torch.Tensor) -> int:
+        """The first token from the prefill's next-token logits [1, V]."""
+        s = job.sampling
+        greedy = bool(s.greedy or s.temperature == 0.0)
+        f = lambda v: torch.tensor([v], dtype=torch.float32, device=self.device)  # noqa: E731
+        tok = sample_token_batched(logits, f(s.temperature), f(s.top_p),
+                                   torch.tensor([greedy], device=self.device),
+                                   self._uniforms(job, 1))
+        return int(tok[0])
+
+    def _prefill_fn(self, job: _Job):
+        """Fused admission: encode + splice + prefill into a dense cache of
+        the pad bucket + sample the first token."""
+        a = job.arrays
+        cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len, device=self.device)
+        logits, cache = vitron_model.forward(
+            self.params, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
+            a["positions"], a["attn_mask"], images=a["images"], videos=a["videos"],
+            block_perm=a["block_perm"], region_boxes=a["region_boxes"],
+            region_block_idx=a["region_block_idx"], cache=cache)
+        return self._sample0(job, logits[:, job.seq_len - 1]), cache
+
+    def _embed_fn(self, job: _Job) -> torch.Tensor:
+        """Stage 1 of a staged admission: the spliced embeddings (towers +
+        projector + splice, no decoder)."""
+        a = job.arrays
+        return vitron_model.spliced_embeds(
+            self.params, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
+            images=a["images"], videos=a["videos"], block_perm=a["block_perm"],
+            region_boxes=a["region_boxes"], region_block_idx=a["region_block_idx"])
+
+    def _chunk_prefill(self, adm: _Admission) -> Optional[int]:
+        """Stage 2: prefill slots [start, end) of the pad bucket at the
+        cache's offset; on the last chunk, sample the first token."""
+        job, p = adm.job, self.prefill_chunk
+        start, end = adm.i * p, min((adm.i + 1) * p, job.pad_len)
+        a = job.arrays
+        llm = self.params["llm"] if "llm" in self.params else self.params
+        logits, _ = llama.forward(llm, self.cfg.llm, adm.embeds[:, start:end],
+                                  a["positions"][:, start:end],
+                                  attn_mask=a["attn_mask"][:, start:end], cache=adm.cache)
+        if adm.i + 1 < adm.n_chunks:
+            return None
+        return self._sample0(job, logits[:, job.seq_len - 1 - start])
+
+    def _uniforms(self, job: _Job, n: int) -> torch.Tensor:
+        return uniforms((n,), job.gen if job.gen is not None else self._gen, self.device)
+
+    # -------------------------------------------------------------- API
+
+    def submit(self, plan, images=None, videos=None, block_perm=None, region_boxes=None,
+               sampling=None, stopper=None, gen=None) -> "concurrent.futures.Future":
+        """Enqueue one single-row generation; the Future resolves to the new
+        token ids (stop semantics identical to Generator._generate_chunked).
+        Nothing here touches the device: the loop thread moves the request."""
+        sampling = sampling or SamplingConfig()
+        if plan.token_ids.shape[0] != 1:
+            raise ValueError("ContinuousBatcher co-batches single-row requests; "
+                             "pass rows separately")
+        arrays = dict(token_ids=plan.token_ids, media_idx=plan.media_idx,
+                      use_media=plan.use_media, positions=plan.position_ids,
+                      attn_mask=plan.attention_mask, images=images, videos=videos,
+                      block_perm=block_perm, region_boxes=None, region_block_idx=None)
+        if (plan.region_blocks is not None and len(plan.region_blocks)
+                and region_boxes is not None):
+            arrays["region_boxes"] = np.asarray(region_boxes, np.float32)
+            arrays["region_block_idx"] = plan.region_blocks
+        job = _Job(arrays=arrays, seq_len=int(plan.seq_lens[0]), sampling=sampling,
+                   stopper=stopper, gen=gen, future=concurrent.futures.Future())
+        with self._lock:  # close() drains the queue only after it stops taking jobs
+            if self._stop.is_set():
+                raise RuntimeError("batcher is closed")
+            self._queue.put(job)
+        return job.future
+
+    def stats(self) -> Dict[str, Any]:
+        """Occupancy telemetry for /stats: mean co-batched sequences per
+        chunk and slot efficiency (emitted / decoded slots)."""
+        with self._lock:
+            s = dict(self._stats)
+        chunks = max(s["chunks"], 1)
+        return {
+            **s,
+            "active": len(self._active),
+            "queued": self._queue.qsize() + len(self._long),
+            "chunk_size": self.chunk,
+            "mean_batch_occupancy": round(s["batch_sum"] / chunks, 2),
+            "slot_efficiency": round(s["emitted_tokens"] / max(s["slot_tokens"], 1), 3),
+            "admit_step_s_mean": round(s["admit_step_s_sum"] / max(s["admit_steps"], 1), 4),
+            "admit_step_s_max": round(s["admit_step_s_max"], 4),
+        }
+
+    def close(self) -> None:
+        """Stop the loop, wait for its thread to end, then fail every
+        request it did not finish."""
+        with self._lock:
+            self._stop.set()
+        self._thread.join()
+        jobs = list(self._active.values()) + list(self._long)
+        if self._admitting is not None:
+            jobs.append(self._admitting.job)
+        self._admitting = None
+        while True:
+            try:
+                jobs.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for job in jobs:
+            if not job.future.done():
+                job.future.set_exception(RuntimeError("batcher closed"))
+
+    # ------------------------------------------------------------- loop
+
+    def _loop(self) -> None:
+        with torch.no_grad():
+            while not self._stop.is_set():
+                admitted = self._admit_pending()
+                staged = self._admitting is not None
+                if staged:
+                    self._admit_step()
+                if self._active:
+                    try:
+                        self._decode_chunk()
+                    except Exception as e:  # fail active jobs, keep serving
+                        for sid, job in list(self._active.items()):
+                            if not job.future.done():
+                                job.future.set_exception(e)
+                            self.server.finish(sid)
+                        self._active.clear()
+                elif not (staged or admitted):
+                    try:
+                        job = self._queue.get(timeout=0.05)
+                    except queue.Empty:
+                        continue
+                    self._take(job)
+
+    def _room(self) -> bool:
+        return len(self._active) + (self._admitting is not None) < self.max_active
+
+    def _admit_pending(self) -> bool:
+        """Admit queued jobs up to capacity: a prompt that fits in one
+        prefill chunk at once (fused), a longer one into the wait for the
+        one staged admission, which starts here when none is in progress.
+        A short prompt never waits behind a long one."""
+        admitted = False
+        while self._room():
+            try:
+                job = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            admitted |= self._take(job)
+        if self._admitting is None and self._long and self._room():
+            self._start_admission(self._long.popleft())
+            admitted = True
+        return admitted
+
+    def _take(self, job: _Job) -> bool:
+        """Admit a short prompt now (-> True) or queue a long one for
+        staging (-> False)."""
+        if job.pad_len > self.prefill_chunk:
+            self._long.append(job)
+            return False
+        self._admit(job)
+        return True
+
+    def _to_device(self, job: _Job) -> None:
+        a, dev = job.arrays, self.device
+        for name, dtype in (("token_ids", torch.int64), ("media_idx", torch.int64),
+                            ("use_media", torch.bool), ("positions", torch.int64),
+                            ("attn_mask", torch.bool), ("block_perm", torch.int64),
+                            ("region_boxes", torch.float32),
+                            ("region_block_idx", torch.int64)):
+            if a[name] is not None:
+                a[name] = torch.as_tensor(np.asarray(a[name]), dtype=dtype, device=dev)
+        for name in ("images", "videos"):
+            if a[name] is not None:
+                a[name] = torch.as_tensor(a[name]).to(dev)
+
+    def _timed_admit_step(self, tag: str, fn):
+        """Run one admission device step to its end and record its wall
+        time as admission-stall telemetry."""
+        t0 = time.perf_counter()
+        out = fn()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self._stats["admit_steps"] += 1
+            self._stats["admit_step_s_sum"] += dt
+            self._stats["admit_step_s_max"] = max(self._stats["admit_step_s_max"], dt)
+        self._trace_event(tag)
+        return out
+
+    def _trace_event(self, tag: str) -> None:
+        self._trace.append(tag)
+        if len(self._trace) > 2048:
+            del self._trace[:1024]
+
+    def _admit(self, job: _Job) -> None:
+        try:
+            self._to_device(job)
+            tok0, cache = self._timed_admit_step("admit_fused", lambda: self._prefill_fn(job))
+            self._activate(job, tok0, cache.k, cache.v)
+        except Exception as e:
+            if not job.future.done():
+                job.future.set_exception(e)
+
+    def _start_admission(self, job: _Job) -> None:
+        """Stage a long-prompt admission: its steps run on later loop
+        iterations, one at a time."""
+        try:
+            self._to_device(job)
+            cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len,
+                                         device=self.device)
+            self._admitting = _Admission(job=job, cache=cache,
+                                         n_chunks=max(1, -(-job.seq_len // self.prefill_chunk)))
+        except Exception as e:
+            if not job.future.done():
+                job.future.set_exception(e)
+
+    def _admit_step(self) -> None:
+        """Advance the staged admission by ONE device step: the embeddings,
+        then one prefill chunk; the last chunk samples the first token and
+        activates the sequence."""
+        adm = self._admitting
+        job = adm.job
+        try:
+            if adm.embeds is None:
+                adm.embeds = self._timed_admit_step("admit_embed", lambda: self._embed_fn(job))
+                return
+            tok = self._timed_admit_step("admit_chunk", lambda: self._chunk_prefill(adm))
+            adm.i += 1
+            if adm.i >= adm.n_chunks:
+                self._admitting = None
+                self._activate(job, tok, adm.cache.k, adm.cache.v)
+        except Exception as e:
+            self._admitting = None
+            if not job.future.done():
+                job.future.set_exception(e)
+
+    def _activate(self, job: _Job, tok0: int, ck, cv) -> None:
+        sid = self.server.add_from_cache(ck, cv, job.seq_len, tok0)
+        job.sid = sid
+        job.out = [tok0]
+        with self._lock:
+            self._stats["admitted"] += 1
+        if self._job_done_after(job, tok0):
+            self._finish(job)
+        else:
+            self._active[sid] = job
+
+    def _job_done_after(self, job: _Job, tok: int) -> bool:
+        s = job.sampling
+        if tok in s.eos_ids:
+            return True
+        if job.stopper is not None and job.stopper.should_stop(job.out):
+            return True
+        return len(job.out) >= s.max_new_tokens
+
+    def _finish(self, job: _Job) -> None:
+        if job.sid in self._active:
+            del self._active[job.sid]
+        self.server.finish(job.sid)
+        with self._lock:
+            self._stats["finished"] += 1
+        if not job.future.done():
+            job.future.set_result(list(job.out))
+
+    def _decode_chunk(self) -> None:
+        ids = sorted(self._active)
+        b = len(ids)
+        sampling: Dict[Any, Any] = {}
+        for sid in ids:
+            s = self._active[sid].sampling
+            sampling[sid] = (s.temperature, s.top_p, bool(s.greedy or s.temperature == 0.0))
+        sampling["uniforms"] = torch.stack(
+            [self._uniforms(self._active[sid], self.chunk) for sid in ids], dim=1)
+        toks = self.server.step_n(self.chunk, sampling=sampling)
+        emitted = 0
+        for sid, ts in toks.items():
+            job = self._active.get(sid)
+            if job is None:
+                continue
+            for t in ts:
+                job.out.append(int(t))
+                emitted += 1
+                if self._job_done_after(job, int(t)):
+                    self._finish(job)
+                    break
+        with self._lock:
+            self._stats["chunks"] += 1
+            self._stats["batch_sum"] += b
+            self._stats["slot_tokens"] += b * self.chunk
+            self._stats["emitted_tokens"] += emitted
+        self._trace_event("decode")

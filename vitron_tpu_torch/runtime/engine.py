@@ -98,36 +98,44 @@ class VitronEngine:
         self.generator = Generator(params, cfg, device=device)
         self.tokenizer = tokenizer
         self.conv_template = conv_template
+        # set by ServingPipeline(batched=True): chat decode co-batches with
+        # other in-flight requests through runtime/batching.py
+        self.batcher = None
 
-    def chat(self, user_message: str, media: Sequence[MediaItem] = (),
-             region_boxes: Optional[np.ndarray] = None,
-             history: Optional[List[Tuple[str, str]]] = None,
-             sampling: SamplingConfig = SamplingConfig(),
-             gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """One turn -> {"raw", "text", "module", "instructions", "region",
-        "tokens"}. Decode runs in device chunks: 128 tokens for int4
-        weights, 32 otherwise (as the JAX engine)."""
+    def plan_turn(self, user_message: str, media: Sequence[MediaItem] = (),
+                  history: Optional[List[Tuple[str, str]]] = None):
+        """The turn's prompt, tokenized and planned -> (plan, images, videos,
+        block_perm, stop string)."""
         conv = conv_templates[self.conv_template].copy()
         for u, a in history or []:
             conv.append_message(conv.roles[0], u)
             conv.append_message(conv.roles[1], a)
         conv.append_message(conv.roles[0], user_message)
         conv.append_message(conv.roles[1], None)
-        prompt = conv.get_prompt()
-
-        ids = tokenizer_image_region_token(prompt, self.tokenizer)
-        gen_ = self.generator
+        ids = tokenizer_image_region_token(conv.get_prompt(), self.tokenizer)
         plan, images, videos, perm = prepare_batch(
-            [ids], media, image_len=gen_.cfg.image_tower.num_patches)
-        stop_str = conv.sep if conv.sep2 is None else conv.sep2
+            [ids], media, image_len=self.generator.cfg.image_tower.num_patches)
+        return plan, images, videos, perm, conv.sep if conv.sep2 is None else conv.sep2
+
+    def chat(self, user_message: str, media: Sequence[MediaItem] = (),
+             region_boxes: Optional[np.ndarray] = None,
+             history: Optional[List[Tuple[str, str]]] = None,
+             sampling: SamplingConfig = SamplingConfig(),
+             gen: Optional[torch.Generator] = None,
+             decode_chunk: Optional[int] = None) -> Dict[str, Any]:
+        """One turn -> {"raw", "text", "module", "instructions", "region",
+        "tokens"}. Decode runs in device chunks (decode_chunk None: 128
+        tokens for int4 weights, 32 otherwise, as the JAX engine; 0: per
+        token), or on `self.batcher` when one is set."""
+        gen_ = self.generator
+        plan, images, videos, perm, stop_str = self.plan_turn(user_message, media, history)
         stopper = KeywordStopper([stop_str], self.tokenizer, prompt_len=0) if stop_str else None
-        decode_chunk = None if has_packed_int4(gen_.params) else 32
+        if decode_chunk is None and not has_packed_int4(gen_.params):
+            decode_chunk = 32
         out = gen_.generate(
-            plan,
-            images=images.to(gen_.device) if images is not None else None,
-            videos=videos.to(gen_.device) if videos is not None else None,
-            block_perm=perm, region_boxes=region_boxes, sampling=sampling, gen=gen,
-            stopper=stopper, decode_chunk=decode_chunk)[0]
+            plan, images=images, videos=videos, block_perm=perm, region_boxes=region_boxes,
+            sampling=sampling, gen=gen, stopper=stopper, decode_chunk=decode_chunk,
+            batcher=self.batcher)[0]
         text = self.tokenizer.decode(out, skip_special_tokens=True)
         if stop_str and text.endswith(stop_str):
             text = text[: -len(stop_str)].strip()

@@ -25,6 +25,7 @@ from vitron_tpu_torch.mm.sketch import mask_to_bbox
 from vitron_tpu_torch.mm.tokenization import preprocess_region
 from vitron_tpu_torch.runtime.engine import MediaItem, VitronEngine
 from vitron_tpu_torch.runtime.generation import SamplingConfig
+from vitron_tpu_torch.runtime.memory_plan import MemoryPlan, tree_bytes
 from vitron_tpu_torch.runtime.router import (BackendRegistry, TaskRequest, parse_region_boxes,
                                              route_model_output)
 
@@ -37,13 +38,26 @@ def _resize_linear(x, h: int, w: int) -> torch.Tensor:
 
 
 class VitronSystem:
-    def __init__(self, engine: VitronEngine):
+    def __init__(self, engine: VitronEngine, memory_plan: Optional[MemoryPlan] = None):
         self.engine = engine
         self.registry = BackendRegistry()
         # speech-to-text hook for audio-referred segmentation: any object
         # with .transcribe(audio) -> {"text": str}; none is ported yet
         self.asr = None
         self._seem_text_mask = None
+        # resident-weights placement ledger against the device's memory
+        # (the reference reloads backends from disk per request instead):
+        # by default the card's; off the card the caller passes a plan with
+        # its budget. A system without an engine (backends only) plans
+        # against the card when there is one.
+        gen = getattr(engine, "generator", None)
+        device = gen.device if gen is not None else torch.device(
+            "cuda" if torch.cuda.is_available() else "cpu")
+        self.memory_plan = memory_plan or MemoryPlan.for_device(device)
+        self.memory_plan.add("llm+towers", tree_bytes(gen.params) if gen is not None else 0)
+
+    def _track(self, name: str, params) -> None:
+        self.memory_plan.add(name, tree_bytes(params))
 
     def register_seem(self, seem_params, seem_cfg, tokenizer, compute_dtype: str = "float32"):
         """B image_segmentation, E video_tracking, and the mask half of C
@@ -165,6 +179,7 @@ class VitronSystem:
             return {"masks": masks, "overlay_frames": vz.masks_to_video_overlay(raw, masks)}
 
         self._seem_text_mask = text_mask
+        self._track("seem", seem_params)
         self.registry.register("B", handle_b)
         self.registry.register("E", handle_e)
 
@@ -239,6 +254,7 @@ class VitronSystem:
                                     inpaint_image=np.asarray(req.image), inpaint_keep_mask=keep)
             return {"image": img.cpu().numpy()}
 
+        self._track("gligen", pipeline.__dict__)
         self.registry.register("A", handle_a)
         self.registry.register("C", handle_c)
 
@@ -250,6 +266,7 @@ class VitronSystem:
             prompt = (req.instructions or [req.text])[0]
             return {"video": pipeline.generate(prompt).cpu().numpy()}
 
+        self._track("text2video", pipeline.__dict__)
         self.registry.register("D", handle_d)
 
     def register_image2video(self, pipeline):
@@ -263,6 +280,7 @@ class VitronSystem:
             prompt = (req.instructions or [req.text])[0]
             return {"video": pipeline.generate(np.asarray(req.image), prompt).cpu().numpy()}
 
+        self._track("image2video", pipeline.__dict__)
         self.registry.register("G", handle_g)
 
     def prepare(self, user_message: str, image: Optional[np.ndarray] = None,
