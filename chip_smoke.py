@@ -78,6 +78,25 @@ Phases (any failure exits non-zero and prints no `ok` line):
    replays at batch 1 and 4, the batcher's requests, the second HTTP
    request) is counted alone from zeroed counts and held to its exact
    launches; their sum is the kernels line's `serve` count.
+   Phases 6 and 6b run with VITRON_SPEC=0: they measure the plain decode.
+6c. speculative decode on the same system (`phase_spec`, VITRON_SPEC's
+   default probe policy and `speculative=True`), F = SPEC_FORWARDS verify
+   forwards a graph replay (`tools/spec_forwards.py` times other F): (a)
+   speculative=True over 256 tokens, whole and in 64-token segments (best
+   of two), (b) the default probe over 512 tokens (a plain chunk, then it
+   must upgrade), (c) a KeywordStopper request through VitronSystem.chat at
+   VITRON_SPEC=2 (segments) whose EOS is the plain stream's token first
+   seen last, (d) the same without the EOS and with
+   VITRON_SPEC_TPF_MIN=1000 (back to plain chunks), (e) phase 6's
+   128-token chat at the default policy beside VITRON_SPEC=0, three turns
+   each (the same tokens on the same 512-slot graph: the probe stays
+   plain); each stream against the graphed plain greedy stream (identical
+   or a near-tie, as in 6b); each measured run held to its exact launches
+   (225 B1 + 32 B2 a replayed verify forward, masked ones included; 225 B1
+   a plain chunk step; the prefill); tok/s, tokens per forward, forwards,
+   replays a segment; no segment emits nothing. Phase 3 holds B1 at M 5
+   and B2 at the 5-query window with its q_offset on the device over 512
+   and 1,024 slots.
 7. the chat path on the CPU and the card: a 2-layer full-width float32
    model, one prefill of the same request on both, last-position logits
    compared.
@@ -128,6 +147,17 @@ Phases (any failure exits non-zero and prints no `ok` line):
    non-constant frames; launches of all five kernels against the block plan
    x steps plus the VAE encode's and decode's, none of B9; request time, ms
    per CFG UNet call, VAE encode and decode ms, peak memory.
+15c. task F at full width (`phase_task_f`): the SD v1.5 UNet, a canny and a
+   depth ControlNet, DPT-hybrid, the SD VAE and CLIP-L text (float32, random
+   weights, zero leaves filled) and a synthetic atlas bundle (random IMLP
+   nets at the released NLA geometries, 16 frames of 448x768, 256^2
+   atlases); a fixed protocol reply routed to the port's `handle_f`: 3
+   keyframes, 20 DDIM steps, guidance 9, a fore and a back prompt; 16 uint8
+   frames; B2, B3 and B8 launches held to the plan's counts
+   (`task_f_plan`), with each distinct B2 (bf16), B3 and B8 (float32)
+   shape first held against its plain version (`phase_task_f_kernels`);
+   request seconds, ms a CFG ControlNet + UNet call; then one ControlNet +
+   UNet call on the CPU and the card at one level and 32x32 latents.
 16. the bf16 CFG video UNet step at bench.py's `bench_video_unet` shape
    ([2, 24, 40, 72, 4] latents, [2, 77, 1024] context):
    `video_unet_cfg_steps_per_s` and `video_unet_mfu` (the block plan's FLOP
@@ -176,10 +206,12 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -428,6 +460,13 @@ CHAT_FLASH_CASES = (
     ("staged-chunk-0", 256, 384, 32, 32, 0, 256),
     ("staged-chunk-1", 128, 384, 32, 32, 256, 313),
 )
+# the speculative verify window (spec_k + 1 = 5 queries) at a slot held on the
+# device, over a 512- and a 1,024-slot cache (name, S, T, N, KH, q_offset,
+# valid slots): B2 reads q_offset from a [1] int64 tensor, as in phase 6c
+SPEC_FLASH_CASES = (
+    ("verify-512", 5, 512, 32, 32, 400, 405),
+    ("verify-1024", 5, 1024, 32, 32, 900, 905),
+)
 GLIGEN_FLASH_SHAPES = ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80), (2, 1054, 8, 80),
                        (1, 4096, 1, 512))
 
@@ -439,24 +478,27 @@ def phase_kernels(torch, card: str):
     g = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     rows = {"int4": [], "flash": []}
-    for m in (1, 4, 8, 384):  # decode GEMV at batch 1, 4 and 8; the prefill GEMM
+    for m in (1, 4, 5, 8, 384):  # decode GEMV at batch 1, 4 and 8, the verify window; GEMM
         for k, n in INT4_SHAPES:
             rows["int4"].append(int4_row(torch, card, g, m, k, n, flush=flush))
         print_sums(f"B1 at M {m}", rows["int4"][-len(INT4_SHAPES):], card)
 
     b, d = 1, 128
-    for name, s_len, t_len, nh, kh, off, n_valid in CHAT_FLASH_CASES:
+    cases = [c + (False,) for c in CHAT_FLASH_CASES] + [c + (True,) for c in SPEC_FLASH_CASES]
+    for name, s_len, t_len, nh, kh, off, n_valid, on_device in cases:
         q = torch.randn((b, s_len, nh, d), generator=g, device=dev).to(torch.bfloat16)
         k = torch.randn((b, t_len, kh, d), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((b, t_len, kh, d), generator=g, device=dev).to(torch.bfloat16)
         mask = torch.zeros((b, t_len), dtype=torch.bool, device=dev)
         mask[:, :n_valid] = True
-        got = fa.flash_attention(q, k, v, kv_mask=mask, q_offset=off).float()
+        # the kernel's offset: a host int, or a [1] int64 tensor on the card
+        k_off = torch.tensor([off], device=dev) if on_device else off
+        got = fa.flash_attention(q, k, v, kv_mask=mask, q_offset=k_off).float()
         want = fa.flash_attention_plain(q, k, v, kv_mask=mask, q_offset=off).float()
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
         row_rel = flash_row_rel(got, want)
-        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, kv_mask=mask, q_offset=off))
+        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, kv_mask=mask, q_offset=k_off))
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, kv_mask=mask,
                                                                    q_offset=off))
         visible = fa._visible(b, s_len, t_len, dev, mask, off, True)[:, 0, 0]  # [B, S, T]
@@ -465,7 +507,8 @@ def phase_kernels(torch, card: str):
         r = dict(row(err, rel, ms, plain_ms, nbytes(q, k, v, mask, got.to(torch.bfloat16)),
                      flops, "bf16_tensor", lib_ms), b2=f"chat {name}")
         print(f"flash_attention {name} S={s_len} T={t_len} N={nh} K={kh} D={d} "
-              f"q_offset={off}: abs_err={err:.3e} rel_err={rel:.3e} row_rel_err={row_rel:.3e} "
+              f"q_offset={off}{' (on the device)' if on_device else ''}: "
+              f"abs_err={err:.3e} rel_err={rel:.3e} row_rel_err={row_rel:.3e} "
               f"kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s) plain "
               f"{plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
         check_flash(name, err, row_rel)
@@ -1255,8 +1298,6 @@ def phase_unet_cpu_vs_card(torch, card: str, cfg, dev):
     """One grounded CFG-batch UNet call on the CPU and on `dev`; at full width
     (320 channels, 8 heads, 768-wide context, 30 grounding tokens) but one
     level and 32x32 latents."""
-    import os
-
     from vitron_tpu_torch.kernels import flash_attention as fa
     from vitron_tpu_torch.models.diffusion import unet2d
     from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
@@ -1273,19 +1314,11 @@ def phase_unet_cpu_vs_card(torch, card: str, cfg, dev):
     print(f"unet cpu-vs-card: cpu forward {time.perf_counter() - t0:.1f} s", flush=True)
     p_dev, args = tree_map(lambda a: a.to(dev), params), [a.to(dev) for a in (x, t, ctx, objs)]
     want_flash = {"flash": unet_counts(cfg, 32, 30, 77)["flash_attention"], "einsum": 0}
-    for name, fmin in (("flash", None), ("einsum", str(1 << 30))):
-        saved = os.environ.get("VITRON_FLASH_MIN")
-        if fmin is not None:
-            os.environ["VITRON_FLASH_MIN"] = fmin
-        try:
+    for name, env in (("flash", {}), ("einsum", {"VITRON_FLASH_MIN": str(1 << 30)})):
+        with mock.patch.dict(os.environ, env):
             fa.launches = 0
             got = unet2d.forward(p_dev, cfg, *args, gate_scale=0.7).cpu()
             n_flash = fa.launches
-        finally:
-            if saved is None:
-                os.environ.pop("VITRON_FLASH_MIN", None)
-            else:
-                os.environ["VITRON_FLASH_MIN"] = saved
         rel = (got - want).abs().max().item() / want.abs().max().item()
         print(f"unet cpu-vs-card ({name} attention on the card, {n_flash} flash launches): "
               f"rel_err={rel:.3e} (limit {UNET_CPU_GPU_TOL[name]}), max |eps| "
@@ -2534,6 +2567,214 @@ def phase_serve(torch, card: str, system, params, cfg):
     return launches
 
 
+# ------------------------------------------------------------ speculative decode
+
+SPEC_NEW = 256              # (a) speculative=True: the whole budget one segment
+SPEC_PROBE_NEW = 512        # (b) the default probe: a plain chunk, then segments
+SPEC_STOPPER_NEW = 256      # (c) a KeywordStopper request with an EOS: segments of <= 64 tokens
+SPEC_FALLBACK_NEW = 256     # (d) VITRON_SPEC_TPF_MIN forced high: back to plain chunks
+SPEC_CHAT_TURNS = 3         # (e) the 128-token chat at each policy, in turns, best kept
+
+
+def spec_request(torch, system, image):
+    """The chat request's generate arguments (the image chat prompt with its
+    box, as phase 6 sends it) -> (plan, generate kwargs, the prefill's kwargs
+    for `stream_logits`)."""
+    gen_ = system.engine.generator
+    prepared = system.prepare(PROMPT, image=image, region_box=BBOX)
+    plan, images, videos, perm, _ = system.engine.plan_turn(prepared["msg"], prepared["media"])
+    kw = dict(images=images, videos=videos, block_perm=perm,
+              region_boxes=prepared["region_boxes"])
+    pre = {"region_boxes": gen_._t(prepared["region_boxes"], torch.float32),
+           "region_block_idx": gen_._t(plan.region_blocks, torch.int64)}
+    if perm is not None:
+        pre["block_perm"] = gen_._t(perm, torch.int64)
+    return plan, kw, pre
+
+
+def phase_spec(torch, card: str, system, params, cfg):
+    """Phase 6c: speculative decode on the chat system (Vicuna-7B int4, flash,
+    bf16 tower), F = `generation.SPEC_FORWARDS` verify forwards a graph
+    replay (chosen by `tools/spec_forwards.py`): (a) speculative=True over
+    SPEC_NEW tokens, whole and in 64-token segments, (b) the default probe
+    over SPEC_PROBE_NEW (a plain chunk, then it upgrades), (c) a
+    KeywordStopper request through `VitronSystem.chat` (VITRON_SPEC=2:
+    segments from the start) whose EOS is the plain stream's token first
+    seen last, (d) the same without the EOS and with VITRON_SPEC_TPF_MIN=1000
+    (back to plain chunks after 8 forwards), (e) the 128-token chat of phase
+    6 at the default policy beside VITRON_SPEC=0 (the probe stays plain on
+    the same 512-slot graph). Each stream against the graphed plain greedy
+    stream of the same request (identical, or a near-tie `check_divergence`
+    accepts); each measured run (after a first one that captures its
+    graphs) held to its exact launches: a prefill, 225 B1 a step of each
+    plain chunk replay and 225 B1 + 32 B2 a verify forward of each
+    speculative replay, masked forwards included; no segment emits
+    nothing."""
+    from vitron_tpu_torch.mm.tokenization import KeywordStopper
+    from vitron_tpu_torch.runtime import generation as gmod
+
+    gen_ = system.engine.generator
+    dev = torch.device("cuda")
+    f = gmod.SPEC_FORWARDS
+    per_forward, n_layers = 7 * cfg.llm.num_layers + 1, cfg.llm.num_layers
+    image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+    plan, kw, pre = spec_request(torch, system, image)
+    arrays = plan_arrays(plan)
+    chunk_calls = []
+    real_call = gmod._DecodeChunk.__call__
+
+    def counted_call(self, gen):
+        chunk_calls.append(self.n)
+        return real_call(self, gen)
+
+    gmod._DecodeChunk.__call__ = counted_call
+    counted = collections.Counter()
+    idle = {name: 0 for name, _, _ in _counters()}
+
+    def greedy(n, eos=()):
+        return gmod.SamplingConfig(greedy=True, max_new_tokens=n, eos_ids=eos)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run(n, **gkw):
+        return gen_.generate(plan, sampling=greedy(n), **kw, **gkw)[0]
+
+    def chat(sampling):
+        return system.chat(PROMPT, image=image, region_box=BBOX, sampling=sampling)
+
+    def expect(what):
+        """Hold the run's launches to the prefill, its plain chunk replays
+        and its speculative replays, and add them to the spec path's count."""
+        steps = sum(chunk_calls)
+        replays = sum(r for _, _, r in gen_.last_spec_segments)
+        want = {"int4_matmul": per_forward * (1 + steps + replays * f),
+                "flash_attention": n_layers * (1 + replays * f)}
+        got = expect_launches({**idle, **want}, f"spec {what}")
+        counted.update(got)
+        return replays
+
+    def measured(what, fn):
+        """fn() once to capture its graphs, then once counted and timed."""
+        fn()
+        chunk_calls.clear()
+        reset_launches()
+        out, t_req = timed(fn)
+        st = dict(gen_.last_spec_stats or {})
+        return out, t_req, st, expect(what)
+
+    def compare(what, got, want, slots):
+        return check_divergence(f"spec {what}", got, want, lambda j: stream_logits(
+            torch, gen_, arrays, kw["images"].to(dev), want, j, slots, **pre), card)
+
+    def slots():
+        return gen_.last_chunk.cache.k.shape[2]
+
+    try:
+        # plain graphed references (their graphs captured by the first call)
+        run(1, speculative=False)
+        t_prefill = timed(lambda: run(1, speculative=False))[1]
+        plain = {}
+        for n in sorted({SPEC_NEW, SPEC_PROBE_NEW}):
+            run(n, speculative=False)
+            plain[n], t_plain = timed(lambda: run(n, speculative=False))
+            print(f"spec: plain graphed greedy reference, {n} tokens in {t_plain:.3f} s "
+                  f"({(n - 1) / (t_plain - t_prefill):.1f} tok/s decode, {slots()}-slot cache) "
+                  f"[{card}]", flush=True)
+        # (a) whole, and the same budget in 64-token segments (a stopper that
+        # never fires), best of two
+        stop = KeywordStopper(["no such stop string"], system.engine.tokenizer, prompt_len=0)
+        run(SPEC_NEW, speculative=True, stopper=stop)  # captures the graph
+        seg_toks, seg_s = min((timed(lambda: run(SPEC_NEW, speculative=True, stopper=stop))
+                               for _ in range(2)), key=lambda r: r[1])
+        seg_replays = [r for _, _, r in gen_.last_spec_segments]
+        compare("(a) in segments", seg_toks, plain[SPEC_NEW], slots())
+        t_other = timed(lambda: run(SPEC_NEW, speculative=True))[1]
+        toks, t_req, st, replays = measured("(a)", lambda: run(SPEC_NEW, speculative=True))
+        t_req = min(t_req, t_other)
+        spec = gen_.last_chunk.spec[(4, 2, (), f)]
+        check(spec.run.launches == {("int4_matmul", "launches"): per_forward * f,
+                                    ("flash_attention", "launches"): n_layers * f},
+              f"spec graph F={f} recorded {spec.run.launches}")
+        print(f"spec (a) speculative=True F={f}: {len(toks)} tokens in {t_req:.3f} s "
+              f"({len(toks) / t_req:.1f} tok/s with the prefill, "
+              f"{(len(toks) - 1) / (t_req - t_prefill):.1f} decode), forwards "
+              f"{st['forwards']} (tokens per forward {st['emitted'] / st['forwards']:.2f}), "
+              f"replays {replays} ({replays * f} verify forwards run, "
+              f"{replays * f - st['forwards'] + 1} masked), segments (emitted, forwards, "
+              f"replays) {gen_.last_spec_segments}; in 64-token segments {seg_s:.3f} s "
+              f"(replays {seg_replays}) [{card}]", flush=True)
+        compare("(a)", toks, plain[SPEC_NEW], slots())
+        # (b) the default probe
+        with mock.patch.dict(os.environ, {"VITRON_SPEC": "1"}):
+            toks, t_req, st, replays = measured("(b) probe", lambda: run(SPEC_PROBE_NEW))
+        check(st["mode"] == "probe_spec", f"spec (b): the probe did not upgrade: {st}")
+        print(f"spec (b) probe: {len(toks)} tokens in {t_req:.3f} s ({len(toks) / t_req:.1f} "
+              f"tok/s), stats {st}, plain chunk replays {len(chunk_calls)}, spec replays "
+              f"{replays}, segments {gen_.last_spec_segments}, {slots()}-slot cache "
+              f"[{card}]", flush=True)
+        compare("(b) probe", toks, plain[SPEC_PROBE_NEW], slots())
+        # (c) a KeywordStopper request with an EOS, (d) the forced fallback
+        with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):
+            free = chat(greedy(SPEC_STOPPER_NEW))["reply"]["tokens"]
+        first = {}
+        for i, t in enumerate(free):
+            first.setdefault(t, i)
+        eos_at = max(first.values())
+        check(eos_at > 0, f"spec (c): the plain stream is one token repeated: {free[:8]}")
+        for what, n, eos, env in (("(c) stopper", SPEC_STOPPER_NEW, (free[eos_at],), {}),
+                                  ("(d) fallback", SPEC_FALLBACK_NEW, (),
+                                   {"VITRON_SPEC_TPF_MIN": "1000"})):
+            sampling = greedy(n, eos)
+            with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):
+                want = chat(sampling)["reply"]["tokens"]
+            with mock.patch.dict(os.environ, {"VITRON_SPEC": "2", **env}):
+                out, t_req, st, replays = measured(what, lambda: chat(sampling))
+            toks = out["reply"]["tokens"]
+            check(st["fell_back"] == (what == "(d) fallback"),
+                  f"spec {what}: fell_back {st['fell_back']}")
+            if eos:
+                check(want == free[:eos_at + 1], f"spec {what}: the plain stream with the "
+                      f"EOS {eos} is not the free one cut at {eos_at}")
+            print(f"spec {what}: {len(toks)} tokens in {t_req:.3f} s ({len(toks) / t_req:.1f} "
+                  f"tok/s), EOS {eos} (first seen at {eos_at if eos else None}), stats {st}, "
+                  f"plain chunk replays {len(chunk_calls)}, spec replays {replays}, segments "
+                  f"{gen_.last_spec_segments} [{card}]", flush=True)
+            compare(what, toks, want, slots())
+        # (e) phase 6's chat at the default policy beside VITRON_SPEC=0, in turns
+        chat_s, chat_toks, chat_slots = {"0": [], "1": []}, {}, {}
+        for turn in range(SPEC_CHAT_TURNS):
+            for mode in ("0", "1"):
+                with mock.patch.dict(os.environ, {"VITRON_SPEC": mode}):
+                    chunk_calls.clear()
+                    reset_launches()
+                    out, t_req = timed(lambda: chat(greedy(NEW_TOKENS)))
+                    if mode == "1" and turn == SPEC_CHAT_TURNS - 1:
+                        st = dict(gen_.last_spec_stats)
+                        expect("(e) default chat")
+                chat_s[mode].append(t_req)
+                chat_toks[mode], chat_slots[mode] = out["reply"]["tokens"], slots()
+        check(chat_toks["1"] == chat_toks["0"] and chat_slots["1"] == chat_slots["0"]
+              and st["mode"] == "probe_plain",
+              f"spec (e): the default chat differs from VITRON_SPEC=0: slots {chat_slots}, "
+              f"stats {st}")
+        print(f"spec (e) the {NEW_TOKENS}-token chat, best of {SPEC_CHAT_TURNS} in turns: "
+              f"default policy {min(chat_s['1']):.4f} s, VITRON_SPEC=0 {min(chat_s['0']):.4f} s "
+              f"(all {chat_s}), both on a {chat_slots['0']}-slot cache, stats {st} [{card}]",
+              flush=True)
+    finally:
+        gmod._DecodeChunk.__call__ = real_call
+    check(gen_.zero_emission_segments == 0,
+          f"spec: {gen_.zero_emission_segments} segments emitted nothing")
+    print(f"spec: zero-emission segments {gen_.zero_emission_segments}; path launches "
+          f"{dict(counted)} [{card}]", flush=True)
+    return dict(counted)
+
+
 HOST_BUDGET = 64 * 1024 ** 3  # the memory plan of a system on the host (no default there)
 
 
@@ -3131,6 +3372,330 @@ def phase_train_cpu_vs_card(torch, card: str):
             check(not bad, f"bf16 gradients outside {TRAIN_BF16_GRAD_LIMIT}: {bad}")
 
 
+# ------------------------------------------------------------ task F
+
+TASK_F_FRAMES = 16
+TASK_F_HW = (448, 768)  # LNA's 432x768 raised to the next multiple of 64 (ROADMAP C12)
+TASK_F_ATLAS = 256      # NLAAtlasStore's default atlas_res
+TASK_F_STEPS = 20  # handle_f edits with the editor's default DDIM steps, as the JAX handler
+TASK_F_REPLY = ("<module>F</module><instruction>a red kite with long ribbons</instruction>"
+                "<instruction>a snowy mountain valley at dusk</instruction>")
+TASK_F_KEYFRAMES = 3
+
+
+def sd_plan_sites(ucfg, lh: int, lw: int, batch: int, n_ctx: int, part: str):
+    """The kernel sites of one SD UNet call ("unet") or ControlNet call
+    ("control": the input blocks and the middle) on [batch, lh, lw, C]
+    latents, from the block plan: B2 at each attention site whose query and
+    key lengths reach VITRON_FLASH_MIN ((B, S, heads, D): self-attention;
+    cross-attention's n_ctx keys stay on the einsum path below it), B3
+    ((M, C)) in each transformer, B8 ([B, R, C] -> count: twice a ResNet,
+    once a transformer, once at the UNet's output)."""
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
+    from vitron_tpu_torch.models.diffusion.unet2d import block_plan
+
+    fmin = _flash_min()
+    flash, geglu, gn = [], [], collections.Counter()
+    h, w = lh, lw
+    input_plan, middle_plan, output_plan = block_plan(ucfg)
+    plan = input_plan + [middle_plan] + (output_plan if part == "unet" else [])
+    for entries in plan:
+        for e in entries:
+            if e[0] == "down":
+                h, w = (h + 1) // 2, (w + 1) // 2
+            elif e[0] == "up":
+                h, w = 2 * h, 2 * w
+            elif e[0] == "res":
+                gn[(batch, h * w, e[1])] += 1
+                gn[(batch, h * w, e[2])] += 1
+            elif e[0] == "attn":
+                n, ch = h * w, e[1]
+                gn[(batch, n, ch)] += 1
+                for _ in range(ucfg.transformer_depth):
+                    flash += [(batch, n, ucfg.num_heads, ch // ucfg.num_heads)] * (
+                        int(n >= fmin) + int(n >= fmin and n_ctx >= fmin))
+                    geglu.append((batch * n, ch))
+    if part == "unet":
+        gn[(batch, lh * lw, ucfg.model_channels)] += 1
+    return {"flash": flash, "geglu": geglu, "gn": gn}
+
+
+def task_f_plan(editor, n_ctx: int):
+    """Every kernel site of one task-F request, with its count: the
+    foreground's keyframes at TASK_F_HW (the first TASK_F_STEPS DDIM steps
+    from noise, no encode; the others min(int(0.9 S), S - 1) + 1 steps after
+    a VAE encode), the background at the atlas' size (the same, after an
+    encode), each step one CFG ControlNet + UNet call, each edit one VAE
+    decode. -> {"flash": Counter, "geglu": Counter, "gn": Counter}."""
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
+
+    ucfg, vcfg = editor.unet_cfg, editor.vae_cfg
+    ds = 2 ** (len(vcfg.channel_mult) - 1)
+    img_steps = min(int(0.9 * TASK_F_STEPS), TASK_F_STEPS - 1) + 1
+    edits = [(TASK_F_HW, TASK_F_STEPS, False)] + [(TASK_F_HW, img_steps, True)] * (
+        TASK_F_KEYFRAMES - 1) + [((TASK_F_ATLAS, TASK_F_ATLAS), img_steps, True)]
+    out = {"flash": collections.Counter(), "geglu": collections.Counter(),
+           "gn": collections.Counter()}
+    for (h, w), steps, encode in edits:
+        lh, lw = h // ds, w // ds
+        for part in ("control", "unet"):
+            sites = sd_plan_sites(ucfg, lh, lw, 2, n_ctx, part)
+            for k in ("flash", "geglu"):
+                for s in sites[k]:
+                    out[k][s] += steps
+            for s, c in sites["gn"].items():
+                out["gn"][s] += steps * c
+        vae_flash = [(1, lh * lw, 1, 512)] if lh * lw >= _flash_min() else []
+        for s in vae_flash * (1 + int(encode)):
+            out["flash"][s] += 1
+        out["gn"].update(vae_decode_gn_shapes(vcfg, lh, lw, 1))
+        if encode:
+            out["gn"].update(vae_encode_gn_shapes(vcfg, h, w, 1))
+    return out
+
+
+def phase_task_f_kernels(torch, card: str, plan) -> dict:
+    """Task F's kernels against their plain versions at every distinct shape
+    of its request (`task_f_plan`): B2 in bf16 (as `layers._mha` calls it,
+    non-causal, shift 0) beside SDPA, B3 and B8 in float32 (the request's
+    type) beside `torch.var_mean` for B8. D 160 (the UNet's third level)
+    does not reach VITRON_FLASH_MIN at these latents, so it has no row."""
+    from vitron_tpu_torch.kernels import flash_attention as fa
+    from vitron_tpu_torch.kernels import geglu_ff as gf
+    from vitron_tpu_torch.kernels import group_norm as gn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = {"flash_f": [], "geglu_f": [], "gn_f": []}
+    call = dict(causal=False, softmax_shift=0.0)
+    for (b, s_len, nh, d), count in sorted(plan["flash"].items()):
+        q, k, v = (torch.randn((b, s_len, nh, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        got = fa.flash_attention(q, k, v, **call)
+        want = fa.flash_attention_plain(q, k, v, **call)
+        err, rel = rel_err(got, want)
+        row_rel = flash_row_rel(got, want)
+        ms = graph_ms(torch, lambda: fa.flash_attention(q, k, v, **call), calls=3)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **call), iters=3)
+        flops = 4 * b * nh * s_len * s_len * d
+        r = dict(row(err, rel, ms, plain_ms, nbytes(q, k, v, got), flops, "bf16_tensor",
+                     sdpa_ms(torch, q, k, v)), b2=f"task F [{b},{s_len},{nh},{d}]")
+        print(f"flash_attention task F [{b},{s_len},{nh},{d}] bf16 non-causal shift 0 "
+              f"(x{count} a request): abs_err={err:.3e} rel_err={rel:.3e} row_rel_err="
+              f"{row_rel:.3e} kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"graph-replayed) plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+        check_flash(f"task F D={d} S={s_len}", err, row_rel)
+        rows["flash_f"].append(r)
+        del q, k, v, got, want
+    for (m, c), count in sorted(plan["geglu"].items()):
+        fh = 4 * c
+        args = [torch.randn(s_, generator=g, device=dev) * sc for s_, sc in (
+            ((m, c), 1.0), ((c, 2 * fh), c ** -0.5), ((2 * fh,), 0.1), ((fh, c), fh ** -0.5),
+            ((c,), 0.1))]
+        got, want = gf.geglu_ff(*args), gf.geglu_ff_plain(*args)
+        err, rel = rel_err(got, want)
+        ms = graph_ms(torch, lambda: gf.geglu_ff(*args), calls=3)
+        plain_ms = cuda_ms(torch, lambda: gf.geglu_ff_plain(*args), iters=3)
+        flops = 6 * m * c * fh
+        r = row(err, rel, ms, plain_ms, nbytes(*args, got), flops, "fp32")
+        print(f"geglu_ff task F M={m} C={c} F={fh} float32 (x{count} a request): rel_err="
+              f"{rel:.3e} kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"graph-replayed) plain {plain_ms:.4f} ms {bound_text(r)} [{card}]", flush=True)
+        check(rel <= GEGLU_TOL["float32"], f"geglu_ff task F M={m} C={c} rel err {rel}")
+        rows["geglu_f"].append(r)
+        del args, got, want
+    for shape, count in sorted(plan["gn"].items()):
+        x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        got, again, want = gn.group_norm_sums(x), gn.group_norm_sums(x), gn.group_norm_sums_plain(x)
+        err, rel = rel_err(got, want)
+        ms = graph_ms(torch, lambda: gn.group_norm_sums(x), calls=5)
+        plain_ms = cuda_ms(torch, lambda: gn.group_norm_sums_plain(x), iters=3, warmup=1)
+        lib_ms = graph_ms(torch, lambda: torch.var_mean(x, dim=1, correction=0), calls=5)
+        r = row(err, rel, ms, plain_ms, nbytes(x, got), 3 * x.numel(), "fp32", lib_ms)
+        print(f"group_norm_sums task F {list(shape)} float32 (x{count} a request): rel_err="
+              f"{rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms, same bits twice="
+              f"{bool(torch.equal(got, again))} {bound_text(r)} (kernel and library "
+              f"graph-replayed) [{card}]", flush=True)
+        check(rel <= GN_TOL and bool(torch.equal(got, again)),
+              f"group_norm_sums task F {list(shape)}: rel err {rel} or not deterministic")
+        rows["gn_f"].append(r)
+        del x, got, again, want
+    for what, key in (("B2", "flash_f"), ("B3", "geglu_f"), ("B8", "gn_f")):
+        print_sums(f"task F {what}", rows[key], card)
+    return rows
+
+
+def build_task_f(torch, device, seed: int):
+    """Task F's editor at full width, float32, random weights with every zero
+    leaf filled: the SD v1.5 UNet (no grounding), a canny and a depth
+    ControlNet (lllyasviel/ControlNet control_sd15_canny / control_sd15_depth
+    geometry), DPT-hybrid (MiDaS v3), the SD VAE and CLIP-L text; and a
+    synthetic atlas bundle of TASK_F_FRAMES frames at TASK_F_HW from random
+    IMLP nets at the released NLA geometries (fg 6, bg 4, alpha 8 layers with
+    5 frequencies, atlas 8 layers with 10 frequencies and skips at 4 and 7;
+    256 wide), the atlases evaluated on a TASK_F_ATLAS grid."""
+    from vitron_tpu_torch.models.diffusion import clip_text, controlnet, depth, unet2d, vae
+    from vitron_tpu_torch.models.diffusion import stablevideo as sv
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    ucfg, vcfg = unet2d.UNetConfig.sd_v1(), vae.VAEConfig.sd()
+    tcfg, dcfg = clip_text.TextConfig.clip_l(), depth.DPTConfig.dpt_hybrid()
+    unet = fill_zero_leaves(unet2d.init_params(g, ucfg, device, grounding=False), g)
+    canny = fill_zero_leaves(controlnet.init_params(g, ucfg, device), g)
+    depth_ctrl = fill_zero_leaves(controlnet.init_params(g, ucfg, device), g)
+    vae_p = fill_zero_leaves(vae.init_params(g, vcfg, device), g)
+    text = fill_zero_leaves(clip_text.init_params(g, tcfg, device), g)
+    dpt = fill_zero_leaves(depth.init_params(g, dcfg, device), g)
+    editor = sv.StableVideoEditor(ucfg, unet, canny, vcfg, vae_p, tcfg, text,
+                                  tokenizer=StubClipTokenizer(tcfg.vocab_size),
+                                  depth_control_params=depth_ctrl, depth_annotator=(dpt, dcfg))
+    geoms = {"fg": sv.IMLPConfig(input_dim=3, output_dim=2, num_layers=6, positional_dim=0,
+                                 skip_layers=()),
+             "bg": sv.IMLPConfig(input_dim=3, output_dim=2, num_layers=4, positional_dim=0,
+                                 skip_layers=()),
+             "alpha": sv.IMLPConfig(input_dim=3, output_dim=1, num_layers=8, positional_dim=5,
+                                    skip_layers=()),
+             "atlas": sv.IMLPConfig(input_dim=2, output_dim=3, num_layers=8,
+                                    positional_dim=10, skip_layers=(4, 7))}
+    nets = {k: sv.imlp_init(g, c, device) for k, c in geoms.items()}
+    fg_uv, bg_uv, alpha = sv.atlas_uvs(nets["fg"], nets["bg"], nets["alpha"], geoms,
+                                       TASK_F_FRAMES, *TASK_F_HW)
+    r = torch.linspace(-1, 1, TASK_F_ATLAS, device=device)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    colors = torch.clamp(0.5 * (sv.imlp_forward(nets["atlas"], geoms["atlas"],
+                                                torch.stack([gx, gy], -1)) + 1.0), 0, 1)
+    bundle = {"fg_atlas": colors.cpu().numpy(), "bg_atlas": colors.cpu().numpy(),
+              "fg_uv": fg_uv.cpu().numpy(), "bg_uv": bg_uv.cpu().numpy(),
+              "alpha": alpha.cpu().numpy()}
+    return editor, bundle
+
+
+def phase_task_f(torch, card: str, editor, bundle):
+    """Phase 15c: one routed task-F request at full width (float32, as the
+    JAX default): TASK_F_KEYFRAMES keyframes, TASK_F_STEPS DDIM steps,
+    guidance 9, a fore and a back prompt, the background through the depth
+    ControlNet and DPT-hybrid; 16 uint8 frames; B2, B3 and B8 launches held
+    to `task_f_plan`'s counts; request seconds, ms a CFG ControlNet + UNet
+    call at the keyframes' latents, peak memory."""
+    from vitron_tpu_torch.models.diffusion import clip_text, controlnet
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    dev = torch.device("cuda")
+    system = VitronSystem(None)
+    system.register_video_editor(editor, atlas_provider=lambda video, extra: bundle,
+                                 num_keyframes=TASK_F_KEYFRAMES)
+    plan = task_f_plan(editor, editor.text_cfg.max_length)
+    want = {"flash_attention": sum(plan["flash"].values()),
+            "geglu_ff": sum(plan["geglu"].values()),
+            "group_norm_sums": sum(plan["gn"].values())}
+    video = np.zeros((TASK_F_FRAMES,) + TASK_F_HW + (3,), np.uint8)
+    torch.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, t_req = timed_route(torch, system, TASK_F_REPLY, video=video)
+    launches = expect_launches(want, "task F")
+    peak = torch.cuda.max_memory_allocated()
+    check(out["status"] == "ok" and out["task"] == "video_editing",
+          f"task F: status {out['status']}, task {out.get('task')}")
+    frames = out["video"]
+    check(frames.shape == (TASK_F_FRAMES,) + TASK_F_HW + (3,) and frames.dtype == np.uint8,
+          f"task F frames {frames.shape} {frames.dtype}")
+    check(int(frames.max()) != int(frames.min()), "task F: the frames are constant")
+    ds = 8
+    lh, lw = TASK_F_HW[0] // ds, TASK_F_HW[1] // ds
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((2, lh, lw, 4), generator=g, device=dev)
+    hint = torch.rand((2,) + TASK_F_HW + (3,), generator=g, device=dev)
+    ids = torch.as_tensor(editor.tokenizer(["a", ""], max_length=editor.text_cfg.max_length)
+                          ["input_ids"], device=dev)
+    ctx = clip_text.encode(editor.text_params, editor.text_cfg, ids)
+    t = torch.full((2,), 501, device=dev)
+
+    def cfg_call():
+        ctrl = controlnet.control_residuals(editor.control_params, editor.unet_cfg, x, hint, t,
+                                            ctx)
+        return controlnet.controlled_forward(editor.unet_params, editor.unet_cfg, x, t, ctx, ctrl)
+
+    call_ms = cuda_ms(torch, cfg_call, iters=5, warmup=1)
+    # the request's other parts, each timed alone at its request shapes
+    from vitron_tpu_torch.models.diffusion import stablevideo as sv
+    from vitron_tpu_torch.models.diffusion import vae
+
+    img = torch.rand((1,) + TASK_F_HW + (3,), generator=g, device=dev) * 2 - 1
+    parts = {"VAE encode": cuda_ms(torch, lambda: vae.encode(editor.vae_params,
+                                                             editor.vae_cfg, img), iters=3),
+             "VAE decode": cuda_ms(torch, lambda: vae.decode(editor.vae_params,
+                                                             editor.vae_cfg, x[:1]), iters=3)}
+    atlas_u8 = (np.asarray(bundle["bg_atlas"]) * 255).astype(np.uint8)
+    kf = np.random.RandomState(14).rand(*TASK_F_HW, 3).astype(np.float32)
+    for name, fn in (("DPT-hybrid hint", lambda: sv.depth_hint(*editor.depth_annotator,
+                                                               atlas_u8)),
+                     ("canny hint (host)", lambda: sv.canny_hint((kf * 255).astype(np.uint8))),
+                     ("griddata scatter (host)", lambda: sv.scatter_to_atlas(
+                         kf, bundle["fg_uv"][0], (TASK_F_ATLAS, TASK_F_ATLAS)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+    print("task F parts, ms each: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f" (a request: {TASK_F_KEYFRAMES} scatters and canny hints, "
+          f"{TASK_F_KEYFRAMES} decodes and {TASK_F_KEYFRAMES - 1} encodes at this size, one "
+          f"decode and one encode at the atlas', one DPT hint) "
+          f"[{card}]", flush=True)
+    calls = TASK_F_STEPS + (TASK_F_KEYFRAMES - 1) * (min(int(0.9 * TASK_F_STEPS),
+                                                         TASK_F_STEPS - 1) + 1)
+    print(f"task F: request {t_req:.3f} s ({TASK_F_FRAMES} frames of {TASK_F_HW[0]}x"
+          f"{TASK_F_HW[1]}, {TASK_F_KEYFRAMES} keyframes, {TASK_F_STEPS} DDIM steps; "
+          f"{calls} CFG ControlNet + UNet calls at {lh}x{lw} latents, {call_ms:.2f} ms each = "
+          f"{calls * call_ms / 1e3:.3f} s, the background's at 32x32 and the rest "
+          f"{t_req - calls * call_ms / 1e3:.3f} s), frames mean {frames.mean():.2f} std "
+          f"{frames.std():.2f}, peak memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    return launches
+
+
+def phase_controlnet_cpu_vs_card(torch, card: str):
+    """One CFG-batch ControlNet + controlled UNet call on the CPU and on the
+    card, float32, at the real widths (320 channels, 8 heads, 768-wide
+    context) but one level and 32x32 latents (1,024 tokens: the card's
+    self-attention takes B2), with flash and with einsum attention."""
+    from vitron_tpu_torch.models.diffusion import controlnet, unet2d
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    cfg = unet2d.UNetConfig.sd_v1(channel_mult=(1,), num_res_blocks=1, attention_resolutions=(1,))
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    g = torch.Generator().manual_seed(13)
+    unet = fill_zero_leaves(unet2d.init_params(g, cfg, cpu, grounding=False), g)
+    ctrl = fill_zero_leaves(controlnet.init_params(g, cfg, cpu), g)
+    x = torch.randn((2, 32, 32, 4), generator=g)
+    hint = torch.rand((2, 256, 256, 3), generator=g)
+    t = torch.full((2,), 501)
+    ctx = torch.randn((2, 77, cfg.context_dim), generator=g)
+
+    def call(u, c, *a):
+        return controlnet.controlled_forward(u, cfg, a[0], a[2], a[3], controlnet.control_residuals(
+            c, cfg, *a))
+
+    want = call(unet, ctrl, x, hint, t, ctx)
+    u_dev, c_dev = tree_map(lambda a: a.to(dev), unet), tree_map(lambda a: a.to(dev), ctrl)
+    args = [a.to(dev) for a in (x, hint, t, ctx)]
+    for name, env in (("flash", {}), ("einsum", {"VITRON_FLASH_MIN": str(1 << 30)})):
+        with mock.patch.dict(os.environ, env):
+            reset_launches()
+            got = call(u_dev, c_dev, *args).cpu()
+            n_flash = read_launches()["flash_attention"]
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        expect_n = sum(len(sd_plan_sites(cfg, 32, 32, 2, 77, part)["flash"])
+                       for part in ("control", "unet")) if name == "flash" else 0
+        print(f"controlnet cpu-vs-card ({name} attention on the card, {n_flash} flash "
+              f"launches): rel_err={rel:.3e} (limit {UNET_CPU_GPU_TOL[name]}) [{card}]",
+              flush=True)
+        check(n_flash == expect_n, f"controlnet cpu-vs-card: {n_flash} flash launches, "
+              f"expected {expect_n}")
+        check(rel <= UNET_CPU_GPU_TOL[name], f"controlnet CPU and card disagree ({name}): {rel}")
+
+
 def main() -> int:
     card = nvidia_smi_line()
     print(card, flush=True)
@@ -3163,8 +3728,10 @@ def main() -> int:
         rows.update(phase_conv3x3(torch, card))
         rows.update(phase_i2v_kernels(torch, card))
         chat_system = build_chat_system(torch)
-        chat = phase_slice(torch, card, *chat_system)
-        serve = phase_serve(torch, card, *chat_system)
+        with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # 6 and 6b: the plain decode
+            chat = phase_slice(torch, card, *chat_system)
+            serve = phase_serve(torch, card, *chat_system)
+        spec = phase_spec(torch, card, *chat_system)
         del chat_system
         torch.cuda.empty_cache()
         phase_cpu_vs_card(torch, card)
@@ -3224,6 +3791,19 @@ def main() -> int:
         task_g = phase_task_g(torch, card, pipe)
         del pipe
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        editor, bundle = build_task_f(torch, dev, seed=0)
+        torch.cuda.synchronize()
+        print(f"task F: SD v1.5 UNet, canny and depth ControlNets, DPT-hybrid, SD VAE, CLIP-L "
+              f"text (float32) and IMLP atlas nets, random weights, and the atlas bundle "
+              f"({TASK_F_FRAMES} frames of {TASK_F_HW[0]}x{TASK_F_HW[1]}) built on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rows.update(phase_task_f_kernels(torch, card,
+                                         task_f_plan(editor, editor.text_cfg.max_length)))
+        task_f = phase_task_f(torch, card, editor, bundle)
+        del editor, bundle
+        torch.cuda.empty_cache()
+        phase_controlnet_cpu_vs_card(torch, card)
         phase_video_unet_bf16(torch, card, dev)
         phase_video_cpu_vs_card(torch, card)
         phase_i2v_cpu_vs_card(torch, card)
@@ -3249,15 +3829,17 @@ def main() -> int:
                 "ms_is": f"sum over the {len(r)} main-path shapes above"}
 
     def paths(name):
-        return {"chat": chat[name], "serve": serve[name], "task_a": task_a[name],
+        return {"chat": chat[name], "serve": serve[name], "spec": spec[name],
+                "task_a": task_a[name], "task_f": task_f[name],
                 "task_c": task_c[name],
                 "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)
-    rows["geglu"] += rows.pop("geglu_video") + rows.pop("geglu_video_i2v")
-    rows["gn"] += rows.pop("gn_video") + rows.pop("gn_video_i2v")
+    rows["flash"] += rows.pop("flash_f")
+    rows["geglu"] += rows.pop("geglu_video") + rows.pop("geglu_video_i2v") + rows.pop("geglu_f")
+    rows["gn"] += rows.pop("gn_video") + rows.pop("gn_video_i2v") + rows.pop("gn_f")
     rows["tconv"] += rows.pop("tconv_i2v")
     rows["tattn"] += rows.pop("tattn_i2v")
     print(json.dumps({"kernels": [

@@ -1,7 +1,8 @@
 """The port stands alone: no module of `vitron_tpu_torch/` and nothing in
-`chip_smoke.py` imports `vitron_tpu` (the JAX package) or `jax`, at module
-level or inside a function; every port module imports with both made
-unimportable; and the host modules the port keeps its own copies of
+`chip_smoke.py` imports `vitron_tpu` (the JAX package), `jax` or `cv2`
+(OpenCV, which the card's machine lacks: the port carries its own Canny),
+at module level or inside a function; every port module imports with the
+three made unimportable; and the host modules the port keeps its own copies of
 (constants, conversation templates, protocol, tokenization, sketch, the
 splice planner, the router, moderation, the program-cache telemetry) agree
 with their JAX-package originals. The copies that keep the original's text
@@ -43,7 +44,7 @@ def _imported_modules(path: pathlib.Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "vitron_tpu")
+    return top in ("jax", "jaxlib", "vitron_tpu", "cv2")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -60,15 +61,21 @@ def test_the_scan_sees_function_level_imports(tmp_path):
     assert [n for _, n in _imported_modules(f) if _forbidden(n)] == ["vitron_tpu.mm", "jax.numpy"]
 
 
+def test_the_scan_sees_opencv(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def canny(x):\n    import cv2\n    return cv2.Canny(x, 100, 200)\n")
+    assert [n for _, n in _imported_modules(f) if _forbidden(n)] == ["cv2"]
+
+
 def test_every_port_module_imports_without_jax():
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                      for p in (REPO / "vitron_tpu_torch").rglob("*.py"))
     modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
     script = ("import importlib, sys\n"
-              "sys.modules['vitron_tpu'] = sys.modules['jax'] = None\n"
+              "sys.modules['vitron_tpu'] = sys.modules['jax'] = sys.modules['cv2'] = None\n"
               f"for m in {modules!r}:\n"
               "    importlib.import_module(m)\n"
-              "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'vitron_tpu')\n"
+              "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'vitron_tpu', 'cv2')\n"
               "       and sys.modules[m] is not None]\n"
               "assert not bad, bad\n"
               "print('ok', len(" + repr(modules) + "))\n")

@@ -131,8 +131,11 @@ def test_eos_and_sampling(tiny_jax):
     a, b = (g.generate(plan, images=torch.from_numpy(px), region_boxes=boxes, sampling=hot,
                        gen=torch.Generator().manual_seed(7))[0] for _ in range(2))
     assert a == b and len(a) == 8
-    with pytest.raises(NotImplementedError, match="C1"):
-        g.generate(plan, images=torch.from_numpy(px), region_boxes=boxes, speculative=True)
+    # speculation is ported: speculative=True on a greedy request gives the
+    # greedy tokens and records its stats
+    spec = g.generate(plan, images=torch.from_numpy(px), region_boxes=boxes, speculative=True,
+                      sampling=tgen.SamplingConfig(greedy=True, max_new_tokens=8, eos_ids=()))
+    assert spec[0] == greedy and g.last_spec_stats["emitted"] == 8
 
 
 def test_system_chat_matches_jax(tiny_jax, monkeypatch):

@@ -7,6 +7,11 @@
 // Semantics, in key-slot space (JAX layout: q [B,S,N,D], k/v [B,T,KH,D]):
 //   logit[b,n,i,j] = round(q[b,i,n] * scale) . k[b,j,n/groups]
 //   visible iff (!causal || q_offset + i >= j) && kv_mask[b,j] && j < T
+// q_offset is the host int plus, when q_offset_dev is not null, the int64
+// the device holds there (the TPU kernel's scalar-prefetch offset,
+// off_ref[0] :111, :240): a CUDA graph then replays a cached window whose
+// slot moves with the data. Each block reads it once, before the causal
+// cut of its key tiles.
 // with an online softmax in float32 (running max, sum and accumulator) and
 // the TPU kernel's finalize out = acc / max(l, 1e-30), so a query row that
 // sees no valid key comes out as zeros. softmax_shift replaces the running
@@ -119,8 +124,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                  float* __restrict__ out, float* __restrict__ lse, int S, int Tk, int N, int KH,
-                 int q_offset, float scale, int causal, int use_shift, float shift) {
+                 int q_offset_host, const long long* __restrict__ q_offset_dev, float scale,
+                 int causal, int use_shift, float shift) {
   constexpr int BQ = kThreads / TPR;  // query rows per block
+  const int q_offset = q_offset_host + (q_offset_dev != nullptr ? (int)*q_offset_dev : 0);
   constexpr int KPT = BKT / TPR;      // keys scored per thread per tile
   constexpr int DQ = D / TPR;         // output dims per thread
   constexpr int DP = D + 1;
@@ -226,8 +233,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, int TPR = 4, int BKT = 64>
 int launch_f32(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
-               float* lse, int B, int S, int Tk, int N, int KH, int q_offset, float scale,
-               int causal, int use_shift, float shift, cudaStream_t stream) {
+               float* lse, int B, int S, int Tk, int N, int KH, int q_offset,
+               const long long* q_offset_dev, float scale, int causal, int use_shift, float shift,
+               cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D, TPR, BKT>();
   constexpr int BQ = kThreads / TPR;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, TPR, BKT>,
@@ -237,7 +245,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* kv_mask,
   flash_fwd_kernel<D, TPR, BKT><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(kv_mask), static_cast<float*>(out), lse, S, Tk, N, KH,
-      q_offset, scale, causal, use_shift, shift);
+      q_offset, q_offset_dev, scale, causal, use_shift, shift);
   return (int)cudaGetLastError();
 }
 
@@ -251,10 +259,18 @@ struct Args {
   __nv_bfloat16* out;
   float* lse;              // [B, N, S] or null
   int S, Tk, N, KH, q_offset;
+  const long long* q_offset_dev;  // added to q_offset when not null
   float scale;
   int causal, use_shift;
   float shift;
 };
+
+// the launch's Args with the device-held offset added to q_offset
+__device__ __forceinline__ Args with_offset(const Args& in) {
+  Args a = in;
+  if (a.q_offset_dev != nullptr) a.q_offset += (int)*a.q_offset_dev;
+  return a;
+}
 
 // 1 where key slot t exists and kv_mask lets it be seen
 __device__ __forceinline__ uint8_t slot_ok(const Args& a, int b, int t) {
@@ -356,7 +372,8 @@ struct Tile {
 
 template <int D, int WARPS, int MT, int BKT>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_fwd_mma_kernel(const Args a) {
+flash_fwd_mma_kernel(const Args args) {
+  const Args a = with_offset(args);
   using L = Tile<D, WARPS, MT, BKT>;
   constexpr int DP = L::DP, P = L::P, BQ = L::BQ, THREADS = L::THREADS;
   constexpr int KS = DP / 16;  // k-steps of Q K^T
@@ -519,7 +536,8 @@ constexpr size_t k512Bytes = sizeof(__nv_bfloat16) * ((size_t)k512Q * k512P +
                                                       (size_t)k512Q * k512PP) +
                              sizeof(float) * 5 * k512Q + 2 * k512K;
 
-__global__ void __launch_bounds__(256, 1) flash_fwd_mma512_kernel(const Args a) {
+__global__ void __launch_bounds__(256, 1) flash_fwd_mma512_kernel(const Args args) {
+  const Args a = with_offset(args);
   constexpr int D = 512, BQ = k512Q, BKT = k512K, P = k512P, PP = k512PP, THREADS = 256;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [BQ][P], scaled
@@ -704,35 +722,37 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 }  // namespace
 
 // kv_mask is a [B, T] bool (one byte per slot) or null; lse a [B, N, S]
-// float32 output or null. D must be one of 40, 64, 80, 128, 160, 512 and N a
+// float32 output or null; q_offset_dev a device int64 added to q_offset,
+// or null. D must be one of 40, 64, 80, 128, 160, 512 and N a
 // multiple of KH; bf16 q, k and v 16-byte aligned. Returns
 // cudaGetLastError() after the launch.
 extern "C" int vt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* kv_mask, void* out, void* lse, int B, int S,
-                                      int Tk, int N, int KH, int D, int q_offset, float scale,
-                                      int causal, int use_shift, float shift, int is_bf16,
-                                      void* stream) {
+                                      int Tk, int N, int KH, int D, int q_offset,
+                                      const void* q_offset_dev, float scale, int causal,
+                                      int use_shift, float shift, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* off = static_cast<const long long*>(q_offset_dev);
   float* l = static_cast<float*>(lse);
   if (!is_bf16) {
     switch (D) {
       case 40:
-        return launch_f32<40>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, scale, causal,
-                              use_shift, shift, st);
+        return launch_f32<40>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off, scale,
+                              causal, use_shift, shift, st);
       case 64:
-        return launch_f32<64>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, scale, causal,
-                              use_shift, shift, st);
+        return launch_f32<64>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off, scale,
+                              causal, use_shift, shift, st);
       case 80:
-        return launch_f32<80>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, scale, causal,
-                              use_shift, shift, st);
+        return launch_f32<80>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off, scale,
+                              causal, use_shift, shift, st);
       case 128:
-        return launch_f32<128>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, scale,
+        return launch_f32<128>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off, scale,
                                causal, use_shift, shift, st);
       case 160:
-        return launch_f32<160>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, scale,
+        return launch_f32<160>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off, scale,
                                causal, use_shift, shift, st);
       case 512:
-        return launch_f32<512, 16, 32>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset,
+        return launch_f32<512, 16, 32>(q, k, v, kv_mask, out, l, B, S, Tk, N, KH, q_offset, off,
                                        scale, causal, use_shift, shift, st);
       default:
         return (int)cudaErrorInvalidValue;
@@ -742,7 +762,7 @@ extern "C" int vt_flash_attention_fwd(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
-               static_cast<__nv_bfloat16*>(out), l, S, Tk, N, KH, q_offset, scale, causal,
+               static_cast<__nv_bfloat16*>(out), l, S, Tk, N, KH, q_offset, off, scale, causal,
                use_shift, shift};
   switch (D) {
     case 40:

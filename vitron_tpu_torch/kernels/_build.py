@@ -39,10 +39,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, q4, s, y, part, ticket, M, K2, N, splits, is_bf16, stream
     "vt_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, kv_mask, out, lse, B, S, T, N, KH, D, q_offset, scale, causal,
-    # use_shift, shift, is_bf16, stream
+    # q, k, v, kv_mask, out, lse, B, S, T, N, KH, D, q_offset, q_offset_dev
+    # (int64 on the device, or null), scale, causal, use_shift, shift, is_bf16,
+    # stream
     "vt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _I, _I, _F, _I, _P],
+                               _I, _P, _F, _I, _I, _F, _I, _P],
     # q, k, v, dout, lse, delta, kv_mask, qs (bf16 scratch), dk, dv, B, S, T, N,
     # KH, D, q_offset, scale, causal, is_bf16, stream
     "vt_flash_attention_bwd_kv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -11,6 +11,10 @@ notes say what bounds them on the H100 and how the designs answer that.
 Semantics are the JAX kernel's, in key-slot space (module docstring of the
 JAX file): q [B,S,N,D], k/v [B,T,K,D]; query i sits at slot q_offset + i and
 sees key slot j iff (not causal or q_offset + i >= j) and kv_mask[b, j];
+q_offset is a Python int or a [1] int64 tensor on q's device, which the
+forward kernel reads on the device (the JAX kernel's scalar-prefetch
+offset), so that a captured CUDA graph can replay a cached window at a slot
+that moves with the data (`llama.decode_step`'s verify window);
 GQA maps query head n to kv head n // (N // K). A query row that sees no
 valid key comes out as zeros (the kernel's finalize acc / max(l, 1e-30)),
 not as the mean of v that `reference_attention` gives, and gets zero
@@ -30,7 +34,7 @@ launches of the three kernels.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -170,6 +174,10 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, q_offset, scale, causal, out, ls
                                         dout), dk, dv)
 
 
+def _device_offset(q_offset) -> bool:
+    return torch.is_tensor(q_offset)
+
+
 def _check(q, k, v, kv_mask, q_offset):
     """Validate shapes; -> True for CPU tensors (the plain path), False for
     one CUDA device (the kernels), raise otherwise."""
@@ -182,7 +190,11 @@ def _check(q, k, v, kv_mask, q_offset):
         raise ValueError(f"flash_attention: {n} query heads not a multiple of {kv_heads}")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, t):
         raise ValueError(f"flash_attention: kv_mask {tuple(kv_mask.shape)} != ({b}, {t})")
-    tensors = [q, k, v] + ([kv_mask] if kv_mask is not None else [])
+    if _device_offset(q_offset) and (q_offset.dtype != torch.int64 or q_offset.numel() != 1):
+        raise TypeError(f"flash_attention: a tensor q_offset must be one int64, got "
+                        f"{q_offset.dtype} {tuple(q_offset.shape)}")
+    tensors = ([q, k, v] + ([kv_mask] if kv_mask is not None else [])
+               + ([q_offset] if _device_offset(q_offset) else []))
     if all(x.device.type == "cpu" for x in tensors):
         return True
     if any(x.device.type != "cuda" or x.device != q.device for x in tensors):
@@ -198,7 +210,7 @@ def _check(q, k, v, kv_mask, q_offset):
         raise TypeError(f"flash_attention: kv_mask dtype {kv_mask.dtype} is not bool")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash_attention: q, k, v and kv_mask must be contiguous")
-    if q_offset < 0:
+    if not _device_offset(q_offset) and q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     return False
 
@@ -220,11 +232,13 @@ def _forward(q, k, v, kv_mask, q_offset, scale, causal, softmax_shift, want_lse)
         return out, lse
     if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 bytes at a time
         q, k, v = (_build.aligned16(x) for x in (q, k, v))
+    dev_off = _device_offset(q_offset)
     rc = _build.lib().vt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, s, t, n, kv_heads, d, int(q_offset), float(scale), int(causal),
+        b, s, t, n, kv_heads, d, 0 if dev_off else int(q_offset),
+        q_offset.data_ptr() if dev_off else None, float(scale), int(causal),
         int(softmax_shift is not None), float(softmax_shift or 0.0),
         int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
     _build.check(rc, "flash_attention")
@@ -354,15 +368,18 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None, q_offset: int = 0,
-                    scale: Optional[float] = None, causal: bool = True,
-                    softmax_shift: Optional[float] = None) -> torch.Tensor:
+def flash_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+                    q_offset: Union[int, torch.Tensor] = 0, scale: Optional[float] = None,
+                    causal: bool = True, softmax_shift: Optional[float] = None) -> torch.Tensor:
     """Flash attention; see the module docstring for the mask semantics and
-    the gradient. q [B,S,N,D]; k/v [B,T,K,D]; kv_mask [B,T] bool; q_offset a
-    Python int (slot of q[0])."""
+    the gradient. q [B,S,N,D]; k/v [B,T,K,D]; kv_mask [B,T] bool; q_offset
+    the slot of q[0], a Python int or a [1] int64 tensor on q's device (the
+    forward only: a gradient needs a host int)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if _device_offset(q_offset):
+            raise TypeError("flash_attention: the backward takes a host int q_offset")
         return FlashAttention.apply(q, k, v, kv_mask, q_offset, float(scale), causal,
                                     softmax_shift)
     return _forward(q, k, v, kv_mask, q_offset, scale, causal, softmax_shift, False)[0]

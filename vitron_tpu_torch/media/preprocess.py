@@ -150,8 +150,9 @@ def load_image(path: str) -> np.ndarray:
 
 def load_video_frames(path: str, num_frames: int = 8) -> np.ndarray:
     """Host-side decode: `num_frames` sampled uniformly -> uint8 [T, H, W, 3],
-    through decord, then OpenCV, then imageio, whichever is installed (the
-    JAX package's `backend="auto"` order, without its pytorchvideo branch)."""
+    through decord, then imageio, whichever is installed (the JAX package's
+    `backend="auto"` order without its OpenCV and pytorchvideo branches: the
+    port does not import OpenCV, which the card's machine lacks)."""
     try:
         import decord
 
@@ -160,30 +161,9 @@ def load_video_frames(path: str, num_frames: int = 8) -> np.ndarray:
     except ImportError:
         pass
     try:
-        import cv2
-
-        cap = cv2.VideoCapture(path)
-        idx = set(uniform_frame_indices(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
-                                        num_frames).tolist())
-        frames, i = [], 0
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            if i in idx:
-                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
-            i += 1
-        cap.release()
-        if frames:
-            while len(frames) < num_frames:  # short video: repeat last
-                frames.append(frames[-1])
-            return np.stack(frames[:num_frames])
-    except ImportError:
-        pass
-    try:
         import imageio.v3 as iio
 
         frames = iio.imread(path, plugin="pyav")
         return np.stack([frames[i] for i in uniform_frame_indices(len(frames), num_frames)])
     except ImportError as e:
-        raise RuntimeError("no video decode backend available (decord/cv2/imageio)") from e
+        raise RuntimeError("no video decode backend available (decord/imageio)") from e

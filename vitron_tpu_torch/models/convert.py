@@ -4,7 +4,11 @@
 `jax.tree.map(np.asarray, params)`) and returns the port's parameter dict,
 dict for dict and key for key, so a port state-dict key is the JAX path
 joined with ".". Quantized leaves ({"q4","s"}, {"q","s"}) carry over as
-they are; the int4 packing is bit-identical. `to_numpy` goes back: the
+they are; the int4 packing is bit-identical. The diffusion trees carry
+over the same way, the task-F ones included: the ControlNet's (the UNet
+encoder copy, `hint_block`, `zero_convs`, `middle_out`), DPT's (`resnet`,
+`blocks`, `readout`, `post*`, `scratch`, `fusion`, `head`), the IMLP's
+(`layers`) and AGGNet's (`w1`, `w2`). `to_numpy` goes back: the
 same structure of numpy arrays (bfloat16 as float32, which numpy holds),
 for the JAX side to take with `jnp.asarray` -- e.g. a trainer's trainable
 tree (LoRA factors, projector, region) at the same key paths.

@@ -7,9 +7,11 @@ run as a Python loop over `range(num_layers)` that indexes them, so every
 weight that reaches a kernel is 2-D and contiguous.
 
 Attention is `attn_impl="xla"` (the einsum path, `_attend_xla`) or
-`"flash"`, which sends multi-token calls (prefill, cached chunks) to the
-hand CUDA flash kernel; single-token decode stays on the einsum path, as in
-the JAX package. `"ring"` is not ported yet (ROADMAP A16).
+`"flash"`, which sends multi-token calls (prefill, cached chunks, the
+speculative verify window of `decode_step`, whose q_offset the kernel reads
+on the device) to the hand CUDA flash kernel; single-token decode stays on
+the einsum path, as in the JAX package. `"ring"` is not ported yet (ROADMAP
+A16).
 
 The no-cache `forward` is differentiable (the trainer's path): the int4
 projections and flash attention carry their own `autograd.Function`s, and
@@ -253,26 +255,36 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
 
 def decode_step(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor,
                 positions: torch.Tensor, cache: KVCache, index: torch.Tensor):
-    """One decode token [B, 1, H] at a cache slot held in a device tensor
-    `index` ([1] int64) -> (logits float32 [B, 1, V], cache): the
-    counterpart of the JAX package's cached forward at a traced
-    `cache.index` (S = 1). K/V are written at slot `index` (`index_copy_`)
-    and the validity mask is built from it, so the step syncs with no host
-    value, allocates only what its shapes fix, and can be captured in a CUDA
-    graph and replayed at every position. `cache.index`, the host fill
-    level, is left as it is: the caller advances `index`. The attention is
-    the einsum path, as single-token decode is on the host-index path."""
+    """Decode S tokens [B, S, H] at cache slots index + arange(S), the slot
+    `index` held in a device tensor ([1] int64) -> (logits float32 [B, S,
+    V], cache): the counterpart of the JAX package's cached forward at a
+    traced `cache.index`. S = 1 is a decode step; S = k + 1 is the verify
+    window of speculative decoding (runtime/speculative.py). K/V are
+    written at the slots (`index_copy_`), the validity flags set there, and
+    the mask is slot-causal from `index` (query i sees slots <= index + i
+    that hold a real token), so the step syncs with no host value,
+    allocates only what its shapes fix, and can be captured in a CUDA graph
+    and replayed at every position. `cache.index`, the host fill level, is
+    left as it is: the caller advances `index`. One token attends on the
+    einsum path; a window of more than one takes the flash kernel when
+    `attn_impl == "flash"`, with its q_offset read from `index` on the
+    device, as the JAX package's window does (`q_offset = cache.index`)."""
+    s = input_embeds.shape[1]
     t = cache.k.shape[2]
     x = input_embeds.to(cfg.compute_dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
-    cache.valid.index_fill_(1, index, True)
+    slots = index if s == 1 else index + torch.arange(s, device=x.device)
+    cache.valid.index_fill_(1, slots, True)
     key_pos = torch.arange(t, device=x.device)
-    mask = (key_pos <= index)[None, None, None, :] & cache.valid[:, None, None, :]
+    mask = (key_pos[None, :] <= slots[:, None])[None, None] & cache.valid[:, None, None, :]
 
     def attend(q, k, v, li):
-        cache.k[li].index_copy_(1, index, k.to(cache.k.dtype))
-        cache.v[li].index_copy_(1, index, v.to(cache.v.dtype))
+        cache.k[li].index_copy_(1, slots, k.to(cache.k.dtype))
+        cache.v[li].index_copy_(1, slots, v.to(cache.v.dtype))
+        if cfg.attn_impl == "flash" and s > 1:
+            return flash_attention(q.contiguous(), cache.k[li], cache.v[li], kv_mask=cache.valid,
+                                   q_offset=index, scale=float(scale))
         return _attend_xla(q, cache.k[li], cache.v[li], mask, scale)
 
     layers = params["layers"]

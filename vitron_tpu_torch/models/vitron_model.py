@@ -142,10 +142,11 @@ def forward(params: Dict[str, Any], cfg: VitronConfig, plan_token_ids, plan_medi
 def decode_step(params: Dict[str, Any], cfg: VitronConfig, token_ids: torch.Tensor,
                 positions: torch.Tensor, cache: llama.KVCache,
                 index: Optional[torch.Tensor] = None):
-    """Single-token decode [B, 1]; the splice is bypassed. With `index` (a
-    [1] int64 device tensor) the token goes to that cache slot through
-    `llama.decode_step`, the step a CUDA graph captures; without it, to the
-    host fill level `cache.index`."""
+    """Cached decode of token ids [B, S] (one token, or the verify window of
+    speculative decoding); the splice is bypassed. With `index` (a [1]
+    int64 device tensor) the tokens go to the cache slots from there
+    through `llama.decode_step`, the step a CUDA graph captures; without
+    it, to the host fill level `cache.index`."""
     llm = params["llm"]
     if index is not None:
         return llama.decode_step(llm, cfg.llm, llm["embed"][token_ids], positions, cache, index)

@@ -28,13 +28,29 @@ past the budget. `generate_scan` is the fixed-length benchmark path: one
 prefill and one chunk.
 
 `batcher=` hands a single-row request to a `ContinuousBatcher`
-(runtime/batching.py). Speculative decoding is not ported: it waits on the
-reference fault C1 (ROADMAP), so `speculative=True` raises and
-`speculative=None` never speculates.
+(runtime/batching.py).
+
+Speculative decoding (runtime/speculative.py) follows the JAX package's
+policy: `speculative=None` speculates on every greedy single-row request
+unless `VITRON_SPEC` is "0"; with "1" (the default) it probes first -- the
+first decode chunk runs plain, then `hypothetical_tpf` replays the
+prompt-lookup acceptance on what it emitted, and the request upgrades to
+speculative segments only when that reaches `VITRON_SPEC_TPF_MIN` (1.5)
+tokens a forward; with "2", or `speculative=True`, it speculates at once.
+Without a stopper the whole budget is one segment; with one, segments of
+at most 64 tokens, checked on the host between them, and the request falls
+back to plain chunks on the same cache when the tokens per forward drop
+below `VITRON_SPEC_TPF_MIN` after 8 forwards. A speculative request's cache
+(a power of two, like a plain chunk's; `spec_cache_need`) is shared by its
+plain chunk and its `_SpecChunk`, a CUDA graph of `SPEC_FORWARDS` verify
+forwards (masked once the segment's budget is met or the stream is done)
+that the host replays until the segment ends. `last_spec_stats` counts the
+forwards that emit, as the JAX package does.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -45,12 +61,16 @@ from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.llm.paged_cache import sample_token_batched
 from vitron_tpu_torch.runtime import graphs
+from vitron_tpu_torch.runtime import speculative as spec_mod
 from vitron_tpu_torch.runtime.telemetry import ProgramCache
 
 STOP_CHECK_EVERY = 8  # per-token path: keyword-stop check interval, as in the JAX package
 DECODE_GRAPHS = 8  # decode chunks (each with its KV cache) a Generator keeps
 DEFAULT_DECODE_CHUNK = 128  # decode steps a chunk for packed-int4 weights, as in JAX
 MIN_CACHE_SLOTS = 512  # a chat prompt's pad bucket (<= 384) + a chunk share one length
+SPEC_SEGMENT = 64  # tokens a speculative segment may emit before the host checks the stopper
+SPEC_FORWARDS = 4  # verify forwards a speculative graph replay runs (tools/spec_forwards.py)
+SPEC_MIN_FORWARDS = 8  # forwards before the acceptance may send a request back to plain chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +82,34 @@ class SamplingConfig:
     eos_ids: tuple = (2,)
 
 
+def spec_settings():
+    """(VITRON_SPEC, VITRON_SPEC_TPF_MIN), read per request under the JAX
+    package's names and defaults: the mode "0" off / "1" probe / "2" at
+    once, and the tokens per forward below which speculation does not pay."""
+    return (os.environ.get("VITRON_SPEC", "1"),
+            float(os.environ.get("VITRON_SPEC_TPF_MIN", "1.5")))
+
+
 def cache_slots(n: int) -> int:
     """The KV cache length of a decode chunk that needs n slots: the next
     power of two, at least MIN_CACHE_SLOTS."""
     return max(MIN_CACHE_SLOTS, 1 << max(n - 1, 0).bit_length())
+
+
+def spec_cache_need(pad_len: int, max_new: int, n: int, k: int, probe: bool,
+                    segmented: bool) -> int:
+    """KV slots a speculative request on decode chunks of n steps needs:
+    the plain path's (whole chunks from the prompt) where the probe's first
+    chunk covers the budget, so that no verify forward can run; else room
+    for the verify window (k + 1 slots from the last token's, the JAX
+    package's pad_len + max_new + k + 1) and, where segments may fall back,
+    for whole plain chunks from any frontier (at most n - 2 slots past the
+    budget's last)."""
+    plain = pad_len + -(-(max_new - 1) // n) * n
+    if probe and max_new - 1 <= n:
+        return plain
+    need = max(plain, pad_len + max_new + k + 1)
+    return max(need, pad_len + max_new + n - 2) if segmented else need
 
 
 def has_packed_int4(params) -> bool:
@@ -116,6 +160,7 @@ class _DecodeChunk:
         self.u = torch.zeros((n, b), dtype=torch.float32, device=dev)
         self.emits = torch.zeros((b, n), dtype=torch.int64, device=dev)
         self.run = graphs.Chunk(self._body, self._warmup, dev, g._stream, g._pool)
+        self.spec: Dict[Any, "_SpecChunk"] = {}  # speculative graphs on this chunk's cache
 
     def _step(self, i: int) -> None:
         logits, _ = vitron_model.decode_step(self.g.params, self.g.cfg, self.token, self.pos,
@@ -152,6 +197,13 @@ class _DecodeChunk:
         self.temps.fill_(temperature)
         self.top_ps.fill_(top_p)
 
+    def resume(self, st: spec_mod.SpecState) -> None:
+        """Continue a speculative stream's frontier (one row, greedy): its
+        last token, position and cache slot, copied on the device."""
+        self.token.copy_(st.last_tok.view(1, 1))
+        self.pos.copy_(st.pos.view(1, 1))
+        self.index.copy_(st.slot)
+
     def __call__(self, gen: Optional[torch.Generator]) -> np.ndarray:
         """Run the chunk; -> the [b, n] sampled tokens on the host (the
         chunk's one copy to the host)."""
@@ -159,6 +211,59 @@ class _DecodeChunk:
             self.u.copy_(uniforms(self.u.shape, gen, self.u.device))
         self.run()
         return self.emits.cpu().numpy()
+
+
+class _SpecChunk:
+    """`forwards` speculative verify forwards of one greedy stream over a
+    plain chunk's KV cache (the JAX segment's `while_loop` body with a
+    fixed trip count): a CUDA graph on the card, eager on the CPU. Static
+    buffers: the stream's `SpecState` (history as long as the cache) and
+    the EOS ids. A forward that starts with the segment's budget met or the
+    stream done is masked (`speculative.verify_forward`)."""
+
+    def __init__(self, g: "Generator", plain: _DecodeChunk, k: int, ngram: int,
+                 eos_ids: tuple, forwards: int):
+        dev = g.device
+        self.g, self.k, self.ngram, self.forwards = g, k, ngram, forwards
+        self.cache = plain.cache
+        self.state = spec_mod.SpecState.create(self.cache.k.shape[2], k, dev)
+        self.eos = spec_mod.eos_tensor(eos_ids, dev)
+        self.run = graphs.Chunk(self._body, self._warmup, dev, g._stream, g._pool)
+
+    def _forward(self) -> None:
+        spec_mod.verify_forward(self.g.params, self.g.cfg, self.state, self.cache, self.k,
+                                self.ngram, self.eos)
+
+    def _body(self) -> None:
+        for _ in range(self.forwards):
+            self._forward()
+
+    def _warmup(self) -> None:
+        """One forward, with every state buffer it advances put back (the
+        cache window it writes is written again by the replay's first
+        forward)."""
+        saved = [t.clone() for t in self.state.tensors()]
+        self._forward()
+        for t, v in zip(self.state.tensors(), saved):
+            t.copy_(v)
+
+    def segment(self, seg: int, limit: int):
+        """One segment of at most min(seg, limit) tokens: replays until its
+        budget is met or the stream is done. -> (tokens, emitted, forwards
+        that emitted, done, replays); the host reads the counts after each
+        replay and the tokens once."""
+        st = self.state
+        budget = min(seg, limit)
+        st.begin_segment(budget)
+        replays, out_n, steps, done = 0, 0, 0, False
+        while budget > 0:
+            self.run()
+            replays += 1
+            out_n, steps, done = torch.cat([st.out_n, st.seg_steps,
+                                            st.done.to(torch.int64)]).tolist()
+            if out_n >= budget or done:
+                break
+        return st.out_buf[:out_n].tolist(), out_n, steps, bool(done), replays
 
 
 class Generator:
@@ -173,6 +278,12 @@ class Generator:
         self.last_prefill_logits: Optional[torch.Tensor] = None  # [B, V] float32
         self.last_chunk: Optional[_DecodeChunk] = None  # the chunk the last request decoded with
         self.chunks = ProgramCache("generator-chunk", max_entries=DECODE_GRAPHS)
+        self.last_spec_stats: Optional[Dict[str, Any]] = None
+        # the last request's segments: (emitted, forwards that emitted, replays) each
+        self.last_spec_segments: List[tuple] = []
+        # segments that emitted nothing (the JAX package's defensive
+        # fallback to plain chunks); 0 expected
+        self.zero_emission_segments = 0
         self._stream = self._pool = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -209,6 +320,21 @@ class Generator:
         self.last_prefill_logits = next_logits
         return next_logits
 
+    def _spec_chunk(self, plain: _DecodeChunk, k: int, ngram: int, eos_ids) -> _SpecChunk:
+        """The speculative graph on `plain`'s cache (the counterpart of the
+        JAX package's `_get_spec_fn` / `_get_spec_seg_fns` programs), kept
+        with the plain chunk, so the two always share one cache."""
+        key = (k, ngram, tuple(eos_ids), SPEC_FORWARDS)
+        if key not in plain.spec:
+            plain.spec[key] = _SpecChunk(self, plain, k, ngram, tuple(eos_ids), SPEC_FORWARDS)
+        return plain.spec[key]
+
+    def _spec_segment(self, spec: _SpecChunk, seg: int, limit: int):
+        """One speculative segment -> (tokens, emitted, forwards, done)."""
+        toks, n, steps, done, replays = spec.segment(seg, limit)
+        self.last_spec_segments.append((n, steps, replays))
+        return toks, n, steps, done
+
     @torch.no_grad()
     def generate(self, plan, images: Optional[torch.Tensor] = None,
                  videos: Optional[torch.Tensor] = None,
@@ -217,17 +343,21 @@ class Generator:
                  sampling: SamplingConfig = SamplingConfig(),
                  gen: Optional[torch.Generator] = None, stopper=None,
                  decode_chunk: Optional[int] = None,
-                 speculative: Optional[bool] = None, batcher=None) -> List[List[int]]:
+                 speculative: Optional[bool] = None, spec_k: int = 4, spec_ngram: int = 2,
+                 batcher=None) -> List[List[int]]:
         """Run prefill + decode for one planned batch; returns the new token
         ids per row. decode_chunk: None = 128 for packed-int4 weights,
         per-token stepping otherwise; 0 forces per-token stepping.
         `gen` drives sampling (a generator on the model's device).
-        `batcher`: a single-row request is co-batched with other requests
-        in flight on that `ContinuousBatcher` (which runs its prefill and
-        decode on its own device loop)."""
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported: it waits on fault C1 (ROADMAP)")
+        `speculative`: prompt-lookup speculation for greedy single-row
+        requests (the module docstring's policy; None = auto, True = at
+        once, False = off), drafts of `spec_k` tokens from `spec_ngram`-token
+        keys; `last_spec_stats` describes the last request (None when it did
+        not speculate). `batcher`: a single-row request is co-batched with
+        other requests in flight on that `ContinuousBatcher` (which runs its
+        prefill and decode on its own device loop)."""
+        self.last_spec_stats = None
+        self.last_spec_segments = []
         b, pad_len = plan.token_ids.shape
         if batcher is not None and b == 1:
             fut = batcher.submit(plan, images=images, videos=videos, block_perm=block_perm,
@@ -236,6 +366,13 @@ class Generator:
             return [fut.result()]
         if decode_chunk is None and has_packed_int4(self.params):
             decode_chunk = DEFAULT_DECODE_CHUNK
+        greedy = sampling.greedy or sampling.temperature == 0.0
+        explicit = speculative is True
+        spec_env, _ = spec_settings()
+        if speculative is None:
+            speculative = greedy and b == 1 and spec_env != "0"
+        speculative = bool(speculative) and greedy and b == 1
+        probe = speculative and not explicit and spec_env != "2"
         kwargs: Dict[str, Any] = {}
         if plan.region_blocks is not None and len(plan.region_blocks) and region_boxes is not None:
             kwargs["region_boxes"] = self._t(region_boxes, torch.float32)
@@ -244,11 +381,16 @@ class Generator:
             kwargs["block_perm"] = self._t(block_perm, torch.int64)
         arrays = (plan.token_ids, plan.media_idx, plan.use_media, plan.position_ids,
                   plan.attention_mask, plan.seq_lens)
-        greedy = sampling.greedy or sampling.temperature == 0.0
         steps = sampling.max_new_tokens - 1
         with self._lock:
             chunk = None
-            if decode_chunk and steps > 0:
+            if speculative:
+                n = decode_chunk or DEFAULT_DECODE_CHUNK
+                need = spec_cache_need(pad_len, sampling.max_new_tokens, n, spec_k, probe,
+                                       segmented=probe or stopper is not None)
+                chunk = self._chunk(n, b, cache_slots(need), False)
+                cache = chunk.cache
+            elif decode_chunk and steps > 0:
                 # the last chunk runs all its steps: room for them in the cache
                 need = pad_len + -(-steps // decode_chunk) * decode_chunk
                 chunk = self._chunk(decode_chunk, b, cache_slots(need), not greedy)
@@ -263,12 +405,124 @@ class Generator:
             out_tokens: List[List[int]] = [[] for _ in range(b)]
             done = np.zeros(b, bool)
             pos = self._t(plan.seq_lens, torch.int64)[:, None]
-            if decode_chunk:
+            if chunk is not None:
                 self.last_chunk = chunk
+            if speculative:
+                seq_len = int(plan.seq_lens[0])
+                if probe:
+                    return [self._probe_generate(plan, chunk, token, pos, pad_len, gen,
+                                                 sampling, stopper, spec_k, spec_ngram)]
+                tok0 = int(token[0, 0])
+                spec = self._spec_chunk(chunk, spec_k, spec_ngram, sampling.eos_ids)
+                spec_mod.spec_init_state(tok0, pad_len, plan.token_ids[0], seq_len,
+                                         sampling.max_new_tokens, spec_k, sampling.eos_ids,
+                                         out=spec.state)
+                if stopper is None:
+                    return [self._spec_whole(spec, tok0, sampling)]
+                return [self._run_spec_segments(chunk, spec, [tok0], gen, sampling, stopper)]
+            if decode_chunk:
                 return self._generate_chunked(token, pos, pad_len, chunk, out_tokens, done,
                                               gen, sampling, stopper)
             return self._generate_steps(token, pos, cache, out_tokens, done, gen, sampling,
                                         stopper)
+
+    def _spec_whole(self, spec: _SpecChunk, tok0: int, sampling: SamplingConfig) -> List[int]:
+        """No stopper: the whole budget as one segment (JAX's `_get_spec_fn`
+        program), the tokens cut after the first EOS."""
+        n_new = sampling.max_new_tokens
+        toks, n, steps, _ = self._spec_segment(spec, n_new, n_new - 1)
+        self.last_spec_stats = {"emitted": n + 1, "forwards": steps + 1}  # + the prefill
+        row: List[int] = []
+        for t in [tok0] + toks:
+            row.append(int(t))
+            if int(t) in sampling.eos_ids:
+                break
+        return row
+
+    def _run_spec_segments(self, plain: _DecodeChunk, spec: _SpecChunk, row: List[int], gen,
+                           sampling: SamplingConfig, stopper,
+                           extra_stats: Optional[Dict[str, Any]] = None) -> List[int]:
+        """Segmented speculation from the state loaded in `spec` (after the
+        prefill or at a probe's frontier), the stopper checked between
+        segments; back to plain chunks on the same cache when the tokens per
+        forward fall below VITRON_SPEC_TPF_MIN after SPEC_MIN_FORWARDS
+        forwards, or when a segment emits nothing (the JAX package's
+        defensive branch, counted in `zero_emission_segments`; its other
+        branch, a segment after one that set done without emitting the EOS,
+        is ROADMAP C1's and cannot occur here)."""
+        _, tpf_min = spec_settings()
+        seg = min(SPEC_SEGMENT, sampling.max_new_tokens)
+        base, forwards, fell_back = len(row), 0, False
+        stop = row[-1] in sampling.eos_ids or (stopper is not None and stopper.should_stop(row))
+        while not stop and len(row) < sampling.max_new_tokens:
+            toks, n, steps, _ = self._spec_segment(
+                spec, seg, sampling.max_new_tokens - len(row))
+            forwards += steps
+            if n == 0:
+                # done is set only with its EOS emitted, which stopped the row
+                self.zero_emission_segments += 1
+                fell_back = True
+                break
+            for t in toks:
+                row.append(int(t))
+                if int(t) in sampling.eos_ids or (stopper is not None
+                                                  and stopper.should_stop(row)):
+                    stop = True
+                    break
+            if (not stop and forwards >= SPEC_MIN_FORWARDS
+                    and (len(row) - base) / forwards < tpf_min):
+                fell_back = True
+                break
+        if fell_back and len(row) < sampling.max_new_tokens:
+            plain.resume(spec.state)
+            row = self._generate_chunked(None, None, 0, plain, [row], np.zeros(1, bool), gen,
+                                         sampling, stopper, record_first=False)[0]
+        self.last_spec_stats = {"emitted": len(row), "forwards": forwards + 1,  # + the prefill
+                                "fell_back": fell_back, **(extra_stats or {})}
+        return row
+
+    def _probe_generate(self, plan, plain: _DecodeChunk, token, pos, pad_len: int, gen,
+                        sampling: SamplingConfig, stopper, spec_k: int,
+                        spec_ngram: int) -> List[int]:
+        """The speculative default: the first chunk decodes plain, then
+        `hypothetical_tpf` replays the prompt-lookup acceptance on what it
+        emitted (no device work); below VITRON_SPEC_TPF_MIN the request stays
+        plain, else it goes on as speculative segments from that frontier."""
+        eos = sampling.eos_ids
+        row = [int(token[0, 0])]
+        stats: Dict[str, Any] = {"mode": "probe_plain", "probe_tpf": 0.0}
+        if row[0] in eos or (stopper is not None and stopper.should_stop(row)) \
+                or sampling.max_new_tokens <= 1:
+            self.last_spec_stats = {"emitted": 1, "forwards": 1, "fell_back": False, **stats}
+            return row
+        plain.start(token, pos, pad_len, sampling.temperature, sampling.top_p)
+        stop = False
+        for t in plain(gen)[0, :sampling.max_new_tokens - 1]:
+            row.append(int(t))
+            if int(t) in eos or (stopper is not None and stopper.should_stop(row)):
+                stop = True
+                break
+        seq_len = int(plan.seq_lens[0])
+        tpf = spec_mod.hypothetical_tpf(plan.token_ids[0], seq_len, row, k=spec_k,
+                                        ngram=spec_ngram)
+        stats["probe_tpf"] = round(tpf, 3)
+        if stop or len(row) >= sampling.max_new_tokens:
+            self.last_spec_stats = {"emitted": len(row), "forwards": len(row),
+                                    "fell_back": False, **stats}
+            return row
+        _, tpf_min = spec_settings()
+        if tpf < tpf_min:  # stay plain: no speculative forward is run
+            row = self._generate_chunked(None, None, 0, plain, [row], np.zeros(1, bool), gen,
+                                         sampling, stopper, record_first=False)[0]
+            self.last_spec_stats = {"emitted": len(row), "forwards": len(row),
+                                    "fell_back": False, **stats}
+            return row
+        stats["mode"] = "probe_spec"
+        spec = self._spec_chunk(plain, spec_k, spec_ngram, eos)
+        spec_mod.spec_resume_state(row[-1], plain.index, plan.token_ids[0], seq_len, row,
+                                   sampling.max_new_tokens, spec_k, out=spec.state)
+        return self._run_spec_segments(plain, spec, row, gen, sampling, stopper,
+                                       extra_stats=stats)
 
     def _generate_steps(self, token, pos, cache, out_tokens, done, gen,
                         sampling: SamplingConfig, stopper):
@@ -298,21 +552,28 @@ class Generator:
         return out_tokens
 
     def _generate_chunked(self, token, pos, pad_len: int, chunk: Optional[_DecodeChunk],
-                          out_tokens, done, gen, sampling: SamplingConfig, stopper):
+                          out_tokens, done, gen, sampling: SamplingConfig, stopper,
+                          record_first: bool = True):
         """Decode in chunks of `chunk.n` tokens (one graph replay each on a
         CUDA device; the tokens reach the host in one copy a chunk), then
-        apply EOS and the stopper at every emitted position on the host."""
+        apply EOS and the stopper at every emitted position on the host.
+        record_first=False resumes rows already under way: the chunk's
+        buffers hold their frontier (the last emitted token, not yet in the
+        cache) and the budget counts the tokens in `out_tokens`."""
         b = len(out_tokens)
-        tok_host = token[:, 0].cpu().numpy()
-        for i in range(b):  # the prefill-sampled first token
-            out_tokens[i].append(int(tok_host[i]))
-            if int(tok_host[i]) in sampling.eos_ids:
-                done[i] = True
-            elif stopper is not None and stopper.should_stop(out_tokens[i]):
-                done[i] = True
-        produced = 1
-        if chunk is not None:
-            chunk.start(token, pos, pad_len, sampling.temperature, sampling.top_p)
+        if record_first:
+            tok_host = token[:, 0].cpu().numpy()
+            for i in range(b):  # the prefill-sampled first token
+                out_tokens[i].append(int(tok_host[i]))
+                if int(tok_host[i]) in sampling.eos_ids:
+                    done[i] = True
+                elif stopper is not None and stopper.should_stop(out_tokens[i]):
+                    done[i] = True
+            produced = 1
+            if chunk is not None:
+                chunk.start(token, pos, pad_len, sampling.temperature, sampling.top_p)
+        else:
+            produced = max(len(row) for row in out_tokens)
         while produced < sampling.max_new_tokens and not done.all():
             buf_host = chunk(gen)
             n = min(chunk.n, sampling.max_new_tokens - produced)

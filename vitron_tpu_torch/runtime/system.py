@@ -7,7 +7,8 @@ routing through the port's `runtime/router.py`). Of the task backends, B
 :57-250), A (image generation) and C (image editing) on GLIGEN
 (`register_gligen`, :252-347), D (video generation) on the T2V pipeline
 (`register_text2video`, :349-357), G (image to video) on the I2V pipeline
-(`register_image2video`, :359-371); C's edit mask comes from SEEM when no
+(`register_image2video`, :359-371), F (video editing) on StableVideo
+(`register_video_editor`, :373-440); C's edit mask comes from SEEM when no
 sketch and no region is given. A tool call for a backend not registered is answered
 as unavailable, as the JAX system answers it.
 """
@@ -282,6 +283,33 @@ class VitronSystem:
 
         self._track("image2video", pipeline.__dict__)
         self.registry.register("G", handle_g)
+
+    def register_video_editor(self, editor, atlas_provider=None, num_keyframes: int = 3,
+                              noise_source=None):
+        """F video_editing on a `StableVideoEditor`: the first instruction
+        edits the foreground (a canny ControlNet edit of `num_keyframes`
+        keyframes with atlas propagation, scattered and median-aggregated),
+        the second the background (the depth ControlNet when the editor has
+        a DPT annotator, canny otherwise); both atlases re-render at every
+        frame's UVs. `atlas_provider(video, extra)` returns the video's atlas
+        bundle (the reference's per-video NLA checkpoints).
+        `noise_source(key)`, when given, supplies each edit's initial noise
+        (key: the keyframe's index, or "back"); else it comes from the
+        default generator."""
+        from vitron_tpu_torch.models.diffusion import stablevideo as sv
+
+        def handle_f(req: TaskRequest) -> Dict[str, Any]:
+            if atlas_provider is None:
+                return {"status": "error", "error": "video_editing needs precomputed atlases"}
+            instructions = req.instructions or [req.text]
+            fore = instructions[0]
+            back = instructions[1] if len(instructions) > 1 else ""
+            return {"video": sv.edit_video(editor, atlas_provider(req.video, req.extra), fore,
+                                           back, num_keyframes=num_keyframes,
+                                           noise_source=noise_source)}
+
+        self._track("video_editor", editor.__dict__)
+        self.registry.register("F", handle_f)
 
     def prepare(self, user_message: str, image: Optional[np.ndarray] = None,
                 video: Optional[np.ndarray] = None,
