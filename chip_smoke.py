@@ -121,6 +121,22 @@ Phases (any failure exits non-zero and prints no `ok` line):
    time), guidance 30; launch counts. Then through its SEEM branch: two
    ';'-separated phrases, no region, no sketch; 2 encode_image's launches
    plus GLIGEN's.
+11b. the A9 and A10 remainders, each phase's seconds printed: (a) GLIGEN's
+   style request at full width (`phase_style`: task A's UNet with the
+   with-image position net, 60 grounding tokens, the CLIP ViT-L/14 tower
+   pooled at 224 with its projections, one style crop, 50 PLMS steps, twice,
+   B2/B3/B8 held to exact counts; phase 4 holds B2 at its 4,156- and
+   1,084-token fusers); (b) eps DDIM (eta 0, eta 1, the inpainting
+   composite) and DPM-Solver++(2M), 10 steps each over task A's CFG eps at
+   64x64 latents, finite, exact counts, ms a step; (c) the grounding nets at
+   full width (hint net in the canny and sem forms from a 480x640 map
+   resized to 448, 18 B4 launches a forward; the keypoint net at 8 persons;
+   the canny / sem downsamplers and the hed resize); (d) Swin-L with the
+   deformable pixel decoder (5 B8 launches), DaViT-T (24 B4 launches),
+   ResNet-50 and -101 at 512x512, float32 and bf16, twice each (identical); (e)
+   B4 at ConvNeXt-T's and DaViT-T's 8 sites (`NEW_DW_SITES`), float32 and
+   bf16, as phase 5; (f) the hint net, Swin-L + deformable decoder and
+   DaViT-T at reduced depth on the CPU and the card.
 12. the bf16 CFG UNet step at bench.py's `bench_sd_unet` shape (SD v1.4, no
    grounding, bf16 params, [2, 64, 64, 4] latents, [2, 77, 768] context):
    `sd_unet_cfg_steps_per_s`.
@@ -194,7 +210,7 @@ Phases (any failure exits non-zero and prints no `ok` line):
    and B2/B5 on their tensor-core paths) against the CPU's plain versions
    in bf16, every gradient by cosine and relative norm
    (TRAIN_BF16_GRAD_LIMIT).
-Then one line lists each bf16 B2 row (the 15 of phases 3, 4, 5b, 5d and 18
+Then one line lists each bf16 B2 row (the 17 of phases 3, 4, 5b, 5d and 18
 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
 with one entry per kernel (with its launches on each main path); the last
@@ -468,7 +484,9 @@ SPEC_FLASH_CASES = (
     ("verify-1024", 5, 1024, 32, 32, 900, 905),
 )
 GLIGEN_FLASH_SHAPES = ((2, 4096, 8, 40), (2, 4126, 8, 40), (2, 1024, 8, 80), (2, 1054, 8, 80),
-                       (1, 4096, 1, 512))
+                       (1, 4096, 1, 512),
+                       # the style request's fusers: 60 grounding tokens (text and image)
+                       (2, 4156, 8, 40), (2, 1084, 8, 80))
 
 
 def phase_kernels(torch, card: str):
@@ -612,6 +630,11 @@ GN_SHAPES = ((2, 4096, 320), (2, 1024, 640), (1, 262144, 128),
 # site (stage i has 2/2/18/2 blocks, each k = 3/5/7/9) and a ragged shape
 DW_SHAPES = ([((1, 128 >> i, 128 >> i, 192 << i), k) for i in range(4) for k in (3, 5, 7, 9)]
              + [((2, 37, 53, 200), 5)])
+# B4's other sites: ConvNeXt-T's 7x7 stages in GLIGEN's hint PositionNet at
+# its 448 input (3/3/9/3 blocks, one launch each), then DaViT-T's 3x3 conv
+# position encodings at SEEM's 512x512 (1/1/3/1 blocks, four launches each)
+NEW_DW_SITES = (tuple(((1, 112 >> i, 112 >> i, 96 << i), 7) for i in range(4))
+                + tuple(((1, 128 >> i, 128 >> i, 96 << i), 3) for i in range(4)))
 
 
 def dw_row(torch, card: str, x32, w32, dtype) -> dict:
@@ -3696,6 +3719,389 @@ def phase_controlnet_cpu_vs_card(torch, card: str):
         check(rel <= UNET_CPU_GPU_TOL[name], f"controlnet CPU and card disagree ({name}): {rel}")
 
 
+# ---------------------------------------------------------------- A9 / A10 remainders
+STYLE_REPLY_PROMPT = "a vase of flowers and a cup on a wooden table"
+STYLE_BOXES = [[0.1, 0.2, 0.55, 0.9], [0.6, 0.5, 0.9, 0.85]]
+STYLE_PHRASES = ["a vase of flowers", "a cup"]
+SAMPLER_STEPS = 10
+HINT_HW = (480, 640)     # a hint map of a 480x640 frame: a real nearest resize to 448
+HINT_RESIZE = 448        # GLIGEN's hint PositionNet input (resize_input)
+SEM_CLASSES = 150        # a one-hot semantic map over ADE20K's 150 classes
+KEYPOINT_PERSONS = 8     # the keypoint PositionNet's max_persons_per_image
+SEEM_SIZE = 512          # SEEM's served input
+
+
+def exact_launches(want: dict) -> dict:
+    """`want` with every other kernel's count 0: a path's exact launches."""
+    return {name: want.get(name, 0) for name, _, _ in _counters()}
+
+
+def phase_style(torch, card: str, pipe):
+    """(a) GLIGEN's text + image grounded (style) request at full width:
+    task A's resident SD v1.4 UNet with its position net swapped for the
+    with-image one (30 slots -> 60 grounding tokens), the SD VAE, CLIP-L
+    text, and the CLIP ViT-L/14 tower pooled at 224 with a [1024, 768]
+    visual projection and GLIGEN's [768, 768] projection matrix, float32;
+    512x512, 50 PLMS steps, guidance 7.5, one style crop; twice, identical,
+    non-constant; B2, B3, B8 held to the block plan's exact counts (the
+    fuser attends over 4096 + 60 and 1024 + 60 tokens); the style feature's
+    norm 28.7."""
+    from vitron_tpu_torch.media.preprocess import preprocess_image
+    from vitron_tpu_torch.models.diffusion import unet2d
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenStylePipeline
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.models.vision import vit
+
+    cfg = pipe.cfg
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(21)
+    vcfg = vit.ViTConfig.clip_vit_l14()
+    cd = cfg.unet.context_dim
+    unet = {**pipe.unet_params, "position_net": fill_zero_leaves(
+        unet2d.init_position_net_with_image(g, cfg.unet, dev), g)}
+    style_pipe = GligenStylePipeline(
+        cfg, unet, pipe.vae_params, pipe.text_params,
+        vision_params=fill_zero_leaves(vit.init_params(g, vcfg, dev), g), vision_cfg=vcfg,
+        visual_proj=torch.randn((vcfg.hidden_size, cd), generator=g, device=dev)
+        / vcfg.hidden_size ** 0.5,
+        projection_matrix=torch.randn((cd, cd), generator=g, device=dev) / cd ** 0.5,
+        tokenizer=pipe.tokenizer)
+    crop = np.random.RandomState(22).randint(0, 256, (300, 260, 3), np.uint8)
+    style = preprocess_image(crop)[None]  # [1, 224, 224, 3], CLIP-normalized
+    n_objs = 2 * cfg.max_objs
+    unet_n = unet_counts(cfg.unet, cfg.latent_size, n_objs, cfg.text.max_length)
+    _, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
+    calls = cfg.steps + 1
+    want = exact_launches({k: calls * unet_n[k] + dec[k] for k in unet_n})
+    total = collections.Counter()
+    runs = []
+    for i in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = style_pipe.generate_styled(STYLE_REPLY_PROMPT, STYLE_BOXES, STYLE_PHRASES, style,
+                                         gen=torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        t_req = time.perf_counter() - t0
+        total.update(expect_launches(want, f"style run {i + 1}"))
+        img = img.cpu().numpy()
+        check(img.shape == (cfg.image_size, cfg.image_size, 3) and img.dtype == np.uint8,
+              f"style image {img.shape} {img.dtype}")
+        runs.append(img)
+        print(f"style run {i + 1}: request {t_req:.3f} s ({calls} CFG UNet calls over "
+              f"{n_objs} grounding tokens, ViT-L/14 pooled style features), image mean "
+              f"{img.mean():.2f} std {img.std():.2f} [{card}]", flush=True)
+    check(np.array_equal(runs[0], runs[1]), "style: two identical requests gave other images")
+    check(int(runs[0].max()) != int(runs[0].min()), "style: the image is constant")
+    feats = style_pipe.image_features(style.to(dev))
+    norm = torch.linalg.vector_norm(feats, dim=-1).item()
+    check(abs(norm - 28.7) <= 1e-3, f"style: image feature norm {norm}, not 28.7")
+    return dict(total)
+
+
+def phase_samplers(torch, card: str, pipe):
+    """(b) eps DDIM (eta 0; eta 1 with its noise from a generator; eta 0 with
+    the inpainting composite over a keep mask) and DPM-Solver++(2M),
+    SAMPLER_STEPS steps each, over task A's CFG eps (one batched UNet call a
+    step) at 64x64 latents: finite latents, each run held to its exact
+    launches; ms a step."""
+    from vitron_tpu_torch.models.diffusion import clip_text, samplers
+
+    cfg = pipe.cfg
+    dev = pipe.device
+    inputs = pipe.prepare("a red car on a street", [[0.1, 0.2, 0.6, 0.8]],
+                          ["a red car on a street"])
+    ctx = clip_text.encode(pipe.text_params, cfg.text, inputs["ids_ctx"])
+    uc = clip_text.encode(pipe.text_params, cfg.text, inputs["ids_uc"])
+    gt = pipe.pooled_text_features(inputs["phrase_ids"])[None] * inputs["gm"][..., None]
+    eps = pipe._eps_fn(inputs["params"], ctx, uc, inputs["gb"], inputs["gm"], gt, 7.5)
+    sched = samplers.DiffusionSchedule.create("linear", 1000, 0.00085, 0.012)
+    gates = samplers.alpha_generator(SAMPLER_STEPS, (0.3, 0.0, 0.7))
+    g = torch.Generator(device=dev).manual_seed(23)
+    shape = (1, cfg.latent_size, cfg.latent_size, cfg.unet.out_channels)
+    x_t = torch.randn(shape, generator=g, device=dev)
+    keep = torch.ones(shape[:-1] + (1,), device=dev)
+    keep[:, 16:48, 16:48] = 0
+    x0 = torch.randn(shape, generator=g, device=dev)
+    per = unet_counts(cfg.unet, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
+    want = exact_launches({k: SAMPLER_STEPS * v for k, v in per.items()})
+    runs = {
+        "ddim eta 0": lambda: samplers.ddim_sample(eps, x_t, sched, SAMPLER_STEPS,
+                                                   gate_alphas=gates),
+        "ddim eta 1": lambda: samplers.ddim_sample(
+            eps, x_t, sched, SAMPLER_STEPS, eta=1.0, gate_alphas=gates,
+            gen=torch.Generator(device=dev).manual_seed(24)),
+        "ddim mask_blend": lambda: samplers.ddim_sample(
+            eps, x_t, sched, SAMPLER_STEPS, gate_alphas=gates, mask_blend=(keep, x0),
+            gen=torch.Generator(device=dev).manual_seed(25)),
+        "dpm-solver++(2m)": lambda: samplers.dpm_solver_pp_2m(eps, x_t, sched, SAMPLER_STEPS,
+                                                              gate_alphas=gates),
+    }
+    total = collections.Counter()
+    for name, run in runs.items():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        total.update(expect_launches(want, f"sampler {name}"))
+        check(bool(torch.isfinite(x).all()) and x.shape == shape, f"sampler {name}: non-finite "
+              f"or misshapen latent {tuple(x.shape)}")
+        if name == "ddim mask_blend":  # the last composite keeps x0's re-noised content
+            check(float(x.std()) > 0, "sampler mask_blend: constant latent")
+        print(f"sampler {name}: {SAMPLER_STEPS} steps over the CFG GLIGEN UNet at "
+              f"{cfg.latent_size}x{cfg.latent_size} latents, {dt * 1e3 / SAMPLER_STEPS:.2f} ms a "
+              f"step, latent std {x.std().item():.4f} [{card}]", flush=True)
+    return dict(total)
+
+
+def build_grounding(torch, device, seed: int):
+    """GLIGEN's grounding nets at their published widths (ConvNeXt-T,
+    resize_input 448, 768-wide tokens), random weights with every zero leaf
+    filled and the layerscale gammas from U(0.5, 1.5) (at 1e-6 a block's
+    output, B4's among it, would not reach the tokens): the canny / depth /
+    hed / normal hint net, the sem one over SEM_CLASSES channels, the
+    keypoint net and the canny and sem downsamplers (two 4x4 stride-2
+    convs to 8 channels)."""
+    from vitron_tpu_torch.models.diffusion import grounding_nets as gn
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def live(tree):
+        tree = fill_zero_leaves(tree, g)
+        for stage in tree.get("convnext", {}).get("stages", []):
+            for blk in stage:
+                blk["gamma"] = 0.5 + torch.rand(blk["gamma"].shape, generator=g, device=device)
+        return tree
+
+    def down(cin):
+        return {"conv1_w": torch.randn((4, 4, cin, 4), generator=g, device=device) / (16 * cin) ** 0.5,
+                "conv1_b": 0.1 * torch.randn((4,), generator=g, device=device),
+                "conv2_w": torch.randn((4, 4, 4, 8), generator=g, device=device) / 8,
+                "conv2_b": 0.1 * torch.randn((8,), generator=g, device=device)}
+
+    return {"hint": live(gn.init_hint_position_net(g, device, HINT_RESIZE)),
+            "sem": live(gn.init_hint_position_net(g, device, HINT_RESIZE, in_dim=SEM_CLASSES)),
+            "keypoint": live(gn.init_keypoint_position_net(g, device, KEYPOINT_PERSONS)),
+            "canny_down": down(1), "sem_down": down(SEM_CLASSES)}
+
+
+def grounding_inputs(torch, device, seed: int):
+    """A 480x640 edge-like hint (RGB in [0, 1]), a one-hot semantic map of
+    the same size, KEYPOINT_PERSONS persons' keypoints (a third masked)."""
+    rs = np.random.RandomState(seed)
+    hint = (rs.rand(1, *HINT_HW, 1) > 0.9).astype(np.float32).repeat(3, axis=-1)
+    labels = rs.randint(0, SEM_CLASSES, (1, HINT_HW[0] // 40, HINT_HW[1] // 40))
+    labels = labels.repeat(40, axis=1).repeat(40, axis=2)
+    sem = np.eye(SEM_CLASSES, dtype=np.float32)[labels]
+    points = rs.rand(1, KEYPOINT_PERSONS * 17, 2).astype(np.float32)
+    pmask = (rs.rand(1, KEYPOINT_PERSONS * 17) > 0.33).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            (("hint", hint), ("sem", sem), ("points", points), ("pmask", pmask))}
+
+
+def phase_grounding(torch, card: str):
+    """(c) the grounding nets at full width on the card, float32: the hint net
+    (canny form, then sem form with its in_conv) on a 480x640 map resized
+    (nearest) to 448, each twice (identical, finite, 196 x 768 tokens, 18 B4
+    launches a forward, exact); the keypoint net at 8 persons; the canny and
+    sem downsamplers at 256 and the hed resize to 64."""
+    from vitron_tpu_torch.models.diffusion import grounding_nets as gn
+
+    dev = torch.device("cuda")
+    nets = build_grounding(torch, dev, seed=26)
+    x = grounding_inputs(torch, dev, seed=27)
+    ones = torch.ones((1,), device=dev)
+    per = exact_launches({"depthwise_conv2d": sum(gn.CONVNEXT_TINY_DEPTHS)})
+    total = collections.Counter()
+    for name, hint in (("hint", x["hint"]), ("sem", x["sem"])):
+        outs = []
+        for i in range(2):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gn.position_net_hint(nets[name], hint, ones, resize_input=HINT_RESIZE)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            total.update(expect_launches(per, f"grounding {name} net run {i + 1}"))
+            outs.append(out)
+        check(tuple(out.shape) == (1, (HINT_RESIZE // 32) ** 2, 768)
+              and bool(torch.isfinite(out).all()) and out.std().item() > 0,
+              f"grounding {name} net: tokens {tuple(out.shape)}")
+        check(torch.equal(outs[0], outs[1]), f"grounding {name} net: two runs differ")
+        print(f"grounding {name} net ({HINT_HW[0]}x{HINT_HW[1]} -> {HINT_RESIZE} nearest, "
+              f"ConvNeXt-T): {dt * 1e3:.2f} ms, tokens {tuple(out.shape)} std "
+              f"{out.std().item():.4f} [{card}]", flush=True)
+    reset_launches()
+    kp = gn.position_net_keypoint(nets["keypoint"], x["points"], x["pmask"])
+    canny = gn.grounding_downsampler(nets["canny_down"], x["hint"], 256, grayscale=True)
+    sem = gn.grounding_downsampler(nets["sem_down"], x["sem"], 256, mode="nearest")
+    hed = gn.grounding_downsampler_hed(x["hint"])
+    total.update(expect_launches(exact_launches({}), "keypoint net and downsamplers"))
+    for what, t, shape in (("keypoint", kp, (1, KEYPOINT_PERSONS * 17, 768)),
+                           ("canny downsampler", canny, (1, 64, 64, 8)),
+                           ("sem downsampler", sem, (1, 64, 64, 8)), ("hed", hed, (1, 64, 64, 1))):
+        check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()) and t.std().item() > 0,
+              f"grounding {what}: {tuple(t.shape)}, expected {shape}")
+    print(f"grounding: keypoint tokens {tuple(kp.shape)}, canny / sem downsampled "
+          f"{tuple(canny.shape)} / {tuple(sem.shape)}, hed {tuple(hed.shape)} [{card}]",
+          flush=True)
+    return dict(total)
+
+
+def seem_backbone_configs():
+    """(name, module, config) of the SEEM backbones at their published sizes."""
+    from vitron_tpu_torch.models.seem import davit, resnet, swin
+
+    return [("swin-l", swin, swin.SwinConfig.swin_l()), ("davit-t", davit, davit.DaViTConfig()),
+            ("resnet-50", resnet, resnet.ResNetConfig.resnet50()),
+            ("resnet-101", resnet, resnet.ResNetConfig.resnet101())]
+
+
+def phase_seem_backbones(torch, card: str):
+    """(d) SEEM's other backbones at SEEM's 512x512 input, random weights,
+    float32 and then cast to bf16 (SEEM's serving cast of the backbone and
+    pixel decoder): Swin-L followed by `DeformDecoderConfig()` on its four
+    maps (5 B8 launches, the deformable attention a torch gather), DaViT-T
+    (24 B4 launches: four 3x3 depthwise convs a block), ResNet-50 and -101
+    (no kernel). Each run twice in each type, identical (the second timed);
+    every map finite; launches exact. The bf16 maps' distance from the float32 ones is
+    printed: with random weights it measures the nets' growth, not a fault."""
+    from vitron_tpu_torch.models.seem import deform_decoder as dd
+    from vitron_tpu_torch.models.seem.model import _cast
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    img = torch.from_numpy(np.random.RandomState(29).randn(1, SEEM_SIZE, SEEM_SIZE, 3)
+                           .astype(np.float32)).to(dev)
+    total = collections.Counter()
+    dcfg = dd.DeformDecoderConfig()
+    dparams = dd.init_params(g, dcfg, dev)
+    for name, mod, cfg in seem_backbone_configs():
+        params = mod.init_params(g, cfg, dev)
+        per = {}
+        if name == "davit-t":
+            per = {"depthwise_conv2d": 4 * sum(cfg.depths)}
+        elif name == "swin-l":  # each input projection's norm, two a lower FPN level
+            ntl = dcfg.num_transformer_levels
+            per = {"group_norm_sums": ntl + 2 * (len(dcfg.in_channels) - ntl)}
+
+        def run(p, x, dp):
+            feats = mod.forward(p, cfg, x)
+            if name == "swin-l":
+                mask, ms = dd.forward_features(dp, dcfg, feats)
+                feats = feats + [mask] + ms
+            return feats
+
+        results = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[-1]
+            p, dp = (params, dparams) if dtype == torch.float32 else (_cast(params, dtype),
+                                                                       _cast(dparams, dtype))
+            x = img.to(dtype)
+            outs = []
+            for i in range(2):  # the second run's time: the first tunes cuDNN's bf16 convs
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(run(p, x, dp))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                total.update(expect_launches(exact_launches(per), f"{name} {tname} run {i + 1}"))
+            check(all(bool(torch.isfinite(o.float()).all()) for o in outs[-1]),
+                  f"{name} {tname}: non-finite maps")
+            check(all(torch.equal(a, b) for a, b in zip(*outs)), f"{name} {tname}: two runs "
+                  f"differ")
+            results[tname] = outs[-1]
+            print(f"{name} {tname} at {SEEM_SIZE}x{SEEM_SIZE}"
+                  f"{' + deformable pixel decoder' if name == 'swin-l' else ''}: "
+                  f"{dt * 1e3:.2f} ms, maps {[tuple(o.shape[1:]) for o in outs[-1]]} [{card}]",
+                  flush=True)
+        rel = max((b.float() - a).abs().max().item() / a.abs().max().item()
+                  for a, b in zip(results["float32"], results["bfloat16"]))
+        print(f"{name}: bf16 maps against float32, max |bf16 - f32| / max |f32| {rel:.3e} "
+              f"(reported, not held: random weights) [{card}]", flush=True)
+        del params
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def phase_new_dw(torch, card: str):
+    """(e) B4 against its plain version at ConvNeXt-T's and DaViT-T's sites
+    (NEW_DW_SITES), float32 and bf16, as `phase_seem_kernels` holds it at
+    FocalNet-L's: within DW_TOL, PIXEL_REL of each pixel, the same bits twice."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    rows = {"dw_new": []}
+    for shape, k in NEW_DW_SITES:
+        x32 = torch.randn(shape, generator=g, device=dev)
+        w32 = torch.randn((k, k, shape[-1]), generator=g, device=dev) / k
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            r = dw_row(torch, card, x32, w32, dtype)
+            check(r["rel"] <= DW_TOL[name] and r["pixel_rel"] <= PIXEL_REL[name] and r["same"],
+                  f"depthwise_conv2d {shape} k={k} {name}: rel err {r['rel']}, pixel rel err "
+                  f"{r['pixel_rel']}, same bits twice {r['same']}")
+            rows["dw_new"].append(r)
+    print_sums("B4 at ConvNeXt-T's 7x7 sites", rows["dw_new"][:8], card)
+    print_sums("B4 at DaViT-T's 3x3 sites", rows["dw_new"][8:], card)
+    return rows
+
+
+def phase_a9_a10_cpu_vs_card(torch, card: str):
+    """(f) the CPU's plain versions against the card, float32: the hint net
+    (ConvNeXt-T at full width, resize_input 224 from a 300x260 map), Swin-L
+    at depth 1 a stage with the deformable decoder (2 layers) on 192x192, and
+    DaViT-T at depth 1 a stage on 128x128; max |card - cpu| / max |cpu|
+    within CPU_GPU_TOL."""
+    from vitron_tpu_torch.models.diffusion import grounding_nets as gn
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.models.seem import davit, deform_decoder as dd, swin
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    g = torch.Generator().manual_seed(31)
+    rs = np.random.RandomState(32)
+    hint_p = fill_zero_leaves(gn.init_hint_position_net(g, cpu, 224), g)
+    for stage in hint_p["convnext"]["stages"]:
+        for blk in stage:
+            blk["gamma"] = 0.5 + torch.rand(blk["gamma"].shape, generator=g)
+    scfg = swin.SwinConfig.swin_l(depths=(1, 1, 1, 1))
+    dcfg = dd.DeformDecoderConfig(num_layers=2)
+    acfg = davit.DaViTConfig(depths=(1, 1, 1, 1))
+    cases = {
+        "hint net": (lambda p, x: [gn.position_net_hint(p, x[0], x[1], resize_input=224)],
+                     hint_p, (torch.from_numpy(rs.rand(1, 300, 260, 3).astype(np.float32)),
+                              torch.ones((1,)))),
+        "swin-l + deform decoder": (
+            lambda p, x: (lambda f: f + [dd.forward_features(p[1], dcfg, f)[0]])(
+                swin.forward(p[0], scfg, x[0])),
+            (fill_zero_leaves(swin.init_params(g, scfg, cpu), g),
+             fill_zero_leaves(dd.init_params(g, dcfg, cpu), g)),
+            (torch.from_numpy(rs.randn(1, 192, 192, 3).astype(np.float32)),)),
+        "davit-t": (lambda p, x: davit.forward(p, acfg, x[0]),
+                    fill_zero_leaves(davit.init_params(g, acfg, cpu), g),
+                    (torch.from_numpy(rs.randn(1, 128, 128, 3).astype(np.float32)),)),
+    }
+    for name, (fn, params, args) in cases.items():
+        want = fn(params, args)
+        got = fn(tree_map(lambda a: a.to(dev), params), [a.to(dev) for a in args])
+        rel = max((b.cpu() - a).abs().max().item() / a.abs().max().item()
+                  for a, b in zip(want, got))
+        print(f"a9/a10 cpu-vs-card: {name} rel_err={rel:.3e} (limit {CPU_GPU_TOL}) [{card}]",
+              flush=True)
+        check(rel <= CPU_GPU_TOL, f"{name}: CPU and card disagree: rel {rel}")
+
+
+def timed_phase(card: str, what: str, fn, *args):
+    """fn(*args) with its seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {what}: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     card = nvidia_smi_line()
     print(card, flush=True)
@@ -3761,7 +4167,16 @@ def main() -> int:
         task_a = phase_task_a(torch, card, pipe)
         task_c = phase_task_c(torch, card, pipe)
         task_c_seem = phase_task_c_seem(torch, card, pipe, seem_params, seem_cfg)
-        del pipe, seem_params
+        del seem_params
+        style = timed_phase(card, "(a) style request", phase_style, torch, card, pipe)
+        torch.cuda.empty_cache()
+        sampler = timed_phase(card, "(b) samplers", phase_samplers, torch, card, pipe)
+        del pipe
+        torch.cuda.empty_cache()
+        grounding = timed_phase(card, "(c) grounding nets", phase_grounding, torch, card)
+        backbones = timed_phase(card, "(d) SEEM backbones", phase_seem_backbones, torch, card)
+        rows.update(timed_phase(card, "(e) B4 rows", phase_new_dw, torch, card))
+        timed_phase(card, "(f) cpu-vs-card", phase_a9_a10_cpu_vs_card, torch, card)
         torch.cuda.empty_cache()
         phase_sd_unet_bf16(torch, card, UNetConfig.sd_v1(), dev)
         phase_unet_cpu_vs_card(torch, card, UNetConfig.sd_v1(
@@ -3833,13 +4248,16 @@ def main() -> int:
                 "task_a": task_a[name], "task_f": task_f[name],
                 "task_c": task_c[name],
                 "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
-                "task_d": task_d[name], "task_g": task_g[name], "train": train[name]}
+                "task_d": task_d[name], "task_g": task_g[name], "train": train[name],
+                "style": style[name], "samplers": sampler[name], "grounding": grounding[name],
+                "seem_backbones": backbones[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)
     rows["flash"] += rows.pop("flash_f")
     rows["geglu"] += rows.pop("geglu_video") + rows.pop("geglu_video_i2v") + rows.pop("geglu_f")
     rows["gn"] += rows.pop("gn_video") + rows.pop("gn_video_i2v") + rows.pop("gn_f")
+    rows["dw"] += rows.pop("dw_new")
     rows["tconv"] += rows.pop("tconv_i2v")
     rows["tattn"] += rows.pop("tattn_i2v")
     print(json.dumps({"kernels": [

@@ -6,10 +6,11 @@ its `reference` shift-and-add: float32 to 1e-5 of the output scale (only
 the order of at most 81 products differs), bf16 to 2e-2 (output rounding).
 The grid planner (`plan`) is held on the CPU: every (pixel, channel) in
 one block, at least one block per SM of the H100's 132 at every
-FocalNet-L stage, and a block's threads and shared memory within what the
-kernel and the card take. The `cuda`-marked tests hold the hand kernel
-against its plain version on the card at FocalNet-L's shapes and ragged
-ones: within the global tolerance, within `chip_smoke.PIXEL_REL` of each
+FocalNet-L stage and at every ConvNeXt-T (7x7, GLIGEN's hint nets) and
+DaViT-T (3x3) site (`chip_smoke.NEW_DW_SITES`), and a block's threads and
+shared memory within what the kernel and the card take. The `cuda`-marked
+tests hold the hand kernel against its plain version on the card at
+FocalNet-L's, ConvNeXt-T's and DaViT-T's shapes and ragged ones: within the global tolerance, within `chip_smoke.PIXEL_REL` of each
 output pixel's largest |plain|, the same bits twice; and check that
 unsupported kernels and dtypes raise. JAX is imported inside the CPU tests
 only.
@@ -96,8 +97,11 @@ FOCALNET_STAGES = [(1, 128, 128, 192), (1, 64, 64, 384), (1, 32, 32, 768), (1, 1
 RAGGED = [(2, 37, 53, 200), (1, 5, 3, 48), (3, 1, 70, 33), (2, 9, 130, 20)]
 
 
+NEW_STAGES = [shape for shape, _ in chip_smoke.NEW_DW_SITES]
+
+
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("shape", FOCALNET_STAGES + RAGGED)
+@pytest.mark.parametrize("shape", FOCALNET_STAGES + RAGGED + NEW_STAGES)
 def test_grid_covers_every_pixel_and_channel_once(shape, itemsize):
     """The blocks of `plan` tile [B, H, W, C] exactly once, as the kernel
     reads its block indices, at every kernel size; their threads and shared
@@ -130,15 +134,28 @@ def test_grid_fills_the_card_at_every_focalnet_stage(shape, itemsize):
         assert p.blocks >= dw.SM_COUNT and p.vec == 16 // itemsize, k
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("site", chip_smoke.NEW_DW_SITES, ids=str)
+def test_grid_fills_the_card_at_convnext_and_davit_sites(site, itemsize):
+    """ConvNeXt-T's 7x7 stages at a 448 hint and DaViT-T's 3x3 stages at
+    512x512: at least one block for each SM, in both types (the 16-lane
+    plan of the narrow bf16 maps gives too few and yields to 8 lanes)."""
+    shape, k = site
+    p = dw.plan(*shape, k, itemsize)
+    assert p.blocks >= dw.SM_COUNT and p.vec == 16 // itemsize, p
+
+
 # ---------------------------------------------------------------- on the card
 
-# FocalNet-L at a 512x512 input (stage x, k = 3/5/7/9) and ragged cases
+# FocalNet-L at a 512x512 input (stage x, k = 3/5/7/9), ragged cases, and
+# ConvNeXt-T's and DaViT-T's sites
 DW_SITES = ([((1, 128, 128, 192), k) for k in (3, 5, 7, 9)]
             + [((1, 64, 64, 384), k) for k in (3, 5, 7, 9)]
             + [((1, 32, 32, 768), k) for k in (3, 5, 7, 9)]
             + [((1, 16, 16, 1536), k) for k in (3, 5, 7, 9)]
             + [((2, 37, 53, 200), 5), ((1, 5, 3, 48), 9), ((3, 1, 70, 33), 7),
-               ((2, 9, 130, 20), 3)])
+               ((2, 9, 130, 20), 3)]
+            + list(chip_smoke.NEW_DW_SITES))
 
 
 @pytest.mark.cuda

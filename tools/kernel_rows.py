@@ -21,8 +21,9 @@ each run, the smoke's method up to PR 9, which leaves ~50 MB of dirty lines
 in L2 whose write-back lands on the timed call. B9's rows are the smoke's
 `conv3x3_row` at `b9_sites` (task G's 16 eligible 3x3 convs, float32 and
 bf16, CUDA events, beside cuDNN's bf16 conv), B4's its `dw_row` at
-`DW_SHAPES` (FocalNet-L's 16 sites and a ragged one, float32 and bf16,
-CUDA-graph replay, beside F.conv2d(groups=C)), each with its bound, error
+`DW_SHAPES` (FocalNet-L's 16 sites and a ragged one) and `NEW_DW_SITES`
+(ConvNeXt-T's and DaViT-T's 8, where the checkout has them), float32 and
+bf16, CUDA-graph replay, beside F.conv2d(groups=C)), each with its bound, error
 at the largest output and at each pixel's scale, and the same bits twice.
 `--kernels` picks which of the four to time. `--out` writes the rows as
 JSON. Needs one CUDA device.
@@ -86,7 +87,7 @@ def main() -> int:
                 del x32, w32
                 torch.cuda.empty_cache()
         if "B4" in kernels:
-            for shape, k in smoke.DW_SHAPES:
+            for shape, k in list(smoke.DW_SHAPES) + list(getattr(smoke, "NEW_DW_SITES", ())):
                 x32 = torch.randn(shape, generator=g, device=dev)
                 w32 = torch.randn((k, k, shape[-1]), generator=g, device=dev) / k
                 for dtype in (torch.float32, torch.bfloat16):

@@ -79,26 +79,33 @@ def plan(b: int, h: int, w: int, c: int, k: int, itemsize: int) -> DwPlan:
     kernel, from a sweep of block shapes at FocalNet-L's sites on the H100
     (PERF.md section 6). Up to 32 x 32 pixels at k <= 5 a block computes one
     output row with 16 lanes (128 bf16 or 64 float32 channels), and so do
-    the 16 x 16 images at k = 7; otherwise 8 lanes and segments of H short
-    enough for WANT_BLOCKS blocks (half as many at k >= 7 on larger images,
-    whose rows cost more FMAs than loads), and at least one block for each
-    SM. A ragged C takes 32 one-channel lanes. Strips are up to 64 columns
-    wide, fewer where the ring would not fit."""
+    the 16 x 16 images at k = 7, unless that gives fewer blocks than SMs
+    (ConvNeXt-T's and DaViT-T's narrower maps in bf16); otherwise 8 lanes
+    and segments of H short enough for WANT_BLOCKS blocks (half as many at
+    k >= 7 on larger images, whose rows cost more FMAs than loads), and at
+    least one block for each SM. A ragged C takes 32 one-channel lanes.
+    Strips are up to 64 columns wide, fewer where the ring would not fit."""
     full = 16 // itemsize
     vec = full if c % full == 0 else 1
     small = h * w <= 32 * 32
     wide = k <= 5 or (k == 7 and h * w <= 16 * 16)
-    lanes = 32 if vec == 1 else (16 if small and wide else 8)
-    tw = min(64, MAX_THREADS * COLS // lanes, -(-w // COLS) * COLS)
-    while tw > COLS and _smem_bytes(k, tw, lanes * vec, itemsize) > SMEM_LIMIT:
-        tw = max(COLS, tw // 2 // COLS * COLS)
-    per_seg = b * -(-c // (lanes * vec)) * -(-w // tw)
-    want = WANT_BLOCKS // 2 if k >= 7 and not small else WANT_BLOCKS
-    hs = 1 if small and k <= 5 else -(-h // min(h, -(-want // per_seg)))
-    while hs > 1 and per_seg * -(-h // hs) < SM_COUNT:
-        hs -= 1
-    return DwPlan(vec, lanes, tw, hs, (-(-c // (lanes * vec)), -(-w // tw), b * -(-h // hs)),
-                  itemsize)
+
+    def grid_for(lanes: int) -> DwPlan:
+        tw = min(64, MAX_THREADS * COLS // lanes, -(-w // COLS) * COLS)
+        while tw > COLS and _smem_bytes(k, tw, lanes * vec, itemsize) > SMEM_LIMIT:
+            tw = max(COLS, tw // 2 // COLS * COLS)
+        per_seg = b * -(-c // (lanes * vec)) * -(-w // tw)
+        want = WANT_BLOCKS // 2 if k >= 7 and not small else WANT_BLOCKS
+        hs = 1 if small and k <= 5 else -(-h // min(h, -(-want // per_seg)))
+        while hs > 1 and per_seg * -(-h // hs) < SM_COUNT:
+            hs -= 1
+        return DwPlan(vec, lanes, tw, hs, (-(-c // (lanes * vec)), -(-w // tw),
+                                           b * -(-h // hs)), itemsize)
+
+    if vec == 1:
+        return grid_for(32)
+    p = grid_for(16) if small and wide else None
+    return p if p is not None and p.blocks >= SM_COUNT else grid_for(8)
 
 
 def _taps(w: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ resample whose kernel is widened by the downscale factor (antialiasing).
 `F.interpolate` uses another cubic (a = -0.75) and no antialias for
 bicubic, so the resample is ported as such: the per-axis weight matrices
 are built in numpy exactly as JAX builds them (float32) and applied with
-two einsums. `_resize_hw` also serves SEEM's resizes (images, stroke and
-attention masks), with `antialias=False` where the JAX code turns it off.
+two einsums; "nearest" gathers the source rows and columns JAX's rule
+picks. `_resize_hw` also serves SEEM's resizes (images, stroke and
+attention masks) and the GLIGEN grounding nets' hint resizes (nearest, and
+cubic with `antialias=False` where the JAX code turns it off).
 """
 from __future__ import annotations
 
@@ -56,10 +58,26 @@ def _weight_mat(in_size: int, out_size: int, method: str, antialias: bool = True
     return np.where(inside[None, :], w, 0).astype(f32)
 
 
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """jax.image.resize's "nearest" source index of each output pixel:
+    floor((i + 0.5) * in / out), computed in float32 as JAX computes it."""
+    f32 = np.float32
+    offsets = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(in_size) / f32(out_size)
+    return np.floor(offsets).astype(np.int64)
+
+
 def _resize_hw(img: torch.Tensor, nh: int, nw: int, method: str,
                antialias: bool = True) -> torch.Tensor:
-    """Separable resample of [..., H, W, C] to [..., nh, nw, C]."""
+    """Separable resample of [..., H, W, C] to [..., nh, nw, C]: "cubic" and
+    "linear" by the weight matrices of `_weight_mat`, "nearest" by JAX's
+    index rule (`_nearest_index`; antialias does not apply to it)."""
     h, w = img.shape[-3], img.shape[-2]
+    if method == "nearest":
+        if h != nh:
+            img = img[..., torch.from_numpy(_nearest_index(h, nh)).to(img.device), :, :]
+        if w != nw:
+            img = img[..., torch.from_numpy(_nearest_index(w, nw)).to(img.device), :]
+        return img
     if h != nh:
         wh = torch.from_numpy(_weight_mat(h, nh, method, antialias)).to(img.device, img.dtype)
         img = torch.einsum("...hwc,hH->...Hwc", img, wh)

@@ -12,8 +12,16 @@ and masked latent as 5 extra UNet input channels), and the VAE decode.
 source resize), the random draws from an explicit `torch.Generator` (the
 initial latent x_T and, for inpainting, one noise tensor per step), then
 `run` (the device half), which takes those draws as inputs: a caller can
-hand it the same x_T and noise as the JAX `run` body draws. `GligenStylePipeline` and the checkpoint loader
-wait (ROADMAP A9, A7).
+hand it the same x_T and noise as the JAX `run` body draws.
+
+`GligenStylePipeline` (:283) is the text + image grounded pipeline of
+GLIGEN's style checkpoints: each box carries a phrase's pooled CLIP text
+feature and a style crop's pooled CLIP image feature (ViT-L/14 through
+`vit.forward_pooled`, the visual projection, and GLIGEN's projection matrix
+through `reproject_image_feature`), which `layers.position_net_with_image`
+turns into 2 x max_objs grounding tokens. `generate_styled` splits the same
+way: `prepare_styled` on the host, then `run_styled` on the device from a
+given x_T. The checkpoint loader waits (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ import numpy as np
 import torch
 
 from vitron_tpu_torch.models.diffusion import clip_text, samplers, unet2d, vae
+from vitron_tpu_torch.models.diffusion.layers import position_net_with_image
 from vitron_tpu_torch.models.diffusion.vae import SD_SCALE_FACTOR
+from vitron_tpu_torch.models.vision import vit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +98,13 @@ class GligenPipeline:
         tok = self.tokenizer(texts, padding="max_length", max_length=self.cfg.text.max_length,
                              truncation=True, return_tensors="np")
         return np.asarray(tok["input_ids"])
+
+    def pooled_text_features(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """[N, 77] ids -> [N, hidden]: the final-LN hidden state at the EOS
+        (argmax id) position, CLIP's pooler output."""
+        hidden = clip_text.encode(self.text_params, self.cfg.text, token_ids)
+        eos = token_ids.argmax(dim=-1)
+        return hidden[torch.arange(hidden.shape[0], device=hidden.device), eos]
 
     def _eps_fn(self, params, context, uc_context, boxes, masks, text_emb, guidance_scale,
                 extra_channels=None):
@@ -187,9 +204,7 @@ class GligenPipeline:
         gates = samplers.alpha_generator(steps, alpha_type)
         context = clip_text.encode(self.text_params, cfg.text, ids_ctx)
         uc = clip_text.encode(self.text_params, cfg.text, ids_uc)
-        hidden = clip_text.encode(self.text_params, cfg.text, phrase_ids)
-        eos = phrase_ids.argmax(dim=-1)
-        pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), eos]
+        pooled = self.pooled_text_features(phrase_ids)
         gt = (pooled * gm[0][:, None]).to(torch.float32)[None]
         extra = mask_blend = None
         if inpaint_img is not None:
@@ -203,6 +218,126 @@ class GligenPipeline:
                            extra_channels=extra)
         x = samplers.plms_sample(eps, x_t, sched, steps, gate_alphas=gates,
                                  mask_blend=mask_blend)
-        img = vae.decode(self.vae_params, cfg.vae, x / SD_SCALE_FACTOR)[0]
-        img = img.clamp(-1, 1) * 0.5 + 0.5
-        return (img * 255).to(torch.uint8)
+        return _decode_uint8(self.vae_params, cfg.vae, x)
+
+
+def reproject_image_feature(feature: torch.Tensor, projection_matrix: torch.Tensor) -> torch.Tensor:
+    """GLIGEN's 'after_reproject' image-feature transform: through the
+    learned matrix (transposed), L2-normalised, scaled to norm 28.7."""
+    f = feature @ projection_matrix.T
+    f = f / (torch.linalg.vector_norm(f, dim=-1, keepdim=True) + 1e-12)
+    return f * 28.7
+
+
+def _decode_uint8(vae_params, vcfg, x) -> torch.Tensor:
+    img = vae.decode(vae_params, vcfg, x / SD_SCALE_FACTOR)[0]
+    return ((img.clamp(-1, 1) * 0.5 + 0.5) * 255).to(torch.uint8)
+
+
+class GligenStylePipeline(GligenPipeline):
+    """Text + image grounded (style) generation. Needs a UNet whose
+    `position_net` is the with-image one, the CLIP vision tower and its
+    visual projection, and GLIGEN's projection matrix."""
+
+    def __init__(self, cfg, unet_params, vae_params, text_params, vision_params=None,
+                 vision_cfg=None, visual_proj=None, projection_matrix=None, tokenizer=None):
+        super().__init__(cfg, unet_params, vae_params, text_params, tokenizer=tokenizer)
+        self.vision_params = vision_params
+        self.vision_cfg = vision_cfg
+        self.visual_proj = visual_proj
+        self.projection_matrix = projection_matrix
+
+    def image_features(self, images: torch.Tensor) -> torch.Tensor:
+        """[N, S, S, 3] preprocessed style crops -> [N, context_dim] grounding
+        features: pooled CLIP image embeddings, reprojected and renormed."""
+        pooled = vit.forward_pooled(self.vision_params, self.vision_cfg, images, self.visual_proj)
+        if self.projection_matrix is not None:
+            pooled = reproject_image_feature(pooled, self.projection_matrix)
+        return pooled
+
+    def prepare_styled(self, prompt: str, boxes: Sequence[Sequence[float]],
+                       phrases: Sequence[str], style_images, has_text_mask: float = 1.0,
+                       has_image_mask: float = 1.0, negative_prompt: str = "") -> Dict[str, Any]:
+        """Host half of `generate_styled`: tokens, the packed boxes and slot
+        masks, and for each slot i < len(boxes) the phrase and style image
+        it takes, min(i, n - 1) of each (as `run_styled`'s keyword
+        arguments, on the device)."""
+        cfg = self.cfg
+        dev = self.device
+        mo = cfg.max_objs
+        style = torch.as_tensor(style_images, dtype=torch.float32).to(dev)
+        gb, gm, _ = pack_grounding(boxes, np.zeros((len(boxes), 1)), mo, 1)
+        n = min(len(boxes), mo)
+        phrase_slot = np.zeros((mo,), np.int64)
+        image_slot = np.zeros((mo,), np.int64)
+        phrase_slot[:n] = np.minimum(np.arange(n), len(phrases) - 1)
+        image_slot[:n] = np.minimum(np.arange(n), style.shape[0] - 1)
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+        return {"ids_ctx": t(self.tokenize([prompt]), torch.int64),
+                "ids_uc": t(self.tokenize([negative_prompt]), torch.int64),
+                "phrase_ids": t(self.tokenize(list(phrases)), torch.int64),
+                "style_images": style, "gb": t(gb)[None], "gm": t(gm)[None],
+                "tm": t(gm * np.float32(has_text_mask))[None],
+                "im": t(gm * np.float32(has_image_mask))[None],
+                "phrase_slot": t(phrase_slot, torch.int64),
+                "image_slot": t(image_slot, torch.int64)}
+
+    def grounding_tokens_styled(self, phrase_ids, style_images, gb, gm, tm, im, phrase_slot,
+                                image_slot) -> torch.Tensor:
+        """[1, 2 max_objs, context_dim]: the with-image PositionNet over each
+        slot's pooled phrase feature and style feature (zero in empty slots)."""
+        keep = gm[0][:, None]
+        gt = self.pooled_text_features(phrase_ids)[phrase_slot] * keep
+        gi = self.image_features(style_images)[image_slot] * keep
+        return position_net_with_image(self.unet_params["position_net"], gb, gm, tm, im,
+                                       gt.to(torch.float32)[None], gi.to(torch.float32)[None])
+
+    def run_styled(self, ids_ctx, ids_uc, phrase_ids, style_images, gb, gm, tm, im, phrase_slot,
+                   image_slot, x_t, steps: int, guidance_scale: float,
+                   alpha_type: Tuple[float, ...]) -> torch.Tensor:
+        """Device half of `generate_styled`: text and image features, the
+        grounding tokens, PLMS from x_t [1, h, w, 4] with classifier-free
+        guidance in one batched UNet call a step, VAE decode -> [H, W, 3]
+        uint8."""
+        cfg = self.cfg
+        context = clip_text.encode(self.text_params, cfg.text, ids_ctx)
+        uc = clip_text.encode(self.text_params, cfg.text, ids_uc)
+        objs = self.grounding_tokens_styled(phrase_ids, style_images, gb, gm, tm, im,
+                                            phrase_slot, image_slot)
+        objs2 = torch.cat([objs, objs], dim=0)
+        ctx2 = torch.cat([context, uc], dim=0)
+
+        def eps(x, t, gate):
+            tt = torch.full((2,), t, dtype=torch.int64, device=x.device)
+            e_c, e_uc = unet2d.forward(self.unet_params, cfg.unet, torch.cat([x, x], dim=0), tt,
+                                       ctx2, objs2, gate).chunk(2)
+            return e_uc + guidance_scale * (e_c - e_uc)
+
+        sched = samplers.DiffusionSchedule.create("linear", 1000, 0.00085, 0.012)
+        gates = samplers.alpha_generator(steps, alpha_type)
+        x = samplers.plms_sample(eps, x_t, sched, steps, gate_alphas=gates)
+        return _decode_uint8(self.vae_params, cfg.vae, x)
+
+    def generate_styled(self, prompt: str, boxes: Sequence[Sequence[float]],
+                        phrases: Sequence[str], style_images, has_text_mask: float = 1.0,
+                        has_image_mask: float = 1.0, negative_prompt: str = "",
+                        guidance_scale: float = 7.5,
+                        alpha_type: Sequence[float] = (0.3, 0.0, 0.7),
+                        gen: Optional[torch.Generator] = None,
+                        steps: Optional[int] = None) -> torch.Tensor:
+        """-> [H, W, 3] uint8 image grounded on per-box phrases and style
+        crops [N, S, S, 3] (preprocessed for the vision tower). `gen` (seed 0
+        when None) draws x_T on the pipeline's device."""
+        cfg = self.cfg
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        inputs = self.prepare_styled(prompt, boxes, phrases, style_images, has_text_mask,
+                                     has_image_mask, negative_prompt)
+        x_t = torch.randn((1, cfg.latent_size, cfg.latent_size, cfg.unet.out_channels),
+                          generator=gen, device=self.device)
+        return self.run_styled(**inputs, x_t=x_t, steps=steps or cfg.steps,
+                               guidance_scale=float(guidance_scale),
+                               alpha_type=tuple(alpha_type))

@@ -10,8 +10,9 @@ of at least `VITRON_FLASH_MIN` (1024) query and key tokens to
 package does on the TPU. CPU tensors take the same code with the kernels'
 plain versions and the einsum attention path.
 
-The checkpoint converters (:334-469) wait for the loaders (ROADMAP A7) and
-`position_net_with_image` for the style pipeline.
+`position_net_with_image` (:429) is the style pipeline's text + image
+grounding net. The checkpoint converters (:334-469) wait for the loaders
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -205,7 +206,29 @@ def position_net(p: Dict[str, Any], boxes, masks, text_embeddings,
     xyxy = fourier_embed(boxes, fourier_freqs)
     text = text_embeddings * m + (1 - m) * p["null_positive"]
     xyxy = xyxy * m + (1 - m) * p["null_position"]
-    h = torch.cat([text, xyxy], dim=-1)
+    return _mlp3(p, torch.cat([text, xyxy], dim=-1))
+
+
+def _mlp3(p: Dict[str, Any], h) -> torch.Tensor:
+    """Linear, SiLU, Linear, SiLU, Linear."""
     h = F.silu(h @ p["w0"] + p["b0"])
     h = F.silu(h @ p["w1"] + p["b1"])
     return h @ p["w2"] + p["b2"]
+
+
+def position_net_with_image(p: Dict[str, Any], boxes, masks, text_masks, image_masks,
+                            text_embeddings, image_embeddings,
+                            fourier_freqs: int = 8) -> torch.Tensor:
+    """GLIGEN text + image PositionNet: a text and an image MLP branch, each
+    over [features, Fourier xyxy], concatenated to 2N grounding tokens.
+    Masked-out features take the learned null text / image / position
+    embeddings. boxes [B, N, 4]; masks, text_masks, image_masks [B, N];
+    text and image embeddings [B, N, context_dim]."""
+    m, tm, im = masks[..., None], text_masks[..., None], image_masks[..., None]
+    xyxy = fourier_embed(boxes, fourier_freqs)
+    text = text_embeddings * tm + (1 - tm) * p["null_text"]
+    image = image_embeddings * im + (1 - im) * p["null_image"]
+    xyxy = xyxy * m + (1 - m) * p["null_position"]
+    objs_text = _mlp3(p["text"], torch.cat([text, xyxy], dim=-1))
+    objs_image = _mlp3(p["image"], torch.cat([image, xyxy], dim=-1))
+    return torch.cat([objs_text, objs_image], dim=1)

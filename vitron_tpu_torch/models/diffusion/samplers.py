@@ -1,15 +1,18 @@
 """Diffusion samplers and the ldm noise schedules.
 
-Port of the parts of `vitron_tpu/models/diffusion/samplers.py` that the
-ported pipelines use: the beta schedules, the zero-terminal-SNR rescale and
-the DDIM arrays (numpy, as in JAX), the gated-attention alpha schedule,
-`_x_prev` and `plms_sample` (GLIGEN), and `ddim_sample_v` (the v-prediction
-DDIM of the video pipelines). Each JAX `lax.scan` becomes a Python loop;
-PLMS's `lax.switch` over the multistep order resolves on the host: Heun on
-step 0 only, then Adams-Bashforth of order 2, 3 and 4. Step coefficients
-are float32 scalars computed in numpy, so the latent math matches the JAX
-float32 arithmetic. `ddim_sample` (eps DDIM) and DPM-Solver++(2M) are on no
-ported path and wait (ROADMAP A11).
+Port of `vitron_tpu/models/diffusion/samplers.py`: the beta schedules, the
+zero-terminal-SNR rescale and the DDIM arrays (numpy, as in JAX), the
+gated-attention alpha schedule, `_x_prev`, `ddim_sample` (eps DDIM with eta,
+the gate schedule and the inpainting composite), `plms_sample` (GLIGEN),
+`ddim_sample_v` (the v-prediction DDIM of the video pipelines),
+`dpm_solver_pp_2m` (DPM-Solver++(2M), trailing timesteps) and `cfg_eps`.
+Each JAX `lax.scan` becomes a Python loop, and each `lax.switch` /
+`lax.cond` over the multistep order resolves on the host: PLMS takes Heun
+on step 0 only, then Adams-Bashforth of order 2, 3 and 4; DPM-Solver++ a
+first-order step, then 2M. Step coefficients are float32 scalars computed
+in numpy, so the latent math matches the JAX float32 arithmetic. A step's
+noise comes in as a tensor or from a `torch.Generator`, so a caller can hand
+over the noise the JAX loop draws from its keys.
 """
 from __future__ import annotations
 
@@ -106,6 +109,38 @@ def _x_prev(x, e_t, a_t, a_prev, sigma=np.float32(0.0), noise=None):
     return x_new, pred_x0
 
 
+def ddim_sample(eps_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule, num_steps: int,
+                eta: float = 0.0, gate_alphas: Optional[np.ndarray] = None,
+                mask_blend: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                noise: Optional[torch.Tensor] = None, blend_noise: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """eps DDIM, descending over the uniform timesteps. `eps_fn(x, t, gate)`.
+    mask_blend = (keep mask, x0) re-noises x0 to each step's t and keeps it
+    where the mask is 1 (the inpainting composite). A step with sigma > 0
+    (eta > 0) takes its update noise and, with mask_blend, every step its
+    re-noise: from `noise` / `blend_noise` [num_steps, *x.shape] where given,
+    else drawn from `gen`."""
+    ts, alphas, alphas_prev, sigmas = make_ddim_arrays(sched, num_steps, eta)
+    order = np.arange(num_steps)[::-1]
+    steps, a_t, a_prev, sig = ts[order], alphas[order], alphas_prev[order], sigmas[order]
+    gates = (gate_alphas[np.arange(num_steps)] if gate_alphas is not None
+             else np.ones(num_steps, np.float32))
+
+    def draw(given, i):
+        if given is not None:
+            return given[i]
+        return torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+
+    for i in range(num_steps):
+        t = int(steps[i])
+        if mask_blend is not None:
+            mask, x0 = mask_blend
+            x = sched.q_sample(x0, t, draw(blend_noise, i)) * mask + (1.0 - mask) * x
+        e_t = eps_fn(x, t, float(gates[i]))
+        x, _ = _x_prev(x, e_t, a_t[i], a_prev[i], sig[i], draw(noise, i) if sig[i] else None)
+    return x
+
+
 def plms_sample(eps_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule, num_steps: int,
                 gate_alphas: Optional[np.ndarray] = None,
                 mask_blend: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
@@ -181,3 +216,61 @@ def ddim_sample_v(v_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule, num
             x = x + float(s) * torch.randn(x.shape, generator=gen, dtype=x.dtype,
                                            device=x.device)
     return x
+
+
+def dpm_solver_pp_2m(eps_fn: Callable, x: torch.Tensor, sched: DiffusionSchedule,
+                     num_steps: int, gate_alphas: Optional[np.ndarray] = None) -> torch.Tensor:
+    """DPM-Solver++(2M), eps prediction, final x0 output, over the trailing
+    uniform timesteps T - 1 ... 0: a first-order step, then the 2M update
+    from the last two x0 estimates. The last step goes to lambda at t = 0
+    with sigma_prev = sqrt(1 - ac[0]) * 1e-3. `eps_fn(x, t, gate)`."""
+    ac = np.asarray(sched.alphas_cumprod, np.float64)
+    T = sched.num_timesteps
+    ts = np.linspace(T - 1, 0, num_steps + 1).round().astype(int)[:-1]
+    alpha_t = np.sqrt(ac[ts])
+    sigma_t = np.sqrt(1 - ac[ts])
+    lam = np.log(alpha_t) - np.log(sigma_t)
+    alpha_prev = np.concatenate([alpha_t[1:], [1.0]])
+    sigma_prev = np.concatenate([sigma_t[1:], [np.sqrt(1 - ac[0]) * 1e-3]])
+    lam_prev = np.log(alpha_prev) - np.log(sigma_prev)
+    gates = (gate_alphas[np.arange(num_steps)] if gate_alphas is not None
+             else np.ones(num_steps, np.float32))
+    f32 = np.float32
+    a_j, s_j, l_j = alpha_t.astype(f32), sigma_t.astype(f32), lam.astype(f32)
+    ap_j, sp_j, lp_j = alpha_prev.astype(f32), sigma_prev.astype(f32), lam_prev.astype(f32)
+    x0_prev = None
+    for i in range(num_steps):
+        eps = eps_fn(x, int(ts[i]), float(gates[i]))
+        x0 = (x - float(s_j[i]) * eps) / float(a_j[i])
+        h = lp_j[i] - l_j[i]
+        if x0_prev is None:
+            x0_bar = x0
+        else:
+            r = (l_j[i] - l_j[i - 1]) / h
+            x0_bar = float(1 + 1 / (2 * r)) * x0 - float(1 / (2 * r)) * x0_prev
+        x = float(sp_j[i] / s_j[i]) * x - float(ap_j[i] * np.expm1(-h)) * x0_bar
+        x0_prev = x0
+    return x
+
+
+def cfg_eps(model_fn: Callable, guidance_scale: float) -> Callable:
+    """Classifier-free guidance around `model_fn(x, t, context, gate, **kw)`:
+    cond and uncond batched into one call, e_uc + s (e_c - e_uc). Tensor
+    keyword arguments with a batch axis are doubled; a scale of 1 makes one
+    conditional call."""
+
+    def eps(x, t, context, uc_context, gate, **kw):
+        if guidance_scale == 1.0:
+            return model_fn(x, t, context, gate, **kw)
+        xx = torch.cat([x, x], dim=0)
+        if torch.is_tensor(t) and t.dim() > 0:
+            tt = torch.cat([t, t])
+        else:
+            tt = torch.full((xx.shape[0],), int(t), dtype=torch.int64, device=x.device)
+        cc = torch.cat([context, uc_context], dim=0)
+        kw2 = {k: (torch.cat([v, v], dim=0) if torch.is_tensor(v) and v.dim() > 0 else v)
+               for k, v in kw.items()}
+        e_c, e_uc = model_fn(xx, tt, cc, gate, **kw2).chunk(2)
+        return e_uc + guidance_scale * (e_c - e_uc)
+
+    return eps

@@ -173,14 +173,40 @@ def init_params(gen: torch.Generator, cfg: UNetConfig, device,
         "out_w": conv(3, mc, cfg.out_channels, zero=True), "out_b": zeros(cfg.out_channels),
     }
     if grounding:
-        pos_dim = 8 * 2 * 4
-        params["position_net"] = {
-            "null_positive": zeros(cfg.context_dim), "null_position": zeros(pos_dim),
-            "w0": lin(cfg.context_dim + pos_dim, 512), "b0": zeros(512),
-            "w1": lin(512, 512), "b1": zeros(512),
-            "w2": lin(512, cfg.context_dim), "b2": zeros(cfg.context_dim),
-        }
+        params["position_net"] = {"null_positive": zeros(cfg.context_dim),
+                                  "null_position": zeros(POSITION_DIM),
+                                  **_position_mlp(lin, zeros, cfg.context_dim)}
     return params
+
+
+POSITION_DIM = 8 * 2 * 4  # Fourier xyxy: 8 bands, sin and cos, 4 coordinates
+POSITION_HIDDEN = 512     # GLIGEN's PositionNet MLP width
+
+
+def _position_mlp(lin, zeros, context_dim: int) -> Dict[str, Any]:
+    """[features, Fourier xyxy] -> 512 -> 512 -> context_dim."""
+    h = POSITION_HIDDEN
+    return {"w0": lin(context_dim + POSITION_DIM, h), "b0": zeros(h),
+            "w1": lin(h, h), "b1": zeros(h),
+            "w2": lin(h, context_dim), "b2": zeros(context_dim)}
+
+
+def init_position_net_with_image(gen: torch.Generator, cfg: UNetConfig,
+                                 device) -> Dict[str, Any]:
+    """The text + image PositionNet of GLIGEN's style checkpoints
+    (`layers.position_net_with_image`): null text, image and position
+    embeddings (zero, as at GLIGEN's init), and a text and an image MLP of
+    the text net's widths (768 + 64 -> 512 -> 512 -> 768 for SD v1.4)."""
+    def lin(cin, cout):
+        return (torch.randn((cin, cout), generator=gen, dtype=torch.float32, device=device)
+                / math.sqrt(cin))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    cd = cfg.context_dim
+    return {"null_text": zeros(cd), "null_image": zeros(cd), "null_position": zeros(POSITION_DIM),
+            "text": _position_mlp(lin, zeros, cd), "image": _position_mlp(lin, zeros, cd)}
 
 
 # ------------------------------------------------------------------ forward

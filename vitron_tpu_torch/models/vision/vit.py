@@ -2,7 +2,9 @@
 
 Port of `vitron_tpu/models/vision/vit.py`: ViT-L/14 at 224x224, pre-LN,
 quick_gelu MLP; the image feature is hidden_states[select_layer][:, 1:], so
-only `num_layers + 1 + select_layer` layers run (23 for ViT-L). The video
+only `num_layers + 1 + select_layer` layers run (23 for ViT-L);
+`forward_pooled` runs all of them for CLIP's pooled embedding (GLIGEN's
+style features). The video
 tower adds, per layer, a temporal position embedding and temporal
 self-attention over the frame axis before the spatial attention. Layers are
 stacked [L, ...] leaves indexed in a Python loop; attention is the plain
@@ -168,6 +170,19 @@ def forward_features(params, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tens
     for i in range(_num_run_layers(cfg)):
         x = _spatial_block(x, _layer(params["layers"], i), cfg)
     return x[:, 1:]  # drop CLS
+
+
+def forward_pooled(params, cfg: ViTConfig, pixels: torch.Tensor,
+                   visual_proj: torch.Tensor = None) -> torch.Tensor:
+    """CLIP pooled image embedding: every layer runs (not `_num_run_layers`),
+    then the post-LN CLS token and the optional visual projection.
+    [B, H, W, 3] -> [B, hidden] or [B, proj]."""
+    x = embed(params, cfg, pixels)
+    x = layer_norm(x, params["pre_ln"], cfg.layer_norm_eps)
+    for i in range(cfg.num_layers):
+        x = _spatial_block(x, _layer(params["layers"], i), cfg)
+    pooled = layer_norm(x[:, 0], params["post_ln"], cfg.layer_norm_eps)
+    return pooled if visual_proj is None else pooled @ visual_proj
 
 
 def forward_video_features(params, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tensor:
