@@ -210,8 +210,35 @@ Phases (any failure exits non-zero and prints no `ok` line):
    and B2/B5 on their tensor-core paths) against the CPU's plain versions
    in bf16, every gradient by cosine and relative norm
    (TRAIN_BF16_GRAD_LIMIT).
-Then one line lists each bf16 B2 row (the 17 of phases 3, 4, 5b, 5d and 18
-that every main path's type gives it) with its kernel ms beside
+21. the diffusion trainers' kernels: B2 with its LSE, B5a and B5b in bf16 at
+   the GLIGEN step's four flash sites ([2, 4096, 8, 40] and [2, 1024, 8, 80]
+   self-attention, [2, 4126, 8, 40] and [2, 1054, 8, 80] fusers) and at D
+   160 ([2, 1024, 8, 160]), non-causal, shift 0: errors, each dq query row
+   and dk/dv key row within FLASH_BWD_ROW_REL, the same bits twice, times
+   beside the bound and the SDPA backward; B8 at every shape of the GLIGEN
+   step (float32); B6, B7, B3, B8 at every shape of the video step
+   (float32, 1 x VIDEO_TRAIN_FRAMES frames of 32x32); then each new
+   autograd.Function (B3, B4, B6, B7, B8) at one site: a grad_fn under
+   grad, its launches (B6's and B4's dx launch their kernels), the card's
+   gradients against the CPU's autograd of the plain version, the same bits
+   twice.
+22. the GLIGEN trainer at full width (`GligenConfig()`, batch 2 of VAE
+   latents of seeded 512^2 images, CLIP-L context and phrases, 30 slots,
+   AdamW 5e-5), GLIGEN_TRAIN_STEPS steps twice from the same state: equal
+   losses, frozen tensors bit-equal, trainable ones moved, finite gradients,
+   each step's launches from the block plan; step seconds, peak memory, a
+   profiled step.
+23. the video trainer at full width (the 4.4B t2v UNet, float32,
+   `VideoTrainConfig()` with the EMA, the value clip and Adafactor at
+   `annealing_lr`), batch 1 of VIDEO_TRAIN_FRAMES frames of 32x32 latents,
+   VIDEO_TRAIN_STEPS steps twice from the same seeded state: as 22.
+24. each trainer's step on the CPU and the card at one level: GLIGEN with
+   bf16 flash on the card against float32 einsum on the CPU
+   (GLIGEN_BF16_GRAD_LIMIT), the video UNet float32 on both
+   (TRAIN_CPU_GPU_TOL); the updated tensors and EMA against the CPU's
+   optimizer on the card's gradients (UPDATE_TOL).
+Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
+and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
 with one entry per kernel (with its launches on each main path); the last
 line is {"ok": true, "device": {...}}.
@@ -1402,26 +1429,27 @@ def phase_video_kernels(torch, card: str):
                              t2v.text.max_length, seed=9)
 
 
-def video_flash_sites(ucfg, lh: int, lw: int, frames: int, n_ctx: int, encode: bool):
+def video_flash_sites(ucfg, lh: int, lw: int, frames: int, n_ctx: int, encode: bool,
+                      batch: int = 2, vae: bool = True):
     """(what, B, S, T, heads, D) of B2 on a video path: the VAE's
-    single-head mid attention at D 512 (the decode of the frames and, with
-    `encode`, the encode of one image) and the UNet's spatial sites (CFG
-    batch 2 x `frames`) that reach VITRON_FLASH_MIN (self-attention;
-    cross-attention when the `n_ctx` context tokens do too), non-causal,
-    shift 0, bf16 as `layers._mha` calls it."""
+    single-head mid attention at D 512 (with `vae`, the decode of the frames
+    and, with `encode`, the encode of one image) and the UNet's spatial
+    sites (`batch` x `frames`: 2 for a CFG call) that reach VITRON_FLASH_MIN
+    (self-attention; cross-attention when the `n_ctx` context tokens do
+    too), non-causal, shift 0, bf16 as `layers._mha` calls it."""
     from vitron_tpu_torch.models.diffusion.layers import _flash_min
 
     fmin = _flash_min()
-    sites = [("vae decode", frames, lh * lw, lh * lw, 1, 512)]
+    sites = [("vae decode", frames, lh * lw, lh * lw, 1, 512)] if vae else []
     if encode:
         sites.append(("vae encode", 1, lh * lw, lh * lw, 1, 512))
     for e, n in sorted({(e, n) for e, n in video_plan(ucfg, lh, lw) if e[0] == "sattn"},
                        key=lambda en: -en[1]):
         if n >= fmin:
-            sites.append((f"unet self-attention C={e[1]}", 2 * frames, n, n, e[2],
+            sites.append((f"unet self-attention C={e[1]}", batch * frames, n, n, e[2],
                           ucfg.head_dim))
         if n >= fmin and n_ctx >= fmin:
-            sites.append((f"unet cross-attention C={e[1]}", 2 * frames, n, n_ctx, e[2],
+            sites.append((f"unet cross-attention C={e[1]}", batch * frames, n, n_ctx, e[2],
                           ucfg.head_dim))
     return sites
 
@@ -1478,10 +1506,11 @@ def frame_attention_row(torch, card: str, qkv32, heads: int, dtype) -> dict:
 
 
 def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: int, n_ctx: int,
-                      seed: int, encode_hw=None):
-    """A video path's kernels against their plain versions at the shapes one
-    CFG UNet call (batch 2 x `frames` of lh x lw latents, `n_ctx` context
-    tokens) and its VAE give them, from the block plan and the VAE config:
+                      seed: int, encode_hw=None, batch: int = 2, dtypes=("float32", "bfloat16")):
+    """A video path's kernels against their plain versions, in `dtypes`, at
+    the shapes one UNet call (`batch` x `frames` of lh x lw latents: 2 for a
+    CFG call; `n_ctx` context tokens) and its VAE (none when vcfg is None, as
+    in training) give them, from the block plan and the VAE config:
     B6, B7 and B3 at each temporal-transformer level, B8 at every [B, R, C]
     of the UNet call, the decode of the frames and (with `encode_hw`) the
     encode of one image, B2 at the VAE decode's (and encode's) mid attention
@@ -1501,8 +1530,9 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = {"tconv": [], "tattn": [], "geglu_video": [], "gn_video": [], "flash_vae": []}
-    b, f = 2, frames
+    b, f = batch, frames
     f32, bf16 = torch.float32, torch.bfloat16
+    types = [getattr(torch, t) for t in dtypes]
 
     def peak(dtype):
         return "fp32" if dtype == f32 else "bf16_tensor"
@@ -1512,7 +1542,7 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
         x32 = torch.randn((b, f, n, c), generator=g, device=dev)
         w32 = torch.randn((3, c, c), generator=g, device=dev) / (3 * c) ** 0.5
         b32 = 0.1 * torch.randn((c,), generator=g, device=dev)
-        for dtype in (f32, bf16):
+        for dtype in types:
             name = str(dtype).split(".")[-1]
             x, w, bias = x32.to(dtype), w32.to(dtype), b32.to(dtype)
             got = tc.temporal_conv_k3(x, w, bias)
@@ -1539,7 +1569,7 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
         del x32, w32
 
         qkv32 = [torch.randn((b, f, n, c), generator=g, device=dev) for _ in range(3)]
-        for dtype in (f32, bf16):
+        for dtype in types:
             rows["tattn"].append(frame_attention_row(torch, card, qkv32, heads, dtype))
         del qkv32
 
@@ -1547,7 +1577,7 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
         ff32 = [torch.randn(s_, generator=g, device=dev) * sc for s_, sc in (
             ((m, c), 1.0), ((c, 2 * fh), c ** -0.5), ((2 * fh,), 0.1), ((fh, c), fh ** -0.5),
             ((c,), 0.1))]
-        for dtype in (f32, bf16):
+        for dtype in types:
             name = str(dtype).split(".")[-1]
             args = [t.to(dtype) for t in ff32]
             got = gf.geglu_ff(*args)
@@ -1569,18 +1599,19 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
     # B8 at every shape of one CFG UNet call, of the decode of the frames and
     # of the encode of one image
     unet_gn = video_gn_shapes(ucfg, lh, lw, b, f)
-    vae_gn = vae_decode_gn_shapes(vcfg, lh, lw, f)
+    vae_gn = (vae_decode_gn_shapes(vcfg, lh, lw, f) if vcfg is not None
+              else collections.Counter())
     enc_gn = (vae_encode_gn_shapes(vcfg, *encode_hw, 1) if encode_hw
               else collections.Counter())
-    enc_n, dec_n = vae_counts(vcfg, lh * lw)
-    want_n = (video_counts(ucfg, lh, lw, n_ctx)["group_norm_sums"], dec_n["group_norm_sums"],
-              enc_n["group_norm_sums"] if encode_hw else 0)
+    enc_n, dec_n = vae_counts(vcfg, lh * lw) if vcfg is not None else ({}, {})
+    want_n = (video_counts(ucfg, lh, lw, n_ctx)["group_norm_sums"],
+              dec_n.get("group_norm_sums", 0), enc_n["group_norm_sums"] if encode_hw else 0)
     check((sum(unet_gn.values()), sum(vae_gn.values()), sum(enc_gn.values())) == want_n,
           f"group-norm shapes {sum(unet_gn.values())}, {sum(vae_gn.values())}, "
           f"{sum(enc_gn.values())} != counts {want_n}")
     for shape in sorted(unet_gn.keys() | vae_gn.keys() | enc_gn.keys()):
         x32 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
-        for dtype in (f32, bf16):
+        for dtype in types:
             name = str(dtype).split(".")[-1]
             x = x32.to(dtype)
             got, again = gn.group_norm_sums(x), gn.group_norm_sums(x)
@@ -1605,7 +1636,8 @@ def video_kernel_rows(torch, card: str, ucfg, vcfg, lh: int, lw: int, frames: in
 
     call = dict(causal=False, softmax_shift=0.0)
     for what, bb, s_len, t_len, nh, d in video_flash_sites(ucfg, lh, lw, frames, n_ctx,
-                                                           encode_hw is not None):
+                                                           encode_hw is not None, b,
+                                                           vcfg is not None):
         q = torch.randn((bb, s_len, nh, d), generator=g, device=dev).to(bf16)
         k, v = (torch.randn((bb, t_len, nh, d), generator=g, device=dev).to(bf16)
                 for _ in range(2))
@@ -4094,6 +4126,775 @@ def phase_a9_a10_cpu_vs_card(torch, card: str):
         check(rel <= CPU_GPU_TOL, f"{name}: CPU and card disagree: rel {rel}")
 
 
+# ------------------------------------------------ the diffusion trainers (A15b)
+
+GLIGEN_TRAIN_STEPS = 4
+GLIGEN_TRAIN_BOXES = (3, 5)      # valid grounding boxes of each row (of max_objs 30)
+GLIGEN_TRAIN_PROMPTS = ("a red car on a street next to a tree", "a dog and a cat on a sofa")
+VIDEO_TRAIN_FRAMES = 16
+VIDEO_TRAIN_LATENT = 32          # 256x256 frames over the SD VAE's factor 8
+VIDEO_TRAIN_STEPS = 3
+VIDEO_TRAIN_PROMPT = "a red car driving along a coastal road at sunset"
+# B2 with its LSE, B5a and B5b at the SD UNet's head dims, bf16, non-causal,
+# shift 0 (as `layers._mha` calls them): (what, B, S = T, N, D), the GLIGEN
+# step's self-attention and fuser sites at 64x64 and 32x32 latents (4,096 /
+# 1,024 pixels + 30 grounding tokens), and D 160 (no path at 512^2 runs it)
+DIFFUSION_BWD_SHAPES = (
+    ("gligen self 64x64", 2, 4096, 8, 40),
+    ("gligen fuser 64x64", 2, 4126, 8, 40),
+    ("gligen self 32x32", 2, 1024, 8, 80),
+    ("gligen fuser 32x32", 2, 1054, 8, 80),
+    ("d160", 2, 1024, 8, 160),
+)
+# each new autograd.Function on the card against the CPU's autograd of the
+# plain version, float32: max |card - cpu| / max |cpu| of each gradient
+FUNCTION_GRAD_TOL = 1e-4
+# The GLIGEN CPU-vs-card step: bf16 flash (B2, B5a, B5b) on the card against
+# the CPU's float32 einsum attention, each trainable gradient held by its
+# cosine with the CPU's and ||card - cpu|| / ||cpu||, as C11's bf16 LoRA
+# check is; `tools/grad_noise.py --gligen` measures the noise and shows a
+# dropped 64-key tile of B5 failing the limit.
+GLIGEN_BF16_GRAD_LIMIT = {"cos": 0.999, "rel_norm": 0.05}
+# The video CPU-vs-card step (float32 on both sides): the loss and each
+# gradient as TRAIN_CPU_GPU_TOL, a gradient over the larger of its own
+# largest |cpu| element and GRAD_FLOOR of the step's largest (a gradient
+# that vanishes in exact arithmetic holds only float noise).
+GRAD_FLOOR = 1e-3
+# The card's updated parameters (and EMA) against the CPU running the same
+# optimizer on the card's gradients from the same state: float32
+# elementwise work on two devices, max |card - cpu| / max |cpu| a tensor.
+UPDATE_TOL = 1e-6
+GLIGEN_TRAIN_KERNEL_GROUPS = (
+    ("B2 flash forward", r"flash_fwd"),
+    ("B5a flash dK/dV", r"flash_bwd_kv"),
+    ("B5b flash dQ", r"flash_bwd_q"),
+    ("B3 geglu_ff", r"gemm_(f32|bf16_tc)_kernel<[02]\b|split_k_reduce"),
+    ("B8 group_norm_sums", r"gn_sums_kernel|gn_split_reduce"),
+    ("convolutions (cuDNN)", r"conv|implicit|cudnn|fprop|wgrad|dgrad|winograd"),
+    ("products (cuBLAS)", r"gemm|cutlass|xmma"))
+VIDEO_TRAIN_KERNEL_GROUPS = (
+    ("B6 temporal_conv_k3", r"gemm_(f32|bf16_tc)_kernel<1\b"),
+    ("B3 geglu_ff", r"gemm_(f32|bf16_tc)_kernel<[02]\b|split_k_reduce"),
+    ("B7 frame_attention", r"frame_attention_kernel"),
+    ("B8 group_norm_sums", r"gn_sums_kernel|gn_split_reduce"),
+    ("convolutions (cuDNN)", r"conv|implicit|cudnn|fprop|wgrad|dgrad|winograd"),
+    ("products (cuBLAS)", r"gemm|cutlass|xmma"))
+
+
+def gligen_train_launches(ucfg, latent: int, n_objs: int, n_ctx: int) -> dict:
+    """Kernel launches of one GLIGEN training step, from the block plan: one
+    UNet call's (`unet_counts`: B2, B3, B8 in the forward; their backward
+    is torch ops, but B2's), and B5a and B5b once for each flash site whose
+    inputs need a gradient: every site but the first attention block's
+    self-attention, which sees only frozen weights (the first trainable
+    tensors, its fuser and the position net, come after it)."""
+    from vitron_tpu_torch.models.diffusion.layers import _flash_min
+    from vitron_tpu_torch.models.diffusion.unet2d import block_plan
+
+    counts = unet_counts(ucfg, latent, n_objs, n_ctx)
+    size, first = latent, None
+    for entries in block_plan(ucfg)[0]:
+        for e in entries:
+            size = size // 2 if e[0] == "down" else size
+            if e[0] == "attn" and first is None:
+                first = size * size
+    bwd = counts["flash_attention"] - int(first is not None and first >= _flash_min())
+    return {**counts, "flash_attention_bwd_kv": bwd, "flash_attention_bwd_q": bwd}
+
+
+def video_train_launches(ucfg, lh: int, lw: int, n_ctx: int) -> dict:
+    """Kernel launches of one video training step, from the block plan: one
+    UNet call's (`video_counts`), B6 once more for each temporal conv (its
+    dx, the kernel on the flipped taps; the whole UNet trains, so every
+    conv's input needs a gradient) and B5a and B5b for each flash site."""
+    counts = video_counts(ucfg, lh, lw, n_ctx)
+    return {**counts, "temporal_conv_k3": 2 * counts["temporal_conv_k3"],
+            "flash_attention_bwd_kv": counts["flash_attention"],
+            "flash_attention_bwd_q": counts["flash_attention"]}
+
+
+def gligen_gn_shapes(ucfg, latent: int, batch: int) -> collections.Counter:
+    """[B, R, C] of every group-norm-sums launch of one SD UNet call, with
+    its count, from the block plan: a ResNet's norm1 [B, HW, cin] and norm2
+    [B, HW, cout], a spatial transformer's [B, HW, C], the output norm."""
+    from vitron_tpu_torch.models.diffusion.unet2d import block_plan
+
+    shapes = collections.Counter({(batch, latent * latent, ucfg.model_channels): 1})
+    size = latent
+    input_plan, middle_plan, output_plan = block_plan(ucfg)
+    for entries in input_plan + [middle_plan] + output_plan:
+        for e in entries:
+            size = size // 2 if e[0] == "down" else size * 2 if e[0] == "up" else size
+            if e[0] == "res":
+                shapes[(batch, size * size, e[1])] += 1
+                shapes[(batch, size * size, e[2])] += 1
+            elif e[0] == "attn":
+                shapes[(batch, size * size, e[1])] += 1
+    return shapes
+
+
+def diffusion_bwd_rows(torch, card: str, rows: dict) -> None:
+    """B2 with its LSE, B5a and B5b in bf16 at DIFFUSION_BWD_SHAPES against
+    their plain versions: errors, each output row within its limit (B2's
+    query rows FLASH_ROW_REL, dq's query rows and dk's and dv's key rows
+    FLASH_BWD_ROW_REL), the same bits twice, CUDA-event times beside the
+    bound, the SDPA forward and the SDPA backward."""
+    from vitron_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    for what, b, s_len, nh, d in DIFFUSION_BWD_SHAPES:
+        q, k, v, dout = (torch.randn((b, s_len, nh, d), generator=g, device=dev).to(bf16)
+                         for _ in range(4))
+        args = (q, k, v, None, 0, d ** -0.5, False)
+        out, lse = fa._forward(*args, 0.0, True)
+        out2, lse2 = fa._forward(*args, 0.0, True)
+        want_out, want_lse = fa.flash_attention_plain(*args, 0.0, return_lse=True)
+        delta = fa._delta(out, dout)
+        dk, dv = fa.flash_attention_bwd_kv(*args, out, lse, dout, delta)
+        dq = fa.flash_attention_bwd_q(*args, out, lse, dout, delta)
+        dk2, dv2 = fa.flash_attention_bwd_kv(*args, out, lse, dout, delta)
+        dq2 = fa.flash_attention_bwd_q(*args, out, lse, dout, delta)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in
+                   ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2)))
+        del out2, lse2, dk2, dv2, dq2
+        want_dk, want_dv = fa.flash_attention_bwd_kv_plain(*args, out, lse, dout)
+        want_dq = fa.flash_attention_bwd_q_plain(*args, out, lse, dout)
+        row_rel = flash_row_rel(out, want_out)
+        bwd_rows = {n_: flash_row_rel(x, y, FLASH_BWD_ROW_FLOOR) for n_, x, y in
+                    (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv))}
+        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse),
+                "dq": rel_err(dq, want_dq), "dk": rel_err(dk, want_dk), "dv": rel_err(dv, want_dv)}
+        del want_out, want_lse, want_dq, want_dk, want_dv
+        ms_fwd = cuda_ms(torch, lambda: fa._forward(*args, 0.0, True), iters=10)
+        ms_kv = cuda_ms(torch, lambda: fa.flash_attention_bwd_kv(*args, out, lse, dout, delta),
+                        iters=10)
+        ms_q = cuda_ms(torch, lambda: fa.flash_attention_bwd_q(*args, out, lse, dout, delta),
+                       iters=10)
+        plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(*args, 0.0, return_lse=True),
+                            iters=3, warmup=1)
+        plain_kv = cuda_ms(torch, lambda: fa.flash_attention_bwd_kv_plain(*args, out, lse, dout),
+                           iters=3, warmup=1)
+        plain_q = cuda_ms(torch, lambda: fa.flash_attention_bwd_q_plain(*args, out, lse, dout),
+                          iters=3, warmup=1)
+        lib_bwd = sdpa_bwd_ms(torch, q, k, v, None, dout)
+        lib_fwd = sdpa_ms(torch, q, k, v)
+        pairs = b * nh * s_len * s_len
+        peak = "bf16_tensor"
+        shape = f"[{b},{s_len},{nh},{d}]"
+        row_fwd = dict(row(max(errs["out"][0], errs["lse"][0]), max(errs["out"][1],
+                                                                    errs["lse"][1]),
+                           ms_fwd, plain_fwd, nbytes(q, k, v, out, lse), 4 * d * pairs, peak,
+                           lib_fwd), b2=f"{what} with LSE {shape}")
+        row_kv = row(max(errs["dk"][0], errs["dv"][0]), max(errs["dk"][1], errs["dv"][1]),
+                     ms_kv, plain_kv, nbytes(q, k, v, dout, lse, delta, dk, dv),
+                     4 * 2 * d * pairs, peak, lib_bwd)
+        row_q = row(errs["dq"][0], errs["dq"][1], ms_q, plain_q,
+                    nbytes(q, k, v, dout, lse, delta, dq), 3 * 2 * d * pairs, peak)
+        print(f"diffusion flash {what} {shape} bf16 non-causal shift 0: rel_err "
+              + " ".join(f"{k_}={e[1]:.3e}" for k_, e in errs.items())
+              + f" (limit {TRAIN_TOL['bfloat16']}), out row_rel_err={row_rel:.3e} (limit "
+              f"{FLASH_ROW_REL}), row_rel_err "
+              + " ".join(f"{k_}={e:.3e}" for k_, e in bwd_rows.items())
+              + f" (limit {FLASH_BWD_ROW_REL['bfloat16']}), same bits twice={same}; B2+LSE "
+              f"{ms_fwd:.4f} ms plain {plain_fwd:.4f} {bound_text(row_fwd)}; B5a {ms_kv:.4f} "
+              f"ms plain {plain_kv:.4f} {bound_text(row_kv)}; B5b {ms_q:.4f} ms plain "
+              f"{plain_q:.4f} {bound_text(row_q)}; B5a+B5b {ms_kv + ms_q:.4f} ms "
+              f"({7 * 2 * d * pairs / ((ms_kv + ms_q) * 1e-3) / 1e12:.1f} TFLOP/s of the seven "
+              f"products) against the SDPA backward {lib_bwd:.4f} ms [{card}]", flush=True)
+        check(all(e[1] <= TRAIN_TOL["bfloat16"] for e in errs.values()),
+              f"diffusion flash {what}: {errs}")
+        check(all(e <= FLASH_BWD_ROW_REL["bfloat16"] for e in bwd_rows.values()),
+              f"diffusion flash {what}: backward row rel errors {bwd_rows}")
+        check_flash(f"diffusion {what}", errs["out"][0], row_rel)
+        check(same, f"diffusion flash {what}: two runs gave other bits")
+        rows["flash_lse_diffusion"].append(row_fwd)
+        rows["bwd_kv_diffusion"].append(row_kv)
+        rows["bwd_q_diffusion"].append(row_q)
+        del q, k, v, dout, out, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+
+
+def function_grad_rows(torch, card: str) -> None:
+    """Each new autograd.Function at one site of a path, float32: under
+    grad the output carries a grad_fn and the forward counts one launch; the
+    backward launches B6 and B4 once more (their dx) and the others not at
+    all; the card's gradients against the CPU's autograd of the plain
+    version on the same inputs and cotangent (FUNCTION_GRAD_TOL), the same
+    bits twice. B3 and B8 at the GLIGEN step's 64x64 level, B6 and B7 at the
+    video step's 32x32 level, B4 at a FocalNet-L site (no trainer calls it)."""
+    from vitron_tpu_torch.kernels import depthwise_conv as dw
+    from vitron_tpu_torch.kernels import geglu_ff as gf
+    from vitron_tpu_torch.kernels import group_norm as gn
+    from vitron_tpu_torch.kernels import temporal_attention as ta
+    from vitron_tpu_torch.kernels import temporal_conv as tc
+
+    f, n = VIDEO_TRAIN_FRAMES, VIDEO_TRAIN_LATENT ** 2
+    cases = [  # name, module, wrapper, plain (on the CPU), [(shape, scale)]
+        ("group_norm_sums", gn, gn.group_norm_sums, gn.group_norm_sums_plain,
+         [((2, 4096, 320), 1.0)]),
+        ("geglu_ff", gf, gf.geglu_ff,
+         lambda x, *w: gf.geglu_ff_plain(x.reshape(-1, x.shape[-1]), *w).reshape(x.shape),
+         [((2, 4096, 320), 1.0), ((320, 2560), 320 ** -0.5), ((2560,), 0.1),
+          ((1280, 320), 1280 ** -0.5), ((320,), 0.1)]),
+        ("frame_attention", ta, lambda q, k, v: ta.frame_attention(q, k, v, 8, 64 ** -0.5),
+         lambda q, k, v: ta.frame_attention_plain(q, k, v, 8, 64 ** -0.5),
+         [((1, f, n, 512), 1.0)] * 3),
+        ("temporal_conv_k3", tc, tc.temporal_conv_k3,
+         lambda x, w, b: tc.temporal_conv_k3_plain(x, w, b),
+         [((1, f, n, 512), 1.0), ((3, 512, 512), (3 * 512) ** -0.5), ((512,), 0.1)]),
+        ("depthwise_conv2d", dw, dw.depthwise_conv2d,
+         lambda x, w: dw.depthwise_conv2d_plain(x, w),
+         [((1, 128, 128, 192), 1.0), ((3, 3, 192), 1 / 3)]),
+    ]
+    dev = torch.device("cuda")
+    for name, mod, fn, plain, shapes in cases:
+        g = torch.Generator().manual_seed(len(name))
+        inputs = [torch.randn(s, generator=g) * sc for s, sc in shapes]
+
+        def run(fn_, device):
+            xs = [a.to(device).requires_grad_(True) for a in inputs]
+            before = mod.launches
+            out = fn_(*xs)
+            fwd = mod.launches - before
+            has_fn = out.grad_fn is not None
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+            out.backward(cot.to(device))
+            return fwd, mod.launches - before - fwd, has_fn, [x.grad.cpu() for x in xs]
+
+        fwd, bwd, has_fn, grads = run(fn, dev)
+        _, _, _, again = run(fn, dev)
+        _, _, _, want = run(plain, torch.device("cpu"))
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        rels = [rel_err(a, w)[1] for a, w in zip(grads, want)]
+        want_bwd = int(name in ("temporal_conv_k3", "depthwise_conv2d"))
+        print(f"autograd {name} at {[list(s) for s, _ in shapes]} float32 on the card: grad_fn "
+              f"{has_fn}, launches forward {fwd} backward {bwd} (expected 1, {want_bwd}); each "
+              f"input's gradient against the CPU's autograd of the plain version, rel_err "
+              + " ".join(f"{r:.3e}" for r in rels) + f" (limit {FUNCTION_GRAD_TOL}), same bits "
+              f"twice={same} [{card}]", flush=True)
+        check(has_fn and fwd == 1 and bwd == want_bwd,
+              f"autograd {name}: grad_fn {has_fn}, launches {fwd} / {bwd}")
+        check(all(r <= FUNCTION_GRAD_TOL for r in rels) and same,
+              f"autograd {name}: gradient rel errors {rels}, same bits twice {same}")
+        del inputs, grads, again, want
+        torch.cuda.empty_cache()
+
+
+def phase_diffusion_train_kernels(torch, card: str):
+    """The diffusion trainers' kernels on the card at their paths' shapes:
+    B2 with its LSE, B5a and B5b at DIFFUSION_BWD_SHAPES (bf16, as the
+    UNet's `_mha` calls them); B8 at every [B, R, C] of the GLIGEN step's
+    UNet call (float32; its B3 shapes are task A's, phase 4); B6, B7, B3 and
+    B8 at every shape of the video step's UNet call (float32, 1 x
+    VIDEO_TRAIN_FRAMES frames of VIDEO_TRAIN_LATENT^2); then each new
+    autograd.Function (`function_grad_rows`)."""
+    from vitron_tpu_torch.kernels import group_norm as gn
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+
+    rows = {"flash_lse_diffusion": [], "bwd_kv_diffusion": [], "bwd_q_diffusion": [],
+            "gn_gligen_train": []}
+    diffusion_bwd_rows(torch, card, rows)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    cfg = GligenConfig()
+    shapes = gligen_gn_shapes(cfg.unet, cfg.latent_size, 2)
+    check(sum(shapes.values()) == unet_counts(cfg.unet, cfg.latent_size, cfg.max_objs,
+                                              cfg.text.max_length)["group_norm_sums"],
+          "GLIGEN group-norm shapes do not match the plan's count")
+    for shape in sorted(shapes):
+        x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        got, again = gn.group_norm_sums(x), gn.group_norm_sums(x)
+        want = gn.group_norm_sums_plain(x)
+        err, rel = rel_err(got, want)
+        ms = graph_ms(torch, lambda: gn.group_norm_sums(x), calls=5)
+        plain_ms = cuda_ms(torch, lambda: gn.group_norm_sums_plain(x), iters=3, warmup=1)
+        lib_ms = graph_ms(torch, lambda: torch.var_mean(x, dim=1, correction=0), calls=5)
+        r = row(err, rel, ms, plain_ms, nbytes(x, got), 3 * x.numel(), "fp32", lib_ms)
+        same = bool(torch.equal(got, again))
+        print(f"group_norm_sums {list(shape)} float32 (x{shapes[shape]} a GLIGEN step): "
+              f"rel_err={rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms, same bits twice="
+              f"{same} {bound_text(r)} [{card}]", flush=True)
+        check(rel <= GN_TOL and same, f"group_norm_sums {list(shape)}: rel err {rel}, same {same}")
+        rows["gn_gligen_train"].append(r)
+        del x, got, again, want
+    t2v = Text2VideoConfig()
+    video = video_kernel_rows(torch, card, t2v.unet, None, VIDEO_TRAIN_LATENT, VIDEO_TRAIN_LATENT,
+                              VIDEO_TRAIN_FRAMES, t2v.text.max_length, seed=23, batch=1,
+                              dtypes=("float32",))
+    check(not video.pop("flash_vae"), "the video step's UNet has no flash site at 32x32")
+    rows.update({f"{k}_train": v for k, v in video.items()})
+    for key, name in (("flash_lse_diffusion", "B2 with LSE"), ("bwd_kv_diffusion", "B5a"),
+                      ("bwd_q_diffusion", "B5b"), ("gn_gligen_train", "B8 (GLIGEN step)"),
+                      ("tconv_train", "B6 (video step)"), ("tattn_train", "B7 (video step)"),
+                      ("geglu_video_train", "B3 (video step)"),
+                      ("gn_video_train", "B8 (video step)")):
+        print_sums(f"diffusion trainers' shapes, {name}", rows[key], card)
+    function_grad_rows(torch, card)
+    return rows
+
+
+class GradStats:
+    """Post-accumulate hooks on the trainable tensors: after each backward,
+    whether each gradient is finite and whether any element is nonzero (one
+    host sync to read them all, no copy of the gradients)."""
+
+    def __init__(self, torch, named):
+        self.torch, self.stats = torch, {}
+        self.handles = [p.register_post_accumulate_grad_hook(self._hook(path))
+                        for path, p in named]
+
+    def _hook(self, path):
+        def fn(p):
+            self.stats[path] = self.torch.stack([self.torch.isfinite(p.grad).all(),
+                                                 p.grad.ne(0).any()])
+        return fn
+
+    def read(self) -> dict:
+        """{path: (finite, nonzero)} of the last backward, then cleared."""
+        keys = list(self.stats)
+        flags = self.torch.stack([self.stats[k] for k in keys]).cpu().tolist() if keys else []
+        self.stats = {}
+        return {k: tuple(f) for k, f in zip(keys, flags)}
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def gligen_train_batch(torch, pipe, gen):
+    """The GLIGEN step's batch at the pipeline's config: the VAE latents of
+    seeded 512^2 images (encoded one at a time under no_grad: task C's
+    encode shapes), the CLIP-L context of GLIGEN_TRAIN_PROMPTS, and
+    max_objs grounding slots a row, GLIGEN_TRAIN_BOXES of them valid, with
+    seeded boxes and the pooled CLIP features of a phrase each."""
+    from vitron_tpu_torch.models.diffusion import clip_text, vae
+
+    cfg, dev = pipe.cfg, pipe.device
+    rs = np.random.RandomState(5)
+    with torch.no_grad():
+        x0 = []
+        for _ in GLIGEN_TRAIN_PROMPTS:
+            img = torch.as_tensor(rs.randint(0, 256, (cfg.image_size, cfg.image_size, 3)),
+                                  dtype=torch.float32, device=dev)
+            mean, _ = vae.encode(pipe.vae_params, cfg.vae, (img / 255.0 - 0.5)[None] / 0.5)
+            x0.append(mean * vae.SD_SCALE_FACTOR)
+        ids = torch.as_tensor(pipe.tokenize(list(GLIGEN_TRAIN_PROMPTS)), device=dev)
+        context = clip_text.encode(pipe.text_params, cfg.text, ids)
+        masks = torch.zeros((len(GLIGEN_TRAIN_PROMPTS), cfg.max_objs), device=dev)
+        for i, n in enumerate(GLIGEN_TRAIN_BOXES):
+            masks[i, :n] = 1.0
+        lo = torch.rand((len(GLIGEN_TRAIN_PROMPTS), cfg.max_objs, 2), generator=gen,
+                        device=dev) * 0.5
+        boxes = torch.cat([lo, lo + 0.2 + 0.3 * torch.rand(lo.shape, generator=gen, device=dev)],
+                          dim=-1)
+        words = [f"{a} {b}" for a in ("a red", "a small", "a blue", "an old", "a green")
+                 for b in ("car", "dog", "tree", "house", "bicycle", "cat")]
+        phrase_ids = torch.as_tensor(pipe.tokenize(words[:cfg.max_objs]), device=dev)
+        phrases = pipe.pooled_text_features(phrase_ids)
+        phrase_emb = phrases[None].expand(len(GLIGEN_TRAIN_PROMPTS), -1, -1) * masks[..., None]
+    return {"x0": torch.cat(x0), "context": context, "boxes": boxes * masks[..., None],
+            "masks": masks, "phrase_emb": phrase_emb.contiguous()}
+
+
+def phase_train_gligen(torch, card: str):
+    """The GLIGEN trainer at full width: `GligenConfig()` (SD v1.4 + GLIGEN
+    fusers and position net, float32, 64x64 latents of 512^2 images, 30
+    grounding slots, 77 text tokens), batch 2, `GligenTrainConfig()` (AdamW
+    5e-5, the 10% whole-batch grounding drop), GLIGEN_TRAIN_STEPS steps
+    with draws from a seeded generator, twice from the same state: the same
+    losses, frozen tensors bit-equal to their start, every trainable tensor
+    with a nonzero gradient moved, every gradient finite, each step's
+    launches equal to `gligen_train_launches`; step seconds, peak memory,
+    a profiled step by kernel group."""
+    import gc
+
+    from vitron_tpu_torch.models.diffusion import clip_text, unet2d, vae
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig, GligenPipeline
+    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+    from vitron_tpu_torch.train import gligen as tg
+    from vitron_tpu_torch.train.train_step import named_leaves
+
+    dev = torch.device("cuda")
+    cfg = GligenConfig()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    unet = fill_zero_leaves(unet2d.init_params(g, cfg.unet, dev), g)
+    pipe = GligenPipeline(cfg, unet, fill_zero_leaves(vae.init_params(g, cfg.vae, dev), g),
+                          fill_zero_leaves(clip_text.init_params(g, cfg.text, dev), g),
+                          tokenizer=StubClipTokenizer(cfg.text.vocab_size))
+    batch = gligen_train_batch(torch, pipe, g)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = tg.GligenTrainConfig()
+    sched = DiffusionSchedule.create("linear", 1000, 0.00085, 0.012)
+    step, init_state = tg.make_gligen_train_step(cfg.unet, sched, tcfg)
+    n_train, n_frozen = tg.partition_params(unet, tcfg)
+    trained = tg.trainable_leaves(unet, tcfg)
+    start = {path: p.detach().clone() for path, p in named_leaves(unet)}
+    torch.cuda.synchronize()
+    print(f"train gligen: SD v1.4 GLIGEN UNet ({n_train / 1e6:.1f}M trainable, "
+          f"{n_frozen / 1e6:.1f}M frozen), VAE and CLIP-L built on the card and the batch "
+          f"encoded in {time.perf_counter() - t0:.1f} s; x0 {list(batch['x0'].shape)} std "
+          f"{batch['x0'].std().item():.3f}", flush=True)
+    want = gligen_train_launches(cfg.unet, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
+    init_state(unet)  # the trainable tensors require grad from here on
+    stats = GradStats(torch, trained)
+
+    def run(label):
+        with torch.no_grad():
+            for path, p in named_leaves(unet):
+                p.copy_(start[path])
+        state = init_state(unet)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        losses, secs, total, flags = [], [], collections.Counter(), {}
+        for i in range(GLIGEN_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            total.update(expect_launches(want, f"train gligen {label} step {i + 1}"))
+            losses.append(float(loss))
+            for path, (finite, nonzero) in stats.read().items():
+                check(finite, f"train gligen {label} step {i + 1}: gradient {path} not finite")
+                flags[path] = flags.get(path, False) or nonzero
+        return state, losses, secs, dict(total), flags
+
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, launches, flags = run("run 1")
+    peak = torch.cuda.max_memory_allocated()
+    moved = {path: not torch.equal(p.detach(), start[path]) for path, p in trained}
+    frozen_same = all(torch.equal(p.detach(), start[path]) for path, p in named_leaves(unet)
+                      if path not in moved)
+    del state
+    state, losses2, secs2, _, _ = run("run 2")
+    frozen_same = frozen_same and all(torch.equal(p.detach(), start[path])
+                                      for path, p in named_leaves(unet) if path not in moved)
+    stats.remove()
+    t1 = time.perf_counter()
+    state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    profile_breakdown(torch, card, "train gligen: one step (batch 2, 64x64)",
+                      lambda: step(state, batch, torch.Generator(device=dev).manual_seed(3)),
+                      (time.perf_counter() - t1) * 1e3, GLIGEN_TRAIN_KERNEL_GROUPS)
+    no_grad = sorted(".".join(map(str, p)) for p, nz in flags.items() if not nz)
+    print(f"train gligen: losses {losses} then {losses2}; step s "
+          f"{', '.join(f'{x:.3f}' for x in secs)} then "
+          f"{', '.join(f'{x:.3f}' for x in secs2)} (mean of steps 2-{GLIGEN_TRAIN_STEPS}: "
+          f"{statistics.mean(secs2[1:]):.3f} s); peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{launches} ({want} a step); {sum(moved.values())} of {len(moved)} trainable tensors "
+          f"moved, zero gradient on {no_grad or 'none'}; frozen tensors bit-equal {frozen_same} "
+          f"[{card}]", flush=True)
+    check(all(np.isfinite(losses)) and losses == losses2,
+          f"train gligen: the same steps twice gave other losses: {losses} vs {losses2}")
+    check(frozen_same, "train gligen: a frozen tensor changed")
+    check(all(moved[p] == flags.get(p, False) for p in moved),
+          "train gligen: a trainable tensor with a nonzero gradient did not move (or one "
+          "without moved)")
+    del state, unet, start, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def video_train_params(torch, ucfg, dev, seed: int):
+    """Full-width video UNet params from `seed`, zero leaves filled."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return fill_zero_leaves(unet_sd_video.init_params(g, ucfg, dev), g)
+
+
+def video_optimizer(ts, tv, tcfg):
+    """The value clip, then Adafactor at `annealing_lr` (JAX trainer.py:51-52)."""
+    return ts.chain(ts.clip(tcfg.grad_clip_value),
+                    ts.adafactor(lambda count: tv.annealing_lr(tcfg, count)))
+
+
+def phase_train_video(torch, card: str):
+    """The video trainer at full width: the t2v UNet (`UNetSDVideoConfig.t2v`,
+    float32), `VideoTrainConfig()` (v-prediction, the cosine zero-terminal-
+    SNR schedule, 10% text dropout, the EMA) with the value clip and
+    Adafactor at `annealing_lr` (AdamW's two moments and the EMA would not
+    fit beside 4.4B float32 weights), batch 1 of VIDEO_TRAIN_FRAMES frames of
+    VIDEO_TRAIN_LATENT^2 latents, CLIP text (1024 wide) context,
+    VIDEO_TRAIN_STEPS steps twice from the same state (rebuilt from its
+    seed): the same losses, every tensor with a nonzero gradient moved,
+    every gradient finite, each step's launches equal to
+    `video_train_launches`; step seconds, peak memory, a profiled step."""
+    import gc
+
+    from vitron_tpu_torch.models.diffusion import clip_text
+    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig, _tokenize
+    from vitron_tpu_torch.train import train_step as ts
+    from vitron_tpu_torch.train import video as tv
+
+    dev = torch.device("cuda")
+    t2v = Text2VideoConfig()
+    ucfg = t2v.unet
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        text = fill_zero_leaves(clip_text.init_params(g, t2v.text, dev), g)
+        ids = _tokenize(StubClipTokenizer(t2v.text.vocab_size), t2v.text,
+                        [VIDEO_TRAIN_PROMPT, ""], dev)
+        ctx = clip_text.encode(text, t2v.text, ids)
+        del text
+    lat = VIDEO_TRAIN_LATENT
+    batch = {"x0": torch.randn((1, VIDEO_TRAIN_FRAMES, lat, lat, 4), generator=g, device=dev),
+             "y": ctx[:1], "zero_y_negative": ctx[1:], "fps": torch.tensor([8], device=dev)}
+    tcfg = tv.VideoTrainConfig()
+    sched = DiffusionSchedule.create("cosine", 1000, zero_terminal_snr=True)
+    step = tv.make_video_train_step(ucfg, sched, tcfg, video_optimizer(ts, tv, tcfg))
+    want = video_train_launches(ucfg, lat, lat, t2v.text.max_length)
+
+    def run(label):
+        t1 = time.perf_counter()
+        state = tv.init_state(video_train_params(torch, ucfg, dev, seed=11), tcfg,
+                              video_optimizer(ts, tv, tcfg))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        stats = GradStats(torch, ts.named_leaves(state["params"]))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        losses, secs, total, flags = [], [], collections.Counter(), {}
+        for i in range(VIDEO_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            total.update(expect_launches(want, f"train video {label} step {i + 1}"))
+            losses.append(float(loss))
+            for path, (finite, nonzero) in stats.read().items():
+                check(finite, f"train video {label} step {i + 1}: gradient {path} not finite")
+                flags[path] = flags.get(path, False) or nonzero
+        stats.remove()
+        return state, losses, secs, dict(total), flags, build_s
+
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, launches, flags, build_s = run("run 1")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in ts.leaves(state["params"]))
+    final = state["params"]
+    ema_finite = all(bool(torch.isfinite(e).all()) for e in ts.leaves(state["ema"]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = dict(ts.named_leaves(video_train_params(torch, ucfg, dev, seed=11)))
+    moved = {path: not torch.equal(p.detach(), fresh[path])
+             for path, p in ts.named_leaves(final)}
+    del final, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, losses2, secs2, _, _, _ = run("run 2")
+    t1 = time.perf_counter()
+    state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    profile_breakdown(torch, card, f"train video: one step (1 x {VIDEO_TRAIN_FRAMES} frames, "
+                      f"{lat}x{lat})",
+                      lambda: step(state, batch, torch.Generator(device=dev).manual_seed(3)),
+                      (time.perf_counter() - t1) * 1e3, VIDEO_TRAIN_KERNEL_GROUPS)
+    no_grad = sorted(".".join(map(str, p)) for p in moved if not flags.get(p, False))
+    print(f"train video: t2v UNet {n_params / 1e9:.3f}B params built on the card in "
+          f"{build_s:.1f} s; losses {losses} then {losses2}; step s "
+          f"{', '.join(f'{x:.3f}' for x in secs)} then {', '.join(f'{x:.3f}' for x in secs2)} "
+          f"(mean of steps 2-{VIDEO_TRAIN_STEPS}: {statistics.mean(secs2[1:]):.3f} s); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches} ({want} a step); "
+          f"{sum(moved.values())} of {len(moved)} tensors moved, no or zero gradient on "
+          f"{no_grad or 'none'}; EMA finite {ema_finite} [{card}]", flush=True)
+    check(all(np.isfinite(losses)) and losses == losses2,
+          f"train video: the same steps twice gave other losses: {losses} vs {losses2}")
+    check(all(moved[p] == flags.get(p, False) for p in moved),
+          "train video: a tensor with a nonzero gradient did not move (or one without moved)")
+    check(ema_finite, "train video: the EMA is not finite")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def updates_within(tx, before: dict, grads: dict, after: dict) -> dict:
+    """The CPU's optimizer `tx` on the card's gradients from the same state
+    (`before`) against the card's updated tensors: each path -> max |card -
+    cpu| / max |cpu|."""
+    from vitron_tpu_torch.train import train_step as ts
+
+    paths = list(before)
+    params = [before[p].clone() for p in paths]
+    for p, t in zip(paths, params):
+        t.grad = grads.get(p)
+    ts.apply_gradients(tx, params, tx.init(params))
+    return {p: rel_err(after[p], t)[1] for p, t in zip(paths, params)}
+
+
+def gligen_cpu_vs_card_setup(torch):
+    """(UNet config, params, batch, draws, train config, schedule) of the
+    GLIGEN CPU-vs-card step, built on the CPU from a CPU generator: SD v1.4
+    at full width but one level (`UNetConfig.sd_v1(channel_mult=(1,),
+    num_res_blocks=1, attention_resolutions=(1,))`), 32x32 latents, batch
+    2, 30 boxes (4 and 7 valid), 77 context tokens, no grounding drop."""
+    from vitron_tpu_torch.models.diffusion import unet2d
+    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.train import gligen as tg
+
+    ucfg = unet2d.UNetConfig.sd_v1(channel_mult=(1,), num_res_blocks=1,
+                                   attention_resolutions=(1,))
+    g = torch.Generator().manual_seed(31)
+    params = fill_zero_leaves(unet2d.init_params(g, ucfg, torch.device("cpu")), g)
+    masks = torch.zeros((2, 30))
+    masks[0, :4], masks[1, :7] = 1.0, 1.0
+    batch = {"x0": torch.randn((2, 32, 32, 4), generator=g),
+             "context": torch.randn((2, 77, 768), generator=g),
+             "boxes": torch.rand((2, 30, 4), generator=g) * masks[..., None],
+             "masks": masks, "phrase_emb": torch.randn((2, 30, 768), generator=g)}
+    draws = {"drop": torch.tensor(False), "t": torch.tensor([120, 730]),
+             "noise": torch.randn((2, 32, 32, 4), generator=g)}
+    return (ucfg, params, batch, draws, tg.GligenTrainConfig(),
+            DiffusionSchedule.create("linear", 1000, 0.00085, 0.012))
+
+
+def to_device(torch, tree, device):
+    return tree_map(lambda a: a.detach().to(device).clone(), tree)
+
+
+def gligen_step_on(torch, setup, device):
+    """One GLIGEN training step of `gligen_cpu_vs_card_setup` on `device`:
+    (loss, trainable gradients, updated trainable tensors, launches), on
+    the CPU."""
+    from vitron_tpu_torch.train import gligen as tg
+
+    ucfg, params, batch, draws, tcfg, sched = setup
+    p = to_device(torch, params, device)
+    step, init = tg.make_gligen_train_step(ucfg, sched, tcfg)
+    state = init(p)
+    grads = {}
+    reset_launches()
+    state, loss = step(state, to_device(torch, batch, device), to_device(torch, draws, device),
+                       grads)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (float(loss), {k: v.cpu() for k, v in grads.items()},
+            {k: t.detach().cpu() for k, t in tg.trainable_leaves(p, tcfg)}, read_launches())
+
+
+def phase_train_cpu_vs_card_diffusion(torch, card: str):
+    """One training step of each trainer on the CPU and the card from the
+    same CPU-built state and draws. GLIGEN (`gligen_cpu_vs_card_setup`): the
+    card's bf16 flash (B2, B5a, B5b at D 40) against the CPU's float32
+    einsum attention, each trainable gradient within GLIGEN_BF16_GRAD_LIMIT.
+    Video at full width but one level (`UNetSDVideoConfig.t2v(dim_mult=(1,))`,
+    2 x 4 frames of 16x16 latents, the value clip and Adafactor, warmup 0 so
+    the step moves the weights), float32 on both sides: the loss and each
+    gradient within TRAIN_CPU_GPU_TOL. Both: the card's updated tensors (and
+    the EMA) against the CPU's optimizer run on the card's gradients
+    (UPDATE_TOL), and the card's launches."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video
+    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.train import gligen as tg
+    from vitron_tpu_torch.train import train_step as ts
+    from vitron_tpu_torch.train import video as tv
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    setup = gligen_cpu_vs_card_setup(torch)
+    ucfg, params, _, _, tcfg, _ = setup
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        runs[name] = gligen_step_on(torch, setup, device)
+        print(f"gligen cpu-vs-card: {name} step {time.perf_counter() - t0:.1f} s", flush=True)
+    (loss, grads, after, launches), (loss_cpu, grads_cpu, _, _) = runs["cuda"], runs["cpu"]
+    want = {"conv3x3_same": 0, **gligen_train_launches(ucfg, 32, 30, 77)}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"gligen cpu-vs-card launches {launches} != {want}")
+    held = grads_within(grads, grads_cpu, GLIGEN_BF16_GRAD_LIMIT)
+    before = dict(tg.trainable_leaves(params, tcfg))
+    upd = updates_within(tg.make_optimizer(tcfg), before, grads, after)
+    worst = min(held, key=lambda k: held[k][0])
+    worst_rel = max(held, key=lambda k: held[k][1])
+    print(f"gligen cpu-vs-card: one-level full-width GLIGEN step at 32x32 (bf16 flash B2/B5 at "
+          f"D 40 on the card, float32 einsum on the CPU), loss {loss_cpu:.6f} card {loss:.6f}, "
+          f"{len(held)} trainable gradients, lowest cosine {'.'.join(map(str, worst))} "
+          f"{held[worst][0]:.6f}, largest relative norm {'.'.join(map(str, worst_rel))} "
+          f"{held[worst_rel][1]:.3e}, median cosine "
+          f"{statistics.median(v[0] for v in held.values()):.6f} (limit {GLIGEN_BF16_GRAD_LIMIT})"
+          f"; updated tensors against the CPU's AdamW on the card's gradients, worst rel_err "
+          f"{max(upd.values()):.3e} (limit {UPDATE_TOL}); launches {launches} [{card}]",
+          flush=True)
+    check(not [k for k, v in held.items() if not v[2]],
+          f"gligen cpu-vs-card: gradients outside {GLIGEN_BF16_GRAD_LIMIT}: "
+          f"{[k for k, v in held.items() if not v[2]]}")
+    check(max(upd.values()) <= UPDATE_TOL, f"gligen cpu-vs-card: updates {max(upd.values())}")
+
+    # video
+    vcfg = unet_sd_video.UNetSDVideoConfig.t2v(dim_mult=(1,))
+    g = torch.Generator().manual_seed(32)
+    params = fill_zero_leaves(unet_sd_video.init_params(g, vcfg, cpu), g)
+    batch = {"x0": torch.randn((2, 4, 16, 16, 4), generator=g),
+             "y": 0.5 * torch.randn((2, 77, 1024), generator=g),
+             "zero_y_negative": 0.5 * torch.randn((1, 77, 1024), generator=g),
+             "fps": torch.tensor([8, 8])}
+    draws = {"drop": torch.tensor([True, False]), "t": torch.tensor([250, 900]),
+             "noise": torch.randn((2, 4, 16, 16, 4), generator=g)}
+    tcfg = tv.VideoTrainConfig(warmup_steps=0)
+    sched = DiffusionSchedule.create("cosine", 1000, zero_terminal_snr=True)
+    want_launches = video_train_launches(vcfg, 16, 16, 77)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", cpu)):
+        tx = video_optimizer(ts, tv, tcfg)
+        state = tv.init_state(to_device(torch, params, device), tcfg, tx)
+        step = tv.make_video_train_step(vcfg, sched, tcfg, tx)
+        grads = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        state, loss = step(state, to_device(torch, batch, device),
+                           to_device(torch, draws, device), grads)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            expect_launches(want_launches, "video cpu-vs-card step")
+        runs[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                      {k: t.detach().cpu() for k, t in ts.named_leaves(state["params"])},
+                      {k: t.cpu() for k, t in ts.named_leaves(state["ema"])})
+        print(f"video cpu-vs-card: {name} step {time.perf_counter() - t0:.1f} s", flush=True)
+    (loss, grads, after, ema), (loss_cpu, grads_cpu, _, _) = runs["cuda"], runs["cpu"]
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    top = max(w.abs().max().item() for w in grads_cpu.values())
+    grad_rel = {k: ((grads[k] - w).abs().max() / max(w.abs().max().item(), GRAD_FLOOR * top))
+                .item() for k, w in grads_cpu.items()}
+    before = dict(ts.named_leaves(params))
+    tx = video_optimizer(ts, tv, tcfg)
+    upd = updates_within(tx, before, grads, after)
+    # the EMA started as the weights: after + d (before - after), as ema_update
+    ema_rel = {k: rel_err(ema[k], after[k] + tcfg.ema_decay * (before[k] - after[k]))[1]
+               for k in before}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"video cpu-vs-card: one-level full-width t2v step (2 x 4 frames, 16x16, float32 on "
+          f"both), loss {loss_cpu:.6f} rel_err={loss_rel:.3e} (limit "
+          f"{TRAIN_CPU_GPU_TOL['loss']}), {len(grad_rel)} gradients, worst "
+          f"{'.'.join(map(str, worst))} rel_err={grad_rel[worst]:.3e}, median "
+          f"{statistics.median(grad_rel.values()):.3e} (limit {TRAIN_CPU_GPU_TOL['grad']}, floor "
+          f"{GRAD_FLOOR} of the largest); updated tensors against the CPU's value clip + "
+          f"Adafactor on the card's gradients, worst rel_err {max(upd.values()):.3e}, EMA "
+          f"{max(ema_rel.values()):.3e} (limit {UPDATE_TOL}) [{card}]", flush=True)
+    check(grads.keys() == grads_cpu.keys(), "video cpu-vs-card: other gradients on the two sides")
+    check(loss_rel <= TRAIN_CPU_GPU_TOL["loss"], f"video cpu-vs-card loss: {loss_rel}")
+    check(grad_rel[worst] <= TRAIN_CPU_GPU_TOL["grad"], f"video cpu-vs-card gradient {worst}: "
+          f"{grad_rel[worst]}")
+    check(max(upd.values()) <= UPDATE_TOL and max(ema_rel.values()) <= UPDATE_TOL,
+          f"video cpu-vs-card: updates {max(upd.values())}, EMA {max(ema_rel.values())}")
+
+
 def timed_phase(card: str, what: str, fn, *args):
     """fn(*args) with its seconds printed."""
     t0 = time.perf_counter()
@@ -4228,6 +5029,20 @@ def main() -> int:
     rows.update(train_rows)
     train = phase_train(torch, card)
     phase_train_cpu_vs_card(torch, card)
+    diffusion_rows = timed_phase(card, "21 diffusion trainers' kernels",
+                                 phase_diffusion_train_kernels, torch, card)
+    train_gligen = timed_phase(card, "22 GLIGEN training", phase_train_gligen, torch, card)
+    train_video = timed_phase(card, "23 video training", phase_train_video, torch, card)
+    timed_phase(card, "24 diffusion trainers cpu-vs-card", phase_train_cpu_vs_card_diffusion,
+                torch, card)
+    rows["flash"] += diffusion_rows.pop("flash_lse_diffusion")
+    rows["bwd_kv"] += diffusion_rows.pop("bwd_kv_diffusion")
+    rows["bwd_q"] += diffusion_rows.pop("bwd_q_diffusion")
+    rows["gn"] += diffusion_rows.pop("gn_gligen_train") + diffusion_rows.pop("gn_video_train")
+    rows["tconv"] += diffusion_rows.pop("tconv_train")
+    rows["tattn"] += diffusion_rows.pop("tattn_train")
+    rows["geglu"] += diffusion_rows.pop("geglu_video_train")
+    check(not diffusion_rows, f"rows left unplaced: {sorted(diffusion_rows)}")
 
     def entry(name, source, replaces, key, launches, paths):
         r = rows[key]
@@ -4250,7 +5065,8 @@ def main() -> int:
                 "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name],
                 "style": style[name], "samplers": sampler[name], "grounding": grounding[name],
-                "seem_backbones": backbones[name]}
+                "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
+                "train_video": train_video[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)

@@ -177,8 +177,9 @@ def _card_inputs(cuda, name, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d,dtype", [(d, t) for d in fa.BWD_F32_HEAD_DIMS for t in DTYPES]
+                         + [(d, "bfloat16") for d in fa.BWD_HEAD_DIMS
+                            if d not in fa.BWD_F32_HEAD_DIMS])
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_kernels_match_plain(cuda, name, d, dtype):
     """B2 with its LSE, B5a and B5b against their plain versions: within
@@ -224,6 +225,12 @@ def test_autograd_launches_the_kernels(cuda):
 
 @pytest.mark.cuda
 def test_backward_rejects_other_head_dims(cuda):
-    q = torch.zeros((1, 8, 2, 40), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15b"):
+    """A head dim the backward kernels lack (96), and float32 at the
+    bf16-only dims, raise before the forward runs: no plain fallback."""
+    q = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
         fa.flash_attention(q, q, q)
+    for d in (40, 80, 160):
+        q = torch.zeros((1, 8, 2, d), device=cuda, requires_grad=True)
+        with pytest.raises(NotImplementedError, match=f"float32 at head dim {d}"):
+            fa.flash_attention(q, q, q)

@@ -4,9 +4,10 @@
 at module level or inside a function; every port module imports with the
 three made unimportable; and the host modules the port keeps its own copies of
 (constants, conversation templates, protocol, tokenization, sketch, the
-splice planner, the router, moderation, the program-cache telemetry) agree
-with their JAX-package originals. The copies that keep the original's text
-(moderation, telemetry) are held to the same code, docstrings aside.
+splice planner, the router, moderation, the program-cache telemetry, the
+weight tools) agree with their JAX-package originals. The copies that keep
+the original's text (moderation, telemetry, the weight tools) are held to
+the same code, docstrings aside.
 """
 import ast
 import dataclasses
@@ -218,7 +219,7 @@ def test_sketch_helpers_match_jax_package():
 
 
 # the port's copies that keep the original's code as it is (docstrings aside)
-TEXT_COPIES = ["mm/moderation.py", "runtime/telemetry.py"]
+TEXT_COPIES = ["mm/moderation.py", "runtime/telemetry.py", "models/weight_tools.py"]
 
 
 def _code(path: pathlib.Path) -> str:
@@ -270,3 +271,29 @@ def test_moderation_matches_jax_package(monkeypatch):
         assert mod.violates_moderation("bad", post=lambda *a: {"results": []}) is False
     assert calls[0] == calls[2] and calls[1] == calls[3]
     assert calls[0][0] == tmod.MODERATION_URL == jmod.MODERATION_URL
+
+
+def test_weight_tools_match_jax_package():
+    """apply_delta / make_delta (with vocab growth) and consolidate give the
+    same dicts on both copies."""
+    from vitron_tpu.models import weight_tools as jwt
+    from vitron_tpu_torch.models import weight_tools as twt
+
+    rs = np.random.RandomState(0)
+    base = {"embed": rs.randn(5, 3), "w": rs.randn(2, 4), "only_base": rs.randn(3)}
+    target = {"embed": rs.randn(7, 3), "w": rs.randn(2, 4), "new": rs.randn(2)}
+    for mod in (twt, jwt):
+        delta = mod.make_delta(base, target)
+        back = mod.apply_delta(base, delta)
+        assert sorted(back) == sorted(target)
+        for k in target:
+            np.testing.assert_allclose(back[k], target[k], rtol=1e-12, atol=1e-12)
+    got, want = twt.make_delta(base, target), jwt.make_delta(base, target)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    shards = [{"a": rs.randn(2)}, {"b": rs.randn(3), "a": rs.randn(2)}]
+    got, want = twt.consolidate(shards), jwt.consolidate(shards)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])

@@ -271,8 +271,40 @@ def _close(got, want, tol):
 
 
 def test_adafactor_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A15b"):
-        ttrainer.make_optimizer(ttrainer.TrainConfig(optimizer="adafactor"), 4, {})
+    """Adafactor, once the trainer's gap, is ported: TrainConfig(optimizer=
+    "adafactor") gives JAX's chain (clip_by_global_norm, then
+    optax.adafactor at the warmup-cosine schedule) over factored, unfactored
+    and 1-D tensors, with the projector's own group, held against JAX's
+    make_optimizer over three steps."""
+    import optax
+
+    rs = np.random.RandomState(3)
+    shapes = {"a": (160, 130), "b": (7,), "c": (3, 200, 150), "projector": {"w": (130, 4)}}
+
+    def tree(f):
+        return {k: (f(s) if not isinstance(s, dict) else {"w": f(s["w"])})
+                for k, s in shapes.items()}
+
+    params = tree(lambda s: rs.randn(*s))
+    tc = ttrainer.TrainConfig(learning_rate=1e-2, projector_lr=3e-2, warmup_ratio=0.3,
+                              optimizer="adafactor")
+    from vitron_tpu.train import trainer as jtrainer
+
+    opt = jtrainer.make_optimizer(jtrainer.TrainConfig(
+        learning_rate=tc.learning_rate, projector_lr=tc.projector_lr,
+        warmup_ratio=tc.warmup_ratio, optimizer="adafactor"), 6)
+    want_p = _jnp_tree(params)
+    state = opt.init(want_p)
+    got_p = _torch_tree(params, grad=True)
+    topt = ttrainer.make_optimizer(tc, 6, got_p)
+    for i in range(3):
+        g = tree(lambda s: (0.01 if i else 10.0) * rs.randn(*s))
+        upd, state = opt.update(_jnp_tree(g), state, want_p)
+        want_p = optax.apply_updates(want_p, upd)
+        for (_, p), (_, gg) in zip(tstep.named_leaves(got_p), tstep.named_leaves(_torch_tree(g))):
+            p.grad = gg
+        topt.step()
+        _close(got_p, want_p, 1e-5)
 
 
 # ------------------------------------------------------------- the slice

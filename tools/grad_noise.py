@@ -31,6 +31,17 @@ every row. For each it prints every gradient's cosine with the
 reference's and ||card - cpu|| / ||cpu||, and whether
 `chip_smoke.grads_within` holds it under TRAIN_BF16_GRAD_LIMIT: the two
 right versions must pass and the two faults fail.
+
+    python3 tools/grad_noise.py --gligen [--root CHECKOUT]
+
+does the same for the GLIGEN trainer's check
+(`chip_smoke.phase_train_cpu_vs_card_diffusion`, the state of
+`gligen_cpu_vs_card_setup`): one step on the CPU with float32 einsum
+attention (the reference) and on the card with bf16 flash (B2, B5a, B5b at
+D 40), with B5's plain version on the card, and with B5a and B5b without
+the second 64-key tile of every row; each trainable gradient held by
+`chip_smoke.grads_within` under GLIGEN_BF16_GRAD_LIMIT: the two right
+versions must pass and the fault fail.
 """
 from __future__ import annotations
 
@@ -99,12 +110,56 @@ def check_limits(torch, smoke) -> int:
     return int(failures > 0)
 
 
+def check_gligen_limits(torch, smoke) -> int:
+    """The GLIGEN training check's noise and a fault against its limit."""
+    from vitron_tpu_torch.kernels import flash_attention as fa
+
+    card = smoke.nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the smoke runs: float32 convs in float32
+    torch.backends.cudnn.allow_tf32 = False
+    setup = smoke.gligen_cpu_vs_card_setup(torch)
+    bwd = fa.flash_attention_bwd
+
+    def no_tile(q, k, v, kv_mask, *rest):  # B5 without keys 64..127
+        mask = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device) if kv_mask is None \
+            else kv_mask.clone()
+        mask[:, 64:128] = False
+        return bwd(q, k, v, mask, *rest)
+
+    variants = (("kernels", bwd, True),
+                ("B5 plain on the card", fa.flash_attention_bwd_plain, True),
+                ("B5 dropped key tile", no_tile, False))
+    loss, want, _, _ = smoke.gligen_step_on(torch, setup, torch.device("cpu"))
+    print(f"gligen check: CPU float32 einsum step loss {loss:.6f} [{card}]", flush=True)
+    failures = 0
+    for name, b5, right in variants:
+        fa.flash_attention_bwd = b5
+        try:
+            loss, got, _, _ = smoke.gligen_step_on(torch, setup, torch.device("cuda"))
+        finally:
+            fa.flash_attention_bwd = bwd
+        held = smoke.grads_within(got, want, smoke.GLIGEN_BF16_GRAD_LIMIT)
+        ok = all(v[2] for v in held.values())
+        print(f"gligen check: {name}: loss {loss:.6f}, lowest cosine "
+              f"{min(v[0] for v in held.values()):.6f}, largest relative norm "
+              f"{max(v[1] for v in held.values()):.3e}, within "
+              f"{smoke.GLIGEN_BF16_GRAD_LIMIT}: {ok} (should be {right}) [{card}]", flush=True)
+        for key in sorted(held, key=lambda k: held[k][0])[:6]:
+            print(f"  {name} {'.'.join(map(str, key))}: cosine {held[key][0]:.6f}, relative "
+                  f"norm {held[key][1]:.3e}", flush=True)
+        failures += ok != right
+        torch.cuda.empty_cache()
+    return int(failures > 0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--check", action="store_true",
                     help="the bf16 training check's noise and faults against its limit")
+    ap.add_argument("--gligen", action="store_true",
+                    help="the GLIGEN training check's noise and a fault against its limit")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -126,6 +181,8 @@ def main() -> int:
     smoke = load_smoke()
     if args.check:
         return check_limits(torch, smoke)
+    if args.gligen:
+        return check_gligen_limits(torch, smoke)
     card = smoke.nvidia_smi_line()
     dev = torch.device("cuda")
     cfg = VitronConfig(

@@ -60,6 +60,18 @@
 //   of S^T and dP^T. A block whose keys are all masked or past T writes
 //   zeros and loads nothing; a warp whose keys are all masked computes
 //   nothing.
+// - Head dims 40, 80 and 160 (the SD UNet's 8 heads at 320, 640 and 1280
+//   channels, the diffusion trainers' sites) take the same two kernels.
+//   D 40 is not a multiple of mma's k of 16: every tile is zero-filled from
+//   depth 40 to 48 (load_rows), as B2 does, so the padded columns add
+//   nothing to S or dP, their dQ, dK and dV sums stay zero and are never
+//   written, and the round(q * scale) scratch keeps the unpadded
+//   [B,S,N,D] layout. At D 160, B5b reads the round(q * scale) and dout
+//   fragments from shared memory each tile (Q rounded in place once)
+//   instead of holding 80 more registers, and B5a gives each 16 keys two
+//   warps, each summing dK and dV over 80 of the columns: both compute the
+//   tile's S^T and dP^T, six products a tile where four would do, in
+//   blocks of 64 keys.
 // Rows are padded by 8 values (16 bytes) in shared memory, so the eight
 // rows of each ldmatrix land in distinct banks. exp is one ex2 a logit,
 // log2(e) folded into one FMA after the float32 product, the LSE scaled by
@@ -75,6 +87,9 @@
 //     and dV sums, D/2 each; S^T and dP^T, 32 each): one block an SM.
 //   4-warp blocks, 32-row query tiles in B5a and 32-key tiles in B5b were
 //   no faster at D 128 on the H100.
+//   D 40 / 80 / 160 (rows of the depth padded to 16, plus 8): B5b 42 / 66 /
+//   126 KB and 168 / 240 / 244 registers; B5a 71 / 111 / 169 KB and
+//   207 / 243 / 243 registers (at D 160 in blocks of 64 keys).
 // What bounds it on the H100: at the trainer's [2, 2048, 32, 128] (causal,
 // right-padded: 1.31e8 visible pairs) the seven products are 2.34e11 FLOP,
 // 0.24 ms on the bf16 tensor cores at 989 TFLOP/s (the five of a fused
@@ -506,8 +521,13 @@ __device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&c0)[4],
 
 template <int D>
 struct QTile {  // B5b: 16 query rows a warp, 64 keys a tile
-  static constexpr int P = D + 8;  // shared row pitch (values)
+  static constexpr int DP = (D + 15) / 16 * 16;  // depth padded to the MMA's k of 16
+  static constexpr int P = DP + 8;               // shared row pitch (values)
   static constexpr int WARPS = 4, BQ = WARPS * 16, BK = 64, THREADS = WARPS * 32;
+  // round(q * scale) and dout as A fragments in registers for the whole key
+  // loop (D <= 128), or read from shared memory each tile (D 160, whose dQ
+  // sum takes 80 registers a thread)
+  static constexpr bool REG_FRAGS = D <= 128;
   // Q and dout, then K and V in two stages each, then two stages of slot bytes
   static constexpr size_t bytes =
       sizeof(__nv_bfloat16) * (2 * (size_t)BQ * P + 4 * (size_t)BK * P) + 2 * BK;
@@ -519,10 +539,10 @@ template <int D>
 __global__ void __launch_bounds__(QTile<D>::THREADS)
 flash_bwd_q_mma_kernel(const MArgs a) {
   using L = QTile<D>;
-  constexpr int P = L::P, BQ = L::BQ, BK = L::BK, THREADS = L::THREADS;
-  constexpr int KS = D / 16;  // k-steps of S and dP
-  constexpr int NT = BK / 8;  // n-tiles of S and dP
-  constexpr int DT = D / 8;   // n-tiles of dQ
+  constexpr int DP = L::DP, P = L::P, BQ = L::BQ, BK = L::BK, THREADS = L::THREADS;
+  constexpr int KS = DP / 16;  // k-steps of S and dP
+  constexpr int NT = BK / 8;   // n-tiles of S and dP
+  constexpr int DT = DP / 8;   // n-tiles of dQ (those past D hold zeros and are not written)
   extern __shared__ __align__(16) unsigned char smem_q[];
   __nv_bfloat16* Qst = reinterpret_cast<__nv_bfloat16*>(smem_q);  // [BQ][P]
   __nv_bfloat16* Ost = Qst + BQ * P;                               // [BQ][P]
@@ -541,12 +561,12 @@ flash_bwd_q_mma_kernel(const MArgs a) {
   int n_tiles = (a.Tk + BK - 1) / BK;
   if (a.causal) n_tiles = min(n_tiles, (a.q_offset + min(a.S, s0 + BQ) - 1) / BK + 1);
 
-  load_rows<BQ, D, D, P, THREADS>(Qst, a.q, b, s0, a.S, a.N, n, tid);
-  load_rows<BQ, D, D, P, THREADS>(Ost, a.dout, b, s0, a.S, a.N, n, tid);
+  load_rows<BQ, D, DP, P, THREADS>(Qst, a.q, b, s0, a.S, a.N, n, tid);
+  load_rows<BQ, D, DP, P, THREADS>(Ost, a.dout, b, s0, a.S, a.N, n, tid);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_rows<BK, D, D, P, THREADS>(Ks, a.k, b, 0, a.Tk, a.KH, kvh, tid);
-    load_rows<BK, D, D, P, THREADS>(Vs, a.v, b, 0, a.Tk, a.KH, kvh, tid);
+    load_rows<BK, D, DP, P, THREADS>(Ks, a.k, b, 0, a.Tk, a.KH, kvh, tid);
+    load_rows<BK, D, DP, P, THREADS>(Vs, a.v, b, 0, a.Tk, a.KH, kvh, tid);
     if (tid < BK) Ms[tid] = tid < a.Tk && (mask_b == nullptr || mask_b[tid] != 0);
   }
   cp_async_commit();
@@ -564,13 +584,21 @@ flash_bwd_q_mma_kernel(const MArgs a) {
 
   cp_async_wait<1>();
   __syncthreads();  // Q and dout have landed
-  unsigned qf[KS][4], of[KS][4];
+  unsigned qf[L::REG_FRAGS ? KS : 1][4], of[L::REG_FRAGS ? KS : 1][4];
+  if constexpr (L::REG_FRAGS) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    load_a(qf[ks], Qst + warp * 16 * P, ks * 16, lane, P);
-    load_a(of[ks], Ost + warp * 16 * P, ks * 16, lane, P);
+    for (int ks = 0; ks < KS; ++ks) {
+      load_a(qf[ks], Qst + warp * 16 * P, ks * 16, lane, P);
+      load_a(of[ks], Ost + warp * 16 * P, ks * 16, lane, P);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qf[ks][i] = scaled_q(qf[ks][i], a.scale);
+      for (int i = 0; i < 4; ++i) qf[ks][i] = scaled_q(qf[ks][i], a.scale);
+    }
+  } else {  // round(q * scale) in place, once
+    for (int i = tid; i < BQ * DP / 2; i += THREADS) {
+      unsigned* pair = reinterpret_cast<unsigned*>(Qst + (i / (DP / 2)) * P + 2 * (i % (DP / 2)));
+      *pair = scaled_q(*pair, a.scale);
+    }
+    __syncthreads();
   }
 
   float acc[DT][4];
@@ -581,10 +609,10 @@ flash_bwd_q_mma_kernel(const MArgs a) {
     const int st = kt & 1, t0 = kt * BK;
     uint8_t ok_next = 0;
     if (kt + 1 < n_tiles) {  // the next tile's copy overlaps this tile's products
-      load_rows<BK, D, D, P, THREADS>(Ks + (st ^ 1) * BK * P, a.k, b, t0 + BK, a.Tk, a.KH, kvh,
-                                   tid);
-      load_rows<BK, D, D, P, THREADS>(Vs + (st ^ 1) * BK * P, a.v, b, t0 + BK, a.Tk, a.KH, kvh,
-                                   tid);
+      load_rows<BK, D, DP, P, THREADS>(Ks + (st ^ 1) * BK * P, a.k, b, t0 + BK, a.Tk, a.KH,
+                                       kvh, tid);
+      load_rows<BK, D, DP, P, THREADS>(Vs + (st ^ 1) * BK * P, a.v, b, t0 + BK, a.Tk, a.KH,
+                                       kvh, tid);
       const int t = t0 + BK + tid;
       if (tid < BK) ok_next = t < a.Tk && (mask_b == nullptr || mask_b[t] != 0);
       cp_async_commit();
@@ -605,17 +633,26 @@ flash_bwd_q_mma_kernel(const MArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        unsigned qa[4], oa[4];
+        if constexpr (L::REG_FRAGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[ks][i], oa[i] = of[ks][i];
+        } else {
+          load_a(qa, Qst + warp * 16 * P, ks * 16, lane, P);
+          load_a(oa, Ost + warp * 16 * P, ks * 16, lane, P);
+        }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           unsigned kb[4], vb[4];
           load_b(kb, Kt, np * 16, ks * 16, lane, P);
           load_b(vb, Vt, np * 16, ks * 16, lane, P);
-          mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
-          mma_bf16(dp[2 * np], of[ks], vb[0], vb[1]);
-          mma_bf16(dp[2 * np + 1], of[ks], vb[2], vb[3]);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
         }
+      }
       const bool masked =
           mask_b != nullptr || t0 + BK > a.Tk || (a.causal && a.q_offset + w0 < t0 + BK - 1);
 #pragma unroll
@@ -633,7 +670,7 @@ flash_bwd_q_mma_kernel(const MArgs a) {
         unsigned da[4];
         pack_a(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        for (int dp2 = 0; dp2 < DP / 16; ++dp2) {
           unsigned kb[4];
           load_b_trans(kb, Kt, kk * 16, dp2 * 16, lane, P);
           mma_bf16(acc[2 * dp2], da, kb[0], kb[1]);
@@ -651,7 +688,7 @@ flash_bwd_q_mma_kernel(const MArgs a) {
     if (row >= a.S) continue;
     __nv_bfloat16* out = a.dq + (((size_t)b * a.S + row) * a.N + n) * D + 2 * tq;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<unsigned*>(out + dt * 8) =
           pack_bf16(acc[dt][2 * r] * a.scale, acc[dt][2 * r + 1] * a.scale);
   }
@@ -659,10 +696,15 @@ flash_bwd_q_mma_kernel(const MArgs a) {
 
 template <int D>
 struct KvTile {  // B5a
-  static constexpr int P = D + 8;
+  static constexpr int DP = (D + 15) / 16 * 16;  // depth padded to the MMA's k of 16
+  static constexpr int P = DP + 8;
   static constexpr int WARPS = 8, THREADS = WARPS * 32;
-  static constexpr int BKB = WARPS * 16;  // keys a block, 16 a warp
-  static constexpr int BQ = 64;           // query rows a tile
+  // warps sharing 16 keys, each holding the dK/dV sums of DP / KSPLIT
+  // columns: 2 at D 160, whose sums would take 160 registers a thread
+  static constexpr int KSPLIT = D > 128 ? 2 : 1;
+  static constexpr int DH = DP / KSPLIT;           // dK/dV columns a warp
+  static constexpr int BKB = WARPS / KSPLIT * 16;  // keys a block
+  static constexpr int BQ = 64;                    // query rows a tile
   // K and V, then two stages of round(q*scale), q and dout, then two stages
   // of lse * log2(e) and of delta
   static constexpr size_t bytes = sizeof(__nv_bfloat16) *
@@ -670,15 +712,15 @@ struct KvTile {  // B5a
                                   sizeof(float) * 4 * BQ;
 };
 
-// B5a: dK, dV for the keys [blockIdx.x * 128, + 128) of KV head blockIdx.y.
+// B5a: dK, dV for the keys [blockIdx.x * BKB, + BKB) of KV head blockIdx.y.
 template <int D>
 __global__ void __launch_bounds__(KvTile<D>::THREADS, 1)
 flash_bwd_kv_mma_kernel(const MArgs a) {
   using L = KvTile<D>;
-  constexpr int P = L::P, BKB = L::BKB, BQ = L::BQ, THREADS = L::THREADS;
-  constexpr int KS = D / 16;  // k-steps of S^T and dP^T
-  constexpr int NT = BQ / 8;  // n-tiles of S^T and dP^T (queries)
-  constexpr int DT = D / 8;   // n-tiles of dK and dV
+  constexpr int DP = L::DP, P = L::P, BKB = L::BKB, BQ = L::BQ, THREADS = L::THREADS;
+  constexpr int KS = DP / 16;     // k-steps of S^T and dP^T
+  constexpr int NT = BQ / 8;      // n-tiles of S^T and dP^T (queries)
+  constexpr int DT = L::DH / 8;   // n-tiles of this warp's dK and dV columns
   static_assert(2 * BQ <= THREADS, "one thread a row for lse and one for delta");
   extern __shared__ __align__(16) unsigned char smem_kv[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_kv);  // [BKB][P]
@@ -694,7 +736,9 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int groups = a.N / a.KH;
   const int t0 = blockIdx.x * BKB;
-  const int tw = t0 + warp * 16;  // the warp's first key
+  const int kw = warp / L::KSPLIT;        // the warp's 16 keys in the block
+  const int c0 = (warp % L::KSPLIT) * L::DH;  // its first dK/dV column
+  const int tw = t0 + kw * 16;            // the warp's first key
   const uint8_t* mask_b = a.kv_mask != nullptr ? a.kv_mask + (size_t)b * a.Tk : nullptr;
 
   // this thread's two keys (rows g and g + 8 of the warp's C fragments)
@@ -717,9 +761,9 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
   // cp.async; lse and delta returned to the threads that stage them
   auto issue = [&](int st, int n, int iq) {
     const int s0 = iq * BQ;
-    load_rows<BQ, D, D, P, THREADS>(Qss + st * BQ * P, a.qs, b, s0, a.S, a.N, n, tid);
-    load_rows<BQ, D, D, P, THREADS>(Qrs + st * BQ * P, a.q, b, s0, a.S, a.N, n, tid);
-    load_rows<BQ, D, D, P, THREADS>(Os + st * BQ * P, a.dout, b, s0, a.S, a.N, n, tid);
+    load_rows<BQ, D, DP, P, THREADS>(Qss + st * BQ * P, a.qs, b, s0, a.S, a.N, n, tid);
+    load_rows<BQ, D, DP, P, THREADS>(Qrs + st * BQ * P, a.q, b, s0, a.S, a.N, n, tid);
+    load_rows<BQ, D, DP, P, THREADS>(Os + st * BQ * P, a.dout, b, s0, a.S, a.N, n, tid);
     cp_async_commit();
     const int row = s0 + (tid & (BQ - 1));
     const size_t o = ((size_t)b * a.N + n) * a.S + row;
@@ -738,8 +782,8 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
 
   int n = kvh * groups, iq = iq0;  // the head and query tile of tile j
   if (n_tiles > 0) {
-    load_rows<BKB, D, D, P, THREADS>(Ks, a.k, b, t0, a.Tk, a.KH, kvh, tid);
-    load_rows<BKB, D, D, P, THREADS>(Vs, a.v, b, t0, a.Tk, a.KH, kvh, tid);
+    load_rows<BKB, D, DP, P, THREADS>(Ks, a.k, b, t0, a.Tk, a.KH, kvh, tid);
+    load_rows<BKB, D, DP, P, THREADS>(Vs, a.v, b, t0, a.Tk, a.KH, kvh, tid);
     stage(0, issue(0, n, iq));  // one group: K, V and tile 0
   }
   for (int j = 0; j < n_tiles; ++j) {
@@ -772,8 +816,8 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         unsigned ka[4], va[4];  // re-read each tile from shared memory
-        load_a(ka, Ks + warp * 16 * P, ks * 16, lane, P);
-        load_a(va, Vs + warp * 16 * P, ks * 16, lane, P);
+        load_a(ka, Ks + kw * 16 * P, ks * 16, lane, P);
+        load_a(va, Vs + kw * 16 * P, ks * 16, lane, P);
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           unsigned qb[4], ob[4];
@@ -806,10 +850,10 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
         pack_a(pa, s[2 * kk], s[2 * kk + 1]);
         pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        for (int dp2 = 0; dp2 < L::DH / 16; ++dp2) {
           unsigned ob[4], qb[4];
-          load_b_trans(ob, Ot, kk * 16, dp2 * 16, lane, P);
-          load_b_trans(qb, Qr, kk * 16, dp2 * 16, lane, P);
+          load_b_trans(ob, Ot, kk * 16, c0 + dp2 * 16, lane, P);
+          load_b_trans(qb, Qr, kk * 16, c0 + dp2 * 16, lane, P);
           mma_bf16(dv[2 * dp2], pa, ob[0], ob[1]);
           mma_bf16(dv[2 * dp2 + 1], pa, ob[2], ob[3]);
           mma_bf16(dk[2 * dp2], da, qb[0], qb[1]);
@@ -826,9 +870,10 @@ flash_bwd_kv_mma_kernel(const MArgs a) {
   for (int r = 0; r < 2; ++r) {
     const int t = tw + g + 8 * r;
     if (t >= a.Tk) continue;
-    const size_t base = (((size_t)b * a.Tk + t) * a.KH + kvh) * D + 2 * tq;
+    const size_t base = (((size_t)b * a.Tk + t) * a.KH + kvh) * D + c0 + 2 * tq;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
+      if (c0 + dt * 8 >= D) break;  // the padded columns of D 40
       *reinterpret_cast<unsigned*>(a.dk + base + dt * 8) =
           pack_bf16(dk[dt][2 * r] * a.scale, dk[dt][2 * r + 1] * a.scale);
       *reinterpret_cast<unsigned*>(a.dv + base + dt * 8) =
@@ -894,8 +939,9 @@ MArgs make_margs(const void* q, const void* k, const void* v, const void* dout, 
 // B5a. q, dout [B,S,N,D] and k, v, dk, dv [B,T,KH,D], all float32 or all
 // bfloat16 (is_bf16); lse, delta [B,N,S] float32; kv_mask a [B,T] bool or
 // null; qs a [B,S,N,D] bf16 scratch that takes round(q * scale) (bf16
-// only; null for float32). D is 64 or 128 and N a multiple of KH; bf16
-// tensors 16-byte aligned. Returns cudaGetLastError() after the launches.
+// only; null for float32). D is 40, 64, 80, 128 or 160 in bf16, 64 or 128
+// in float32, and N a multiple of KH; bf16 tensors 16-byte aligned.
+// Returns cudaGetLastError() after the launches.
 extern "C" int vt_flash_attention_bwd_kv(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
                                          const void* kv_mask, void* qs, void* dk, void* dv,
@@ -917,8 +963,13 @@ extern "C" int vt_flash_attention_bwd_kv(const void* q, const void* k, const voi
   m.dk = static_cast<__nv_bfloat16*>(dk);
   m.dv = static_cast<__nv_bfloat16*>(dv);
   __nv_bfloat16* scratch = static_cast<__nv_bfloat16*>(qs);
-  if (D == 64) return launch_kv_mma<64>(m, B, scratch, st);
-  if (D == 128) return launch_kv_mma<128>(m, B, scratch, st);
+  switch (D) {
+    case 40: return launch_kv_mma<40>(m, B, scratch, st);
+    case 64: return launch_kv_mma<64>(m, B, scratch, st);
+    case 80: return launch_kv_mma<80>(m, B, scratch, st);
+    case 128: return launch_kv_mma<128>(m, B, scratch, st);
+    case 160: return launch_kv_mma<160>(m, B, scratch, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -940,7 +991,12 @@ extern "C" int vt_flash_attention_bwd_q(const void* q, const void* k, const void
     return (int)cudaErrorInvalidValue;
   MArgs m = make_margs(q, k, v, dout, lse, delta, kv_mask, S, Tk, N, KH, q_offset, scale, causal);
   m.dq = static_cast<__nv_bfloat16*>(dq);
-  if (D == 64) return launch_q_mma<64>(m, B, st);
-  if (D == 128) return launch_q_mma<128>(m, B, st);
+  switch (D) {
+    case 40: return launch_q_mma<40>(m, B, st);
+    case 64: return launch_q_mma<64>(m, B, st);
+    case 80: return launch_q_mma<80>(m, B, st);
+    case 128: return launch_q_mma<128>(m, B, st);
+    case 160: return launch_q_mma<160>(m, B, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

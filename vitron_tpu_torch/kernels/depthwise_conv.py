@@ -16,9 +16,11 @@ segment of H, one strip of columns and one group of channels through a
 ring of k + 1 rows in shared memory, each thread holding one 16-byte
 vector of channels; `plan` sizes the grid. `depthwise_conv2d` launches it
 for CUDA tensors and takes the plain version only for CPU tensors; other k
-or dtypes on the card raise. `launches` counts kernel launches. Only the
-forward is ported: the JAX kernel's custom VJP (dx by the flipped filter, dw
-by a reduction, :108-135) comes with training.
+or dtypes on the card raise. When a gradient is wanted (grad mode on and x
+or w requiring grad) it goes through `DepthwiseConv2d`, the port of the JAX
+`custom_vjp` (`_dw_bwd` :119-133): dx is the same conv (the kernel on the
+card, one more launch) of the cotangent with the spatially flipped filter,
+dw the k^2 float32 reductions. `launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -152,6 +154,39 @@ def _launch(x: torch.Tensor, w: torch.Tensor, p: DwPlan) -> torch.Tensor:
     return out
 
 
+def _dw_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, needs=(True, True)):
+    """The JAX `_dw_bwd` at the cotangent g [B, H, W, C]: dx = the conv of g
+    with w[::-1, ::-1] (the kernel on CUDA tensors), dw[dy, dx, c] = sum over
+    (b, h, w) of xpad[b, h + dy, w + dx, c] g[b, h, w, c] in float32.
+    -> (dx, dw), None where `needs` is false."""
+    dx = dw = None
+    if needs[0]:
+        dx = _dw(g, torch.flip(w, (0, 1)).contiguous().to(g.dtype)).to(x.dtype)
+    if needs[1]:
+        k = w.shape[0]
+        p = k // 2
+        b, h, wd, c = x.shape
+        xp = torch.nn.functional.pad(x.to(torch.float32), (0, 0, p, p, p, p))
+        g32 = g.to(torch.float32)
+        dw = torch.stack([(xp[:, dy:dy + h, dx_:dx_ + wd] * g32).sum((0, 1, 2))
+                          for dy in range(k) for dx_ in range(k)]).reshape(k, k, c).to(w.dtype)
+    return dx, dw
+
+
+class DepthwiseConv2d(torch.autograd.Function):
+    """depthwise_conv2d (without its bias) with gradients for x and w [k, k, C]."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _dw(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _dw_bwd(x, w, g.contiguous(), ctx.needs_input_grad)
+
+
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, H, W, C], w [k, k, C] or [k, k, 1, C], bias [C] or None ->
@@ -160,21 +195,29 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
     if x.dim() != 4 or w.shape[2] != x.shape[-1]:
         raise ValueError(f"depthwise_conv2d: x [B, H, W, C] and w [k, k, C] do not match: "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        out = depthwise_conv2d_plain(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = DepthwiseConv2d.apply(x, w)
     else:
-        if x.device.type != "cuda" or w.device != x.device:
-            raise ValueError(f"depthwise_conv2d: x and w must share one CUDA device, got "
-                             f"{x.device} and {w.device}")
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"depthwise_conv2d: x dtype {x.dtype} is not float32/bfloat16")
-        if w.dtype != x.dtype:
-            raise TypeError(f"depthwise_conv2d: w dtype {w.dtype} is not x's {x.dtype}")
-        k = w.shape[0]
-        if k not in KERNEL_SIZES:
-            raise NotImplementedError(f"depthwise_conv2d: no CUDA kernel for k={k} "
-                                      f"(k in {KERNEL_SIZES})")
-        out = _launch(x, w, plan(*x.shape, k, x.element_size()))
+        out = _dw(x, w)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def _dw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The conv without its bias: the plain version for CPU tensors, else
+    the kernel."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return depthwise_conv2d_plain(x, w)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"depthwise_conv2d: x and w must share one CUDA device, got "
+                         f"{x.device} and {w.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"depthwise_conv2d: x dtype {x.dtype} is not float32/bfloat16")
+    if w.dtype != x.dtype:
+        raise TypeError(f"depthwise_conv2d: w dtype {w.dtype} is not x's {x.dtype}")
+    k = w.shape[0]
+    if k not in KERNEL_SIZES:
+        raise NotImplementedError(f"depthwise_conv2d: no CUDA kernel for k={k} "
+                                  f"(k in {KERNEL_SIZES})")
+    return _launch(x, w, plan(*x.shape, k, x.element_size()))

@@ -27,10 +27,11 @@ plain version only for CPU tensors; other head dims raise. When a gradient
 is wanted (grad mode on and q, k or v requiring grad) it goes through
 `FlashAttention`, a `torch.autograd.Function` in place of the JAX
 `custom_vjp` (:473-498): the forward also writes the per-row log-sum-exp,
-and the backward launches B5a and B5b on the card (D 64/128; bf16 on the
-tensor cores, float32 on FMA pipes) or runs `flash_attention_bwd_plain` on
-the CPU. `launches`, `bwd_kv_launches` and `bwd_q_launches` count the
-launches of the three kernels.
+and the backward launches B5a and B5b on the card (bf16 on the tensor
+cores at D 40/64/80/128/160; float32 on FMA pipes at D 64/128, other
+float32 head dims raise) or runs `flash_attention_bwd_plain` on the CPU.
+`launches`, `bwd_kv_launches` and `bwd_q_launches` count the launches of
+the three kernels.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ bwd_q_launches = 0  # B5b launches
 
 NEG_INF = torch.finfo(torch.float32).min
 KERNEL_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
-BWD_HEAD_DIMS = (64, 128)  # the LLM's; 40/80/160 for the diffusion trainers: ROADMAP A15b
+BWD_HEAD_DIMS = (40, 64, 80, 128, 160)  # the LLM's 64/128, the SD UNet's 40/80/160
+BWD_F32_HEAD_DIMS = (64, 128)  # float32 (no main path: the UNet casts q/k/v to bf16)
 
 
 def reference_attention(q, k, v, kv_mask=None, q_offset=None, scale=None, causal=True):
@@ -248,7 +250,8 @@ def _forward(q, k, v, kv_mask, q_offset, scale, causal, softmax_shift, want_lse)
 
 def _bwd_args(q, k, v, kv_mask, q_offset, out, lse, dout) -> bool:
     """Validate the backward kernels' inputs; -> True for CPU tensors (the
-    plain path), False for the kernels (CUDA, D 64/128, contiguous)."""
+    plain path), False for the kernels (CUDA, a head dim of BWD_HEAD_DIMS,
+    contiguous)."""
     if _check(q, k, v, kv_mask, q_offset):
         return True
     _check_bwd_head_dim(q)
@@ -266,10 +269,15 @@ def _bwd_args(q, k, v, kv_mask, q_offset, out, lse, dout) -> bool:
 
 
 def _check_bwd_head_dim(q):
-    if q.shape[-1] not in BWD_HEAD_DIMS:
+    d = q.shape[-1]
+    if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention backward: head dim {q.shape[-1]} has no CUDA kernel (it takes "
-            f"{BWD_HEAD_DIMS}; 40/80/160 for the diffusion trainers: ROADMAP A15b)")
+            f"flash_attention backward: head dim {d} has no CUDA kernel (it takes "
+            f"{BWD_HEAD_DIMS})")
+    if q.dtype == torch.float32 and d not in BWD_F32_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: float32 at head dim {d} has no CUDA kernel (float32 "
+            f"takes {BWD_F32_HEAD_DIMS}, bfloat16 {BWD_HEAD_DIMS})")
 
 
 def _delta(out, dout):

@@ -21,10 +21,17 @@ float32 on the CUDA cores. Every site is bound by operations (PERF.md). It
 takes C and F that are multiples of 8: the SD UNet's widths C in
 {320, 640, 1280} and the video UNet's {512, 1024, 2048}, F = 4C.
 `geglu_ff` launches it for CUDA tensors (float32 or bfloat16) and takes the
-plain version only for CPU tensors; other shapes raise. `launches` counts
-the calls that launched the kernel (its two GEMMs count as one).
+plain version only for CPU tensors; other shapes raise. When a gradient is
+wanted (grad mode on and an input requiring grad) it goes through
+`GegluFF`, the port of the JAX `custom_vjp` (`_vjp_bwd` :130-134): the
+backward is the VJP of the XLA form, recomputed in torch ops in x's dtype
+(`_vjp_bwd`), on every device; weights that need no gradient get none.
+`launches` counts the calls that launched the kernel (its two GEMMs count
+as one).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -56,9 +63,37 @@ def _splits(m: int, c: int, f: int) -> int:
     return max(1, min(-(-2 * _SMS // tiles), f // _MIN_SPLIT_DEPTH))
 
 
+def _vjp_bwd(x2d, proj_w, proj_b, out_w, out_b, g, needs=(True,) * 5):
+    """The JAX `_vjp_bwd`: the VJP of `_xla_geglu` (:113-117, h = x W1 + b1,
+    t = a * gelu_erf(gate), out = t W2 + b2) at the cotangent g [M, C], in
+    x's dtype; -> (dx, dW1, db1, dW2, db2), None where `needs` is false."""
+    h = x2d @ proj_w + proj_b
+    a, gate = h.chunk(2, dim=-1)
+    cdf = 0.5 * (1.0 + torch.erf(gate * math.sqrt(0.5)))
+    gelu = gate * cdf
+    dt = g @ out_w.T
+    d_gate = dt * a * (cdf + gate * torch.exp(-0.5 * gate * gate) / math.sqrt(2.0 * math.pi))
+    dh = torch.cat([dt * gelu, d_gate], dim=-1)
+    return (dh @ proj_w.T if needs[0] else None, x2d.T @ dh if needs[1] else None,
+            dh.sum(0) if needs[2] else None, (a * gelu).T @ g if needs[3] else None,
+            g.sum(0) if needs[4] else None)
+
+
+class GegluFF(torch.autograd.Function):
+    """geglu_ff on x [M, C] with gradients for x and the weights."""
+
+    @staticmethod
+    def forward(ctx, x2d, proj_w, proj_b, out_w, out_b):
+        ctx.save_for_backward(x2d, proj_w, proj_b, out_w, out_b)
+        return _geglu_ff(x2d, proj_w, proj_b, out_w, out_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp_bwd(*ctx.saved_tensors, g, ctx.needs_input_grad)
+
+
 def geglu_ff(x, proj_w, proj_b, out_w, out_b):
     """x [..., C] -> [..., C]: the reference GEGLU FeedForward."""
-    global launches
     c = x.shape[-1]
     f = out_w.shape[0]
     if (proj_w.dim() != 2 or tuple(proj_w.shape) != (c, 2 * f)
@@ -68,13 +103,25 @@ def geglu_ff(x, proj_w, proj_b, out_w, out_b):
                          f"{tuple(proj_b.shape)}, W2 {tuple(out_w.shape)}, b2 "
                          f"{tuple(out_b.shape)} do not match [C, 2F], [2F], [F, C], [C]")
     tensors = (x, proj_w, proj_b, out_w, out_b)
-    lead = x.shape[:-1]
     x2d = x.reshape(-1, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        out = GegluFF.apply(x2d, proj_w, proj_b, out_w, out_b)
+    else:
+        out = _geglu_ff(x2d, proj_w, proj_b, out_w, out_b)
+    return out.reshape(x.shape)
+
+
+def _geglu_ff(x2d, proj_w, proj_b, out_w, out_b):
+    """x2d [M, C] -> [M, C]: the plain version for CPU tensors, else the
+    kernel."""
+    global launches
+    tensors = (x2d, proj_w, proj_b, out_w, out_b)
+    c, f = x2d.shape[1], out_w.shape[0]
     if all(t.device.type == "cpu" for t in tensors):
-        return geglu_ff_plain(x2d, proj_w, proj_b, out_w, out_b).reshape(*lead, c)
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        return geglu_ff_plain(x2d, proj_w, proj_b, out_w, out_b)
+    if any(t.device.type != "cuda" or t.device != x2d.device for t in tensors):
         raise ValueError("geglu_ff: tensors must share one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype
+    if x2d.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x2d.dtype
                                                               for t in tensors):
         raise TypeError(f"geglu_ff: x and the weights must all be float32 or all "
                         f"bfloat16, got {[t.dtype for t in tensors]}")
@@ -87,18 +134,18 @@ def geglu_ff(x, proj_w, proj_b, out_w, out_b):
     if not (proj_b.is_contiguous() and out_b.is_contiguous()):
         raise ValueError("geglu_ff: the biases must be contiguous")
     m = x2d.shape[0]
-    out = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, c), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
-        return out.reshape(*lead, c)
-    hidden = torch.empty((m, f), dtype=x.dtype, device=x.device)
+        return out
+    hidden = torch.empty((m, f), dtype=x2d.dtype, device=x2d.device)
     splits = _splits(m, c, f)
-    part = (torch.empty((splits, m, c), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, m, c), dtype=torch.float32, device=x2d.device)
             if splits > 1 else None)
     rc = _build.lib().vt_geglu_ff(
         x2d.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(), out_w.data_ptr(),
         out_b.data_ptr(), hidden.data_ptr(), part.data_ptr() if part is not None else None,
-        out.data_ptr(), m, c, f, splits, int(x.dtype == torch.bfloat16),
-        _build.stream_handle(x.device))
+        out.data_ptr(), m, c, f, splits, int(x2d.dtype == torch.bfloat16),
+        _build.stream_handle(x2d.device))
     _build.check(rc, "geglu_ff")
     launches += 1
-    return out.reshape(*lead, c)
+    return out

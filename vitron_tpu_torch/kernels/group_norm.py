@@ -14,8 +14,11 @@ PyTorch has no such fusion, so every CUDA call launches this kernel.
 The kernel is `csrc/group_norm.cu`: rows are split over blocks and a second
 pass adds the per-split partial sums in a fixed order, so the result is the
 same bits run to run (no atomics). `group_norm_sums` launches it for CUDA
-tensors and takes the plain version only for CPU tensors. `launches` counts
-kernel launches.
+tensors and takes the plain version only for CPU tensors. When a gradient
+is wanted (grad mode on and x requiring grad) it goes through
+`GroupNormSums`, the port of the JAX `custom_vjp` (`_bwd` :104-108): the
+backward is dx = g1 + 2 x g2, elementwise in torch ops, on every device.
+`launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -43,8 +46,34 @@ def _splits(b: int, r: int, c: int) -> int:
     return max(1, min(want, r // _MIN_SPLIT_ROWS))
 
 
+def _bwd(x3: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The JAX `_bwd`: dx = g[:, 0] + 2 x g[:, 1], in float32, cast to x's
+    dtype."""
+    return (g[:, 0:1] + 2.0 * x3.to(torch.float32) * g[:, 1:2]).to(x3.dtype)
+
+
+class GroupNormSums(torch.autograd.Function):
+    """group_norm_sums with a gradient for x."""
+
+    @staticmethod
+    def forward(ctx, x3):
+        ctx.save_for_backward(x3)
+        return _group_norm_sums(x3)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x3,) = ctx.saved_tensors
+        return _bwd(x3, g)
+
+
 def group_norm_sums(x3: torch.Tensor) -> torch.Tensor:
     """x3 [B, R, C] -> [B, 2, C] float32 (sum and sum of squares over R)."""
+    if torch.is_grad_enabled() and x3.requires_grad:
+        return GroupNormSums.apply(x3)
+    return _group_norm_sums(x3)
+
+
+def _group_norm_sums(x3: torch.Tensor) -> torch.Tensor:
     global launches
     if x3.dim() != 3:
         raise ValueError(f"group_norm_sums: x must be [B, R, C], got {tuple(x3.shape)}")

@@ -26,9 +26,12 @@ in float32 and bfloat16. Where JAX's default bf16 path rounds the
 probabilities to bf16 and normalises after the product with v
 (`unet_sd_video.py:237-247`), the kernel's softmax is exact in float32: the
 two differ by bf16 rounding. `frame_attention` launches it for CUDA tensors
-and takes the plain version only for CPU tensors. `launches` counts kernel
-launches. Only the forward is ported: the JAX backward (an einsum VJP,
-:132-134) comes with training.
+and takes the plain version only for CPU tensors. When a gradient is wanted
+(grad mode on and q, k or v requiring grad) it goes through
+`FrameAttention`, the port of the JAX `custom_vjp` (`_vjp_bwd` :132-134):
+the backward is the VJP of the einsum form `_xla` (:111-120, the row max
+under stop_gradient), in float32 torch ops, on every device. `launches`
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -55,10 +58,50 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hea
     return torch.einsum("bnhfg,bgnhd->bfnhd", attn, v5).reshape(b, f, n, hc).to(v.dtype)
 
 
+def _vjp_bwd(q, k, v, heads: int, scale: float, g):
+    """The JAX `_vjp_bwd`: the VJP of the einsum form `_xla` at the cotangent
+    g, with the scores in float32 scaled by `scale` (JAX scales q before the
+    VJP: the same gradients), the row max a constant and the probabilities
+    cast to v's dtype before the product with v. -> (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, f, n, hc = q.shape
+    d = hc // heads
+    f32 = torch.float32
+    q5, k5, v5, g5 = (t.to(f32).reshape(b, f, n, heads, d) for t in (q, k, v, g))
+    sim = torch.einsum("bfnhd,bgnhd->bnhfg", q5, k5) * scale
+    p = torch.softmax(sim, dim=-1)
+    dv = torch.einsum("bnhfg,bfnhd->bgnhd", p.to(v.dtype).to(f32), g5)
+    dp = torch.einsum("bfnhd,bgnhd->bnhfg", g5, v5)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bnhfg,bgnhd->bfnhd", ds, k5)
+    dk = torch.einsum("bnhfg,bfnhd->bgnhd", ds, q5)
+    return tuple(x.reshape(b, f, n, hc).to(t.dtype) for x, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class FrameAttention(torch.autograd.Function):
+    """frame_attention with gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (heads, scale)
+        return _frame_attention(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_vjp_bwd(*ctx.saved_tensors, *ctx.args, g), None, None)
+
+
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                     scale: float) -> torch.Tensor:
     """q/k/v [B, F, N, H*D] -> [B, F, N, H*D]: softmax over the frame axis
     per (pixel, head)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FrameAttention.apply(q, k, v, heads, float(scale))
+    return _frame_attention(q, k, v, heads, scale)
+
+
+def _frame_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     global launches
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"frame_attention: q, k, v must be one [B, F, N, H*D] shape, got "

@@ -20,10 +20,13 @@ tolerances cover that rounding). On the TPU the kernel sat behind
 epilogues; PyTorch has no such fusion, so every CUDA call launches this
 kernel. x, w and the bias are float32 or bfloat16, all of one dtype.
 `temporal_conv_k3` launches it for CUDA tensors and takes the plain version
-only for CPU tensors. `launches` counts kernel launches. Only the forward is
-ported: the JAX custom VJP (dx by the frame-flipped transposed taps, dw by
-einsums, :158-171) comes with training, and the W8A8 `{"q8t", "s"}` weights
-with the quantized variants.
+only for CPU tensors. When a gradient is wanted (grad mode on and x, w or
+the bias requiring grad) it goes through `TemporalConvK3`, the port of the
+JAX `custom_vjp` (`_tconv_bwd` :158-171): dx is the same conv (the kernel on
+the card, one more launch) of the cotangent with the frame-flipped,
+transposed taps, dw three float32 einsums, and the bias gradient the sum of
+the cotangent. `launches` counts kernel launches. The W8A8 `{"q8t", "s"}`
+weights wait for the quantized variants.
 """
 from __future__ import annotations
 
@@ -67,9 +70,46 @@ def temporal_conv_k3_plain(x4: torch.Tensor, w: torch.Tensor,
     return y.to(x4.dtype)
 
 
+def _tconv_bwd(x4: torch.Tensor, w: torch.Tensor, g: torch.Tensor, needs=(True, True)):
+    """The JAX `_tconv_bwd` at the cotangent g [B, F, N, Co]: dx = the conv
+    of g with flip(w, 0) transposed to [3, Co, C] (the kernel on CUDA
+    tensors), dw[d] = sum over (b, f, n) of x[f]^T g[f + 1 - d] in float32.
+    -> (dx, dw), None where `needs` is false."""
+    dx = dw = None
+    if needs[0]:
+        wt = torch.flip(w, (0,)).transpose(1, 2).contiguous().to(g.dtype)
+        dx = _conv(g, wt, None).to(x4.dtype)
+    if needs[1]:
+        f = x4.shape[1]
+        gp = torch.nn.functional.pad(g.to(torch.float32), (0, 0, 0, 0, 1, 1))
+        x32 = x4.to(torch.float32)
+        dw = torch.stack([torch.einsum("bfnc,bfnd->cd", x32, gp[:, 2 - d:2 - d + f])
+                          for d in range(3)]).to(w.dtype)
+    return dx, dw
+
+
+class TemporalConvK3(torch.autograd.Function):
+    """temporal_conv_k3 on x4 [B, F, N, C] with gradients for x, the taps
+    [3, C, Co] and the bias."""
+
+    @staticmethod
+    def forward(ctx, x4, w, bias):
+        ctx.save_for_backward(x4, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _conv(x4, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x4, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx, dw = _tconv_bwd(x4, w, g, ctx.needs_input_grad[:2])
+        db = (g.to(torch.float32).sum((0, 1, 2)).to(ctx.bias_dtype)
+              if ctx.needs_input_grad[2] else None)
+        return dx, dw, db
+
+
 def temporal_conv_k3(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, F, ..., C] -> [B, F, ..., Co]: the frame-axis k=3 SAME conv."""
-    global launches
     w = _taps(w)
     shape = x.shape
     if x.dim() < 3 or w.shape[1] != shape[-1]:
@@ -81,11 +121,25 @@ def temporal_conv_k3(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) ->
         raise ValueError(f"temporal_conv_k3: bias must be [{co}], got {tuple(bias.shape)}")
     tensors = [t for t in (x, w, bias) if t is not None]
     x4 = x.reshape(b, f, n, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        y = TemporalConvK3.apply(x4, w, bias)
+    else:
+        y = _conv(x4, w, bias)
+    return y.reshape(shape[:-1] + (co,))
+
+
+def _conv(x4: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x4 [B, F, N, C], w [3, C, Co] -> [B, F, N, Co]: the plain version for
+    CPU tensors, else the kernel."""
+    global launches
+    b, f, n, c = x4.shape
+    co = w.shape[-1]
+    tensors = [t for t in (x4, w, bias) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
-        return temporal_conv_k3_plain(x4, w, bias).reshape(shape[:-1] + (co,))
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        return temporal_conv_k3_plain(x4, w, bias)
+    if any(t.device.type != "cuda" or t.device != x4.device for t in tensors):
         raise ValueError("temporal_conv_k3: x, w and bias must share one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x.dtype
+    if x4.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != x4.dtype
                                                               for t in tensors):
         raise TypeError(f"temporal_conv_k3: x, w and bias must all be float32 or all "
                         f"bfloat16, got {[t.dtype for t in tensors]}")
@@ -95,13 +149,13 @@ def temporal_conv_k3(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) ->
     x4, w = _build.aligned16(x4), _build.aligned16(w)
     if bias is not None:
         bias = bias.contiguous()
-    y = torch.empty((b, f, n, co), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, f, n, co), dtype=x4.dtype, device=x4.device)
     if y.numel():
         rc = _build.lib().vt_temporal_conv_k3(
             x4.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-            y.data_ptr(), b, f, n, c, co, int(x.dtype == torch.bfloat16),
-            _build.stream_handle(x.device))
+            y.data_ptr(), b, f, n, c, co, int(x4.dtype == torch.bfloat16),
+            _build.stream_handle(x4.device))
         _build.check(rc, "temporal_conv_k3")
         launches += 1
-    return y.reshape(shape[:-1] + (co,))
+    return y
 

@@ -41,8 +41,11 @@ def group_norm(x: torch.Tensor, scale, bias, groups: int = 32, eps: float = 1e-6
     g2 = st[:, 1].reshape(b, groups, c // groups).sum(-1)
     mu = g1 / n
     inv = torch.rsqrt(g2 / n - mu * mu + eps)
-    invc = inv.repeat_interleave(c // groups, dim=-1)  # [B, C]
-    muc = mu.repeat_interleave(c // groups, dim=-1)
+    # each group's value over its channels, [B, C]: an expand, whose gradient
+    # is a sum (repeat_interleave's scatter-adds would not give the same
+    # bits twice on the card)
+    invc = inv[:, :, None].expand(b, groups, c // groups).reshape(b, c)
+    muc = mu[:, :, None].expand(b, groups, c // groups).reshape(b, c)
     a = invc * scale.to(torch.float32)
     d = bias.to(torch.float32) - muc * a
     bshape = (b,) + (1,) * (x.dim() - 2) + (c,)

@@ -358,6 +358,13 @@ def _image_streams(params, cfg: UNetSDVideoConfig, x, f: int, ctx, image, local_
     return x, ctx
 
 
+def _per_frame(x: torch.Tensor, f: int) -> torch.Tensor:
+    """[B, ...] -> [B F, ...], each row repeated f times (b-major): an
+    expand, whose gradient is a sum (repeat_interleave's scatter-adds would
+    not give the same bits twice on the card)."""
+    return x[:, None].expand(x.shape[0], f, *x.shape[1:]).reshape(x.shape[0] * f, *x.shape[1:])
+
+
 def forward(params: Dict[str, Any], cfg: UNetSDVideoConfig, x: torch.Tensor, t: torch.Tensor,
             y: Optional[torch.Tensor] = None, fps: Optional[torch.Tensor] = None,
             image: Optional[torch.Tensor] = None,
@@ -374,13 +381,13 @@ def forward(params: Dict[str, Any], cfg: UNetSDVideoConfig, x: torch.Tensor, t: 
     emb = _mlp2(params["time_embed"], sinusoidal_embedding(t, cfg.dim).to(dtype))
     if cfg.variant == "i2vgen" or (cfg.use_fps_condition and fps is not None):
         emb = emb + _mlp2(params["fps_embed"], sinusoidal_embedding(fps, cfg.dim).to(dtype))
-    emb_bt = emb.repeat_interleave(f, dim=0)  # (b f) ordering, b-major
+    emb_bt = _per_frame(emb, f)  # (b f) ordering, b-major
     if y is None:
         y = params["zero_y"][:, :1].expand(b, 1, cfg.context_dim)
     ctx = y.to(dtype)
     if cfg.variant == "i2vgen":
         x, ctx = _image_streams(params, cfg, x, f, ctx, image, local_image)
-    ctx_bt = ctx.repeat_interleave(f, dim=0)
+    ctx_bt = _per_frame(ctx, f)
 
     input_plan, middle_plan, output_plan = block_plan(cfg)
     hs = []

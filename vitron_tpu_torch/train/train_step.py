@@ -1,20 +1,34 @@
-"""The multimodal training step and its optimizer, in PyTorch.
+"""The multimodal training step and the optimizers, in PyTorch.
 
 Port of `vitron_tpu/train/train_step.py` (which replaced the reference's
 DeepSpeed ZeRO-2 + HF Trainer stack, reference: vitron/train/train.py:
-1029-1264). optax's transformations become `Optimizer`: `torch.optim.AdamW`
-under the formulas of `optax.chain(clip_by_global_norm(c), adamw(lr))`, with
-the learning rate of each step taken from a schedule of optax's step count
-(the first update uses count 0). AdamW's update is optax's
-(m_hat / (sqrt(v_hat) + eps) + wd p) x lr; the clip is optax's, t when the
-global norm is below c and t / norm * c otherwise (not `clip_grad_norm_`,
-which adds 1e-6).
+1029-1264), and of the optax transformations the JAX trainers chain. Each
+`Transform` is an optax `GradientTransformation` over a list of tensors
+(init(params) -> state, update(updates, state, params) -> (updates,
+state)), written from optax's own formulas and composed as the JAX
+trainers compose theirs:
+- `clip` (value clip), `clip_by_global_norm` (t when the global norm is
+  below c, else t / norm * c: not `clip_grad_norm_`, which adds 1e-6);
+- `adamw`: `scale_by_adam` (m_hat / (sqrt(v_hat) + eps)), the decayed
+  weights, then the learning rate of a schedule read from optax's count
+  (the first update uses count 0);
+- `adafactor` at `optax.adafactor`'s defaults (optax/_src/factorized.py):
+  second moments factored where the two largest dims are both >= 128
+  (not necessarily the last two), decay 1 - (count + 1)^-0.8, eps 1e-30
+  added to g^2, then `clip_by_block_rms(1.0)`, the learning rate,
+  `scale_by_param_block_rms` (min 1e-3) and the sign
+  (`torch.optim.Adafactor` computes another update).
+`Optimizer` runs one chain per group of tensors (optax.multi_transform;
+frozen tensors are in no group and take no state). An update overwrites the
+gradient it came from, tensor by tensor, so a step holds no second copy of
+the gradients.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from vitron_tpu_torch.models import vitron_model
@@ -47,63 +61,288 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return sched
 
 
-def named_leaves(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
-                                                                             torch.Tensor]]:
-    """(key path, tensor) for every leaf of nested dicts, in insertion order."""
+def named_leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, torch.Tensor]]:
+    """(key path, tensor) for every leaf of nested dicts and lists, in
+    insertion order: dict keys as strings, list indices as ints."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from named_leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, prefix + (i,))
     else:
         yield prefix, tree
 
 
+def map_leaves(fn: Callable[[Tuple, Any], Any], tree: Any, prefix: Tuple = ()) -> Any:
+    """fn(key path, leaf) over nested dicts and lists, keeping the
+    structure; paths as `named_leaves` names them."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, prefix + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+# ------------------------------------------------------------ transforms
+
+
+class Transform(NamedTuple):
+    """optax.GradientTransformation over a list of tensors. `update` may
+    overwrite the update tensors it is given."""
+    init: Callable[[List[torch.Tensor]], Any]
+    update: Callable[[List[torch.Tensor], Any, List[torch.Tensor]], Tuple[List[torch.Tensor], Any]]
+
+
+def _stateless(fn) -> Transform:
+    """A transform with no state: fn(update, param) -> update, a tensor at a time."""
+    return Transform(lambda params: {},
+                     lambda updates, state, params: ([fn(u, p) for u, p in zip(updates, params)],
+                                                     state))
+
+
+def _counted(fn) -> Transform:
+    """A transform whose state is optax's step count: fn(update, param,
+    count) -> update; the first update sees count 0."""
+    def update(updates, state, params):
+        count = state["count"]
+        return [fn(u, p, count) for u, p in zip(updates, params)], {"count": count + 1}
+
+    return Transform(lambda params: {"count": 0}, update)
+
+
+def chain(*transforms: Transform) -> Transform:
+    """optax.chain."""
+    def init(params):
+        return [t.init(params) for t in transforms]
+
+    def update(updates, state, params):
+        new = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new.append(s)
+        return updates, new
+
+    return Transform(init, update)
+
+
+def clip(max_delta: float) -> Transform:
+    """optax.clip: each element into [-max_delta, max_delta]."""
+    return _stateless(lambda u, p: u.clamp_(-max_delta, max_delta))
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every element's square, summed in float32 a tensor
+    at a time (optax.global_norm); a 0-dim tensor on the tensors' device."""
+    return torch.sqrt(sum(t.to(torch.float32).square().sum() for t in tensors))
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> float:
-    """optax.clip_by_global_norm in place; -> the norm before clipping
-    (summed in float32)."""
-    norm = math.sqrt(sum(float(g.to(torch.float32).square().sum()) for g in grads))
-    if norm >= max_norm:
-        for g in grads:
-            g.div_(norm).mul_(max_norm)
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: t if the global norm is below
+    max_norm, else t / norm * max_norm. -> the norm before clipping."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
     return norm
 
 
-class Optimizer:
-    """Per group of tensors: clip_by_global_norm(grad_clip) over the group,
-    then AdamW at the group's scheduled learning rate (optax.multi_transform
-    of one chain per group). A tensor with no gradient steps with zeros, as
-    in JAX, where every trainable leaf has one."""
+def clip_by_global_norm(max_norm: float) -> Transform:
+    """optax.clip_by_global_norm over the transform's tensors."""
+    def update(updates, state, params):
+        clip_by_global_norm_(updates, max_norm)
+        return updates, state
 
-    def __init__(self, groups: Sequence[Tuple[Sequence[torch.Tensor], Schedule]],
-                 grad_clip: Optional[float] = 1.0, weight_decay: float = 0.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        self.schedules = [sched for _, sched in groups]
-        self.inner = torch.optim.AdamW([{"params": list(ps), "lr": 0.0} for ps, _ in groups],
-                                       lr=0.0, betas=(b1, b2), eps=eps,
-                                       weight_decay=weight_decay)
-        self.grad_clip = grad_clip
+    return Transform(lambda params: {}, update)
+
+
+def scale(factor: float) -> Transform:
+    return _stateless(lambda u, p: u.mul_(factor))
+
+
+def _as_schedule(lr: Union[float, Schedule]) -> Schedule:
+    return lr if callable(lr) else constant_schedule(lr)
+
+
+def scale_by_learning_rate(lr: Union[float, Schedule], flip_sign: bool = True) -> Transform:
+    """optax.scale_by_learning_rate: u * (-)lr(count), the count from 0."""
+    sched, sign = _as_schedule(lr), -1.0 if flip_sign else 1.0
+    return _counted(lambda u, p, count: u.mul_(sign * float(sched(count))))
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
+    """optax.scale_by_adam: mu and nu moments, bias-corrected at the
+    incremented count, m_hat / (sqrt(v_hat) + eps)."""
+    def init(params):
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    def update(updates, state, params):
+        count = state["count"] + 1
+        # optax's 1 - decay^count, in float32
+        c1, c2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(count)) for b in (b1, b2))
+        for u, m, v in zip(updates, state["mu"], state["nu"]):
+            m.mul_(b1).add_(u, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(u, u, value=1.0 - b2)
+            torch.div(m / c1, torch.sqrt(v / c2) + eps, out=u)
+        return updates, {**state, "count": count}
+
+    return Transform(init, update)
+
+
+def add_decayed_weights(weight_decay: float) -> Transform:
+    """optax.add_decayed_weights: u + wd * p."""
+    return _stateless(lambda u, p: u.add_(p, alpha=weight_decay))
+
+
+def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> Transform:
+    """optax.adamw (its default weight decay 1e-4)."""
+    return chain(scale_by_adam(b1, b2, eps), add_decayed_weights(weight_decay),
+                 scale_by_learning_rate(lr))
+
+
+# optax.adafactor's defaults
+_FACTOR_MIN_DIM = 128  # min_dim_size_to_factor
+_DECAY_RATE = 0.8
+_EPS = 1e-30
+_PARAM_SCALE_MIN = 1e-3  # scale_by_param_block_rms's min_scale
+
+
+def _factored_dims(shape):
+    """optax's: the two largest axes (second largest, largest) when both
+    reach _FACTOR_MIN_DIM, else None."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < _FACTOR_MIN_DIM:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def scale_by_factored_rms() -> Transform:
+    """optax.scale_by_factored_rms at its defaults (Adafactor's second
+    moments): a row and a column mean of g^2 + _EPS over the two largest
+    axes d1 < d0 in size order, or a full one where the tensor does not
+    factor, decayed by 1 - (count + 1)^-_DECAY_RATE in float32."""
+    def init(params):
+        state = {"count": 0, "v_row": [], "v_col": [], "v": []}
+        for p in params:
+            dims = _factored_dims(tuple(p.shape))
+            one = torch.zeros((1,), dtype=p.dtype, device=p.device)
+            if dims is None:
+                state["v_row"].append(one)
+                state["v_col"].append(one.clone())
+                state["v"].append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                state["v_row"].append(torch.zeros([n for i, n in enumerate(p.shape) if i != d0],
+                                                  dtype=p.dtype, device=p.device))
+                state["v_col"].append(torch.zeros([n for i, n in enumerate(p.shape) if i != d1],
+                                                  dtype=p.dtype, device=p.device))
+                state["v"].append(one)
+        return state
+
+    def update(updates, state, params):
+        count = state["count"]
+        decay = float(np.float32(1.0) - np.float32(count + 1) ** np.float32(-_DECAY_RATE))
+        for i, (u, p) in enumerate(zip(updates, params)):
+            g_sq = u * u + _EPS
+            dims = _factored_dims(tuple(p.shape))
+            if dims is None:
+                v = state["v"][i].mul_(decay).add_(g_sq, alpha=1.0 - decay)
+                u.mul_(v.rsqrt())
+                continue
+            d1, d0 = dims
+            v_row = state["v_row"][i].mul_(decay).add_(g_sq.mean(d0), alpha=1.0 - decay)
+            v_col = state["v_col"][i].mul_(decay).add_(g_sq.mean(d1), alpha=1.0 - decay)
+            del g_sq
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
+            u.mul_(row_factor.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
+        return updates, {**state, "count": count + 1}
+
+    return Transform(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> Transform:
+    """optax.clip_by_block_rms: u / max(1, rms(u) / threshold), a tensor at
+    a time."""
+    return _stateless(lambda u, p: u.div_(torch.clamp(
+        torch.sqrt(u.square().mean()) / threshold, min=1.0)))
+
+
+def scale_by_param_block_rms() -> Transform:
+    """optax.scale_by_param_block_rms at its default: u * max-like(rms(p),
+    _PARAM_SCALE_MIN) (rms at or below it gives _PARAM_SCALE_MIN)."""
+    def fn(u, p):
+        rms = torch.sqrt(p.square().mean())
+        return u.mul_(torch.where(rms <= _PARAM_SCALE_MIN,
+                                  torch.full_like(rms, _PARAM_SCALE_MIN), rms))
+
+    return _stateless(fn)
+
+
+def adafactor(lr: Union[float, Schedule]) -> Transform:
+    """optax.adafactor(lr) at its defaults (min_dim_size_to_factor 128,
+    decay_rate 0.8, multiply_by_parameter_scale, clipping_threshold 1.0,
+    no momentum, no weight decay, eps 1e-30)."""
+    return chain(scale_by_factored_rms(), clip_by_block_rms(1.0),
+                 scale_by_learning_rate(lr, flip_sign=False), scale_by_param_block_rms(),
+                 scale(-1.0))
+
+
+@torch.no_grad()
+def apply_gradients(tx: Transform, params: Sequence[torch.Tensor], state: Any) -> Any:
+    """One step of `tx` over `params` from their `.grad` (optax's update,
+    then apply_updates): each gradient becomes its update in place, is added
+    and dropped. A tensor with no gradient steps with zeros, as in JAX,
+    where every trainable leaf has one. -> the new state."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    updates, state = tx.update(grads, state, list(params))
+    for p, u in zip(params, updates):
+        p.add_(u)
+        p.grad = None
+    return state
+
+
+def copy_grads(params: Any, grads: Optional[dict]) -> None:
+    """Into `grads` (when given): a copy of each gradient of the tree under
+    its key path."""
+    if grads is not None:
+        grads.update({path: p.grad.detach().clone() for path, p in named_leaves(params)
+                      if p.grad is not None})
+
+
+def zero_grad(params: Sequence[torch.Tensor]) -> None:
+    for p in params:
+        p.grad = None
+
+
+class Optimizer:
+    """One transform chain per group of tensors (optax.multi_transform),
+    stepped by `apply_gradients`."""
+
+    def __init__(self, groups: Sequence[Tuple[Sequence[torch.Tensor], Transform]]):
+        self.groups = [(list(ps), tx) for ps, tx in groups]
+        self.states = [tx.init(ps) for ps, tx in self.groups]
         self.count = 0
 
     def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        for ps, _ in self.groups:
+            zero_grad(ps)
 
-    @torch.no_grad()
     def step(self) -> None:
-        for group, sched in zip(self.inner.param_groups, self.schedules):
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            if self.grad_clip:
-                clip_by_global_norm_([p.grad for p in group["params"]], self.grad_clip)
-            group["lr"] = sched(self.count)
-        self.inner.step()
+        for i, (ps, tx) in enumerate(self.groups):
+            self.states[i] = apply_gradients(tx, ps, self.states[i])
         self.count += 1
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"inner": self.inner.state_dict(), "count": self.count}
+        return {"states": self.states, "count": self.count}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.inner.load_state_dict(state["inner"])
+        self.states = state["states"]
         self.count = int(state["count"])
 
 
@@ -111,9 +350,9 @@ def make_optimizer(params: Sequence[torch.Tensor], lr: float = 2e-4, weight_deca
                    b1: float = 0.9, b2: float = 0.999,
                    grad_clip: Optional[float] = 1.0) -> Optimizer:
     """AdamW of the reference finetune recipe (finetune_lora.sh:27-33) over
-    `params`, at a constant learning rate."""
-    return Optimizer([(params, constant_schedule(lr))], grad_clip=grad_clip,
-                     weight_decay=weight_decay, b1=b1, b2=b2)
+    `params`, at a constant learning rate, after clip_by_global_norm."""
+    txs = [clip_by_global_norm(grad_clip)] if grad_clip else []
+    return Optimizer([(params, chain(*txs, adamw(lr, b1, b2, weight_decay=weight_decay)))])
 
 
 def forward_loss(params: Dict[str, Any], cfg: vitron_model.VitronConfig,

@@ -35,6 +35,7 @@ from vitron_tpu_torch.constants import IGNORE_INDEX
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.train import data as data_mod
 from vitron_tpu_torch.train import lora as lora_mod
+from vitron_tpu_torch.train import train_step as ts
 from vitron_tpu_torch.train.train_step import (Optimizer, forward_loss, leaves, named_leaves,
                                                warmup_cosine_decay_schedule)
 
@@ -50,7 +51,8 @@ class TrainConfig:
     save_steps: int = 500                 # finetune_lora.sh:35
     save_total_limit: int = 1
     warmup_ratio: float = 0.03            # finetune_lora.sh:40
-    optimizer: str = "adamw"              # "adamw" (Adafactor: ROADMAP A15b)
+    optimizer: str = "adamw"              # "adamw" | "adafactor" (i2vgen uses
+                                          # Adafactor, utils/optim/adafactor.py)
     seed: int = 0
     pad_len: int = 2048
     tune_projector: bool = True
@@ -60,24 +62,25 @@ class TrainConfig:
 
 def make_optimizer(train_cfg: TrainConfig, total_steps: int,
                    trainable: Dict[str, Any]) -> Optimizer:
-    """AdamW with a warmup-cosine schedule over `trainable`'s tensors; the
-    projector gets its own group (and its own clip) when projector_lr is set
-    (llava_trainer.py:184-271)."""
-    if train_cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {train_cfg.optimizer!r} is not ported yet (ROADMAP A15b)")
+    """clip_by_global_norm, then AdamW (or Adafactor) with a warmup-cosine
+    schedule, over `trainable`'s tensors; the projector gets its own group
+    (and its own clip) when projector_lr is set (llava_trainer.py:184-271)."""
+    if train_cfg.optimizer not in ("adamw", "adafactor"):
+        raise ValueError(f"optimizer {train_cfg.optimizer!r}: 'adamw' or 'adafactor'")
     warmup = max(int(train_cfg.warmup_ratio * total_steps), 1)
 
-    def sched(lr):
-        return warmup_cosine_decay_schedule(0.0, lr, warmup, max(total_steps, warmup + 1))
+    def make(lr):
+        sched = warmup_cosine_decay_schedule(0.0, lr, warmup, max(total_steps, warmup + 1))
+        inner = (ts.adafactor(sched) if train_cfg.optimizer == "adafactor"
+                 else ts.adamw(sched, weight_decay=train_cfg.weight_decay))
+        return ts.chain(ts.clip_by_global_norm(train_cfg.grad_clip), inner)
 
     if train_cfg.projector_lr is None:
-        groups = [(leaves(trainable), sched(train_cfg.learning_rate))]
-    else:
-        named = list(named_leaves(trainable))
-        groups = [([t for p, t in named if "projector" not in p], sched(train_cfg.learning_rate)),
-                  ([t for p, t in named if "projector" in p], sched(train_cfg.projector_lr))]
-    return Optimizer(groups, grad_clip=train_cfg.grad_clip, weight_decay=train_cfg.weight_decay)
+        return Optimizer([(leaves(trainable), make(train_cfg.learning_rate))])
+    named = list(named_leaves(trainable))
+    return Optimizer([([t for p, t in named if "projector" not in p],
+                       make(train_cfg.learning_rate)),
+                      ([t for p, t in named if "projector" in p], make(train_cfg.projector_lr))])
 
 
 def make_lora_loss(cfg: vitron_model.VitronConfig, train_cfg: TrainConfig):
@@ -96,8 +99,8 @@ def make_lora_loss(cfg: vitron_model.VitronConfig, train_cfg: TrainConfig):
 
 def make_lora_train_step(cfg: vitron_model.VitronConfig, train_cfg: TrainConfig,
                          optimizer: Optimizer):
-    """-> step(trainable, base, batch) -> loss. The gradients stay on the
-    trainable tensors' `.grad` after the step (clipped in place)."""
+    """-> step(trainable, base, batch) -> loss. The optimizer turns the
+    gradients into the updates in place and drops them."""
     loss_fn = make_lora_loss(cfg, train_cfg)
 
     def step(trainable, base, batch):
@@ -111,9 +114,7 @@ def make_lora_train_step(cfg: vitron_model.VitronConfig, train_cfg: TrainConfig,
 
 
 def _trainable_copy(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _trainable_copy(v) for k, v in tree.items()}
-    return tree.detach().clone().requires_grad_(True)
+    return ts.map_leaves(lambda _, t: t.detach().clone().requires_grad_(True), tree)
 
 
 class Trainer:
