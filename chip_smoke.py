@@ -36,7 +36,9 @@ Phases (any failure exits non-zero and prints no `ok` line):
    geglu_ff at C 512/1024/2048, group_norm_sums at every [B, R, C] that
    one UNet call and the VAE decode of 24 frames give it (from the block
    plan and the VAE config; also run twice for identical bits), and
-   flash_attention at the VAE decode's [24, 2880, 1, 512].
+   flash_attention at the VAE decode's [24, 2880, 1, 512]; then
+   frame_attention past 32 frames (B7_LONG_FRAMES: 40 and 64) at the first
+   level's [2, F, 2880, 512] (8 heads of 64).
 5c. B9 (conv3x3_same) against its plain version, float32 and bf16, at the
    16 distinct eligible stride-1 3x3 convs of the i2vgen UNet at task G's
    64x64 latents, batch 2 x 16 (from the block plan; within VIDEO_TOL and,
@@ -231,12 +233,38 @@ Phases (any failure exits non-zero and prints no `ok` line):
 23. the video trainer at full width (the 4.4B t2v UNet, float32,
    `VideoTrainConfig()` with the EMA, the value clip and Adafactor at
    `annealing_lr`), batch 1 of VIDEO_TRAIN_FRAMES frames of 32x32 latents,
-   VIDEO_TRAIN_STEPS steps twice from the same seeded state: as 22.
+   VIDEO_TRAIN_STEPS steps twice from the same seeded state: as 22. Then
+   the same for the 4.437B i2vgen UNet (`UNetSDVideoConfig.i2vgen_xl()`,
+   with a global image embedding and a local image latent; ROADMAP C15),
+   without the profiled step.
 24. each trainer's step on the CPU and the card at one level: GLIGEN with
    bf16 flash on the card against float32 einsum on the CPU
-   (GLIGEN_BF16_GRAD_LIMIT), the video UNet float32 on both
-   (TRAIN_CPU_GPU_TOL); the updated tensors and EMA against the CPU's
+   (GLIGEN_BF16_GRAD_LIMIT), the t2v and the i2vgen video UNets float32 on
+   both (TRAIN_CPU_GPU_TOL); the updated tensors and EMA against the CPU's
    optimizer on the card's gradients (UPDATE_TOL).
+25. (run after phase 5d, before 6) checkpoint load at full width: a
+   synthetic HF-layout deployment written to a temporary directory (removed
+   at the end; `write_deployment`: Vicuna-7B v1.5 fp16 safetensors shards
+   with their index, a peft LoRA r 128 on the seven projections with
+   non_lora_trainables.bin, CLIP ViT-L/14-336 safetensors and the
+   LanguageBind video tower's .bin), loaded by
+   `runtime/assembly.build_mllm_system(..., quantize="int4")` with the
+   port's own safetensors reader: load seconds, the host's RSS before the
+   load and its peak during it (`RssPeak`), the device peak, bytes
+   written; the loaded leaves (embed, layers 0 and 31, lm_head, the
+   towers' first layers, projector, region extractor) bit-equal to the
+   port's CPU conversion of the same tensors; the 128-token greedy chat of
+   phase 6 twice (same tokens, B1's launches exact, decode tok/s); B1
+   against its plain version at the loaded prefill's M (the turn plan's
+   padded length) and the four Vicuna-7B (K, N) pairs, as in phase 3; one
+   POST /chat over 127.0.0.1 (an image, 128 greedy tokens), whose reply
+   equals `system.chat`'s through the server's pipeline, which equals the
+   single stream's tokens or first parts from them at a near-tie (as phase
+   6b holds it), and each of whose tokens is the single stream's greedy
+   pick fed the served tokens before it (teacher forcing), or below its
+   top logit by no more than
+   DIVERGE_ULPS bf16 ulps plus twice the largest |einsum - flash| logit
+   difference of that stream (`check_teacher_forced`).
 Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
 and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
@@ -246,11 +274,13 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import collections.abc
 import dataclasses
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1383,6 +1413,7 @@ VIDEO_FRAMES = 24
 # max |kernel - plain| / max |plain|: float32 sums in another order; in bf16
 # one rounding of the output on each side
 VIDEO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+B7_LONG_FRAMES = (40, 64)  # frame counts past B7's 32-frame kernel (ROADMAP C14)
 TASK_D_REPLY = ("<module>D</module><instruction>a red car driving along a coastal road at "
                 "sunset</instruction>")
 # DDIM-v steps of the smoke's task-D request (the reference runs 50): at ~2.5 s
@@ -1425,8 +1456,18 @@ def phase_video_kernels(torch, card: str):
     t2v = Text2VideoConfig()
     check(t2v.latent_hw == VIDEO_LATENT and t2v.num_frames == VIDEO_FRAMES,
           f"Text2VideoConfig() latents {t2v.latent_hw} x {t2v.num_frames} frames")
-    return video_kernel_rows(torch, card, t2v.unet, t2v.vae, *VIDEO_LATENT, VIDEO_FRAMES,
+    rows = video_kernel_rows(torch, card, t2v.unet, t2v.vae, *VIDEO_LATENT, VIDEO_FRAMES,
                              t2v.text.max_length, seed=9)
+    # C14: B7 past 32 frames (the online-softmax kernel) at the first level's shape
+    n, c, heads = video_sites(t2v.unet, *VIDEO_LATENT)[0]
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(14)
+    for f in B7_LONG_FRAMES:
+        qkv32 = [torch.randn((2, f, n, c), generator=g, device=torch.device("cuda"))
+                 for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            rows["tattn"].append(frame_attention_row(torch, card, qkv32, heads, dtype))
+        del qkv32
+    return rows
 
 
 def video_flash_sites(ucfg, lh: int, lw: int, frames: int, n_ctx: int, encode: bool,
@@ -2291,24 +2332,29 @@ def plan_arrays(plan) -> tuple:
             plan.attention_mask, plan.seq_lens)
 
 
-def stream_logits(torch, gen_, arrays, images, tokens, j: int, slots: int, **kw):
-    """A single stream's logits [V] before its token j: the prefill into a
-    cache of `slots` slots (the decode chunk's), then j host-index decode
-    steps fed the stream's own tokens -- at the same slots and positions as
-    the chunk's device-index steps, with the same operations, so the same
-    logits the chunk's argmax read."""
+def teacher_forced_logits(torch, gen_, arrays, images, tokens, slots: int, **kw):
+    """A single stream's logits [len(tokens), V] before each of `tokens`, fed
+    `tokens`' own prefix: the prefill into a cache of `slots` slots (the
+    decode chunk's), then host-index decode steps -- at the same slots and
+    positions as the chunk's device-index steps, with the same operations,
+    so the same logits the chunk's argmax read."""
     from vitron_tpu_torch.models import vitron_model
     from vitron_tpu_torch.models.llm.llama import KVCache
 
     cache = KVCache.create(gen_.cfg.llm, 1, max_len=slots, device=gen_.device)
-    logits = gen_._prefill(cache, *arrays, images=images, **kw)[0]
+    rows = [gen_._prefill(cache, *arrays, images=images, **kw)[0].float()]
     pos = int(arrays[5][0])
-    for i in range(j):
-        tok = torch.tensor([[tokens[i]]], device=gen_.device)
-        step, _ = vitron_model.decode_step(gen_.params, gen_.cfg, tok,
+    for i, tok in enumerate(tokens[:-1]):
+        step, _ = vitron_model.decode_step(gen_.params, gen_.cfg,
+                                           torch.tensor([[tok]], device=gen_.device),
                                            torch.tensor([[pos + i]], device=gen_.device), cache)
-        logits = step[0, -1]
-    return logits.float()
+        rows.append(step[0, -1].float())
+    return torch.stack(rows)
+
+
+def stream_logits(torch, gen_, arrays, images, tokens, j: int, slots: int, **kw):
+    """A single stream's logits [V] before its token j (`teacher_forced_logits`)."""
+    return teacher_forced_logits(torch, gen_, arrays, images, tokens[:j + 1], slots, **kw)[-1]
 
 
 def check_divergence(what: str, got, want, logits_at, card: str) -> str:
@@ -2328,6 +2374,42 @@ def check_divergence(what: str, got, want, logits_at, card: str) -> str:
     print(f"{what}: {msg} [{card}]", flush=True)
     check(gap <= limit, f"{what}: {msg}")
     return f"near-tie at {j}"
+
+
+def check_teacher_forced(torch, what: str, got, gen_, arrays, images, slots: int,
+                         card: str) -> str:
+    """Every token of greedy `got` against the single stream fed `got`'s own
+    tokens before it (`teacher_forced_logits`): its argmax, or below its top
+    logit by no more than DIVERGE_ULPS bf16 ulps plus twice the noise, the
+    largest |einsum - flash| logit of the single stream on the same prefix
+    (two valid orders of the same bf16 sums, measured here). Two paths whose
+    logits differ by d at most put a greedy pick at most 2 d below the
+    other's top."""
+    from vitron_tpu_torch.runtime.generation import Generator
+
+    llm = gen_.cfg.llm
+    other = dataclasses.replace(gen_.cfg, llm=dataclasses.replace(
+        llm, attn_impl="einsum" if llm.attn_impl == "flash" else "flash"))
+    ref = teacher_forced_logits(torch, gen_, arrays, images, got, slots)
+    alt = teacher_forced_logits(torch, Generator(gen_.params, other, gen_.device), arrays,
+                                images, got, slots)
+    noise = (ref - alt).abs().max().item()
+    del alt
+    top = ref.max(-1).values.tolist()
+    picked = ref[torch.arange(len(got)), torch.tensor(got, device=ref.device)].tolist()
+    argmax = ref.argmax(-1).tolist()
+    off = []
+    for j, tok in enumerate(got):
+        gap, limit = top[j] - picked[j], DIVERGE_ULPS * bf16_ulp(top[j]) + 2 * noise
+        check(gap <= limit,
+              f"{what}: token {j} ({tok}) lies {gap:.4f} below the single stream's top logit "
+              f"{top[j]:.4f} fed the same prefix (limit {limit:.4f}: {DIVERGE_ULPS} bf16 ulps "
+              f"and twice the einsum-flash noise {noise:.4f}) [{card}]")
+        if argmax[j] != tok:
+            off.append((j, round(gap, 4)))
+    return (f"teacher-forced, {len(got) - len(off)} of {len(got)} tokens the single stream's "
+            f"argmax, the others (token, gap) {off} within {DIVERGE_ULPS} bf16 ulps and twice "
+            f"the einsum-flash noise {noise:.4f}")
 
 
 def staged_trace_checks(trace, n_chunks: int) -> dict:
@@ -4619,9 +4701,12 @@ def video_optimizer(ts, tv, tcfg):
                     ts.adafactor(lambda count: tv.annealing_lr(tcfg, count)))
 
 
-def phase_train_video(torch, card: str):
+def phase_train_video(torch, card: str, variant: str = "t2v"):
     """The video trainer at full width: the t2v UNet (`UNetSDVideoConfig.t2v`,
-    float32), `VideoTrainConfig()` (v-prediction, the cosine zero-terminal-
+    float32) or, with variant "i2vgen", the i2vgen one
+    (`UNetSDVideoConfig.i2vgen_xl`, with a global `image` embedding and a
+    `local_image` latent as its conditions; ROADMAP C15),
+    `VideoTrainConfig()` (v-prediction, the cosine zero-terminal-
     SNR schedule, 10% text dropout, the EMA) with the value clip and
     Adafactor at `annealing_lr` (AdamW's two moments and the EMA would not
     fit beside 4.4B float32 weights), batch 1 of VIDEO_TRAIN_FRAMES frames of
@@ -4629,19 +4714,23 @@ def phase_train_video(torch, card: str):
     VIDEO_TRAIN_STEPS steps twice from the same state (rebuilt from its
     seed): the same losses, every tensor with a nonzero gradient moved,
     every gradient finite, each step's launches equal to
-    `video_train_launches`; step seconds, peak memory, a profiled step."""
+    `video_train_launches`; step seconds, peak memory, and for t2v a
+    profiled step."""
     import gc
 
     from vitron_tpu_torch.models.diffusion import clip_text
     from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
     from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import UNetSDVideoConfig
     from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig, _tokenize
     from vitron_tpu_torch.train import train_step as ts
     from vitron_tpu_torch.train import video as tv
 
     dev = torch.device("cuda")
     t2v = Text2VideoConfig()
-    ucfg = t2v.unet
+    ucfg = t2v.unet if variant == "t2v" else UNetSDVideoConfig.i2vgen_xl()
+    n_ctx = (t2v.text.max_length if variant == "t2v"
+             else i2v_context(ucfg, t2v.text.max_length))
     g = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
         text = fill_zero_leaves(clip_text.init_params(g, t2v.text, dev), g)
@@ -4652,10 +4741,13 @@ def phase_train_video(torch, card: str):
     lat = VIDEO_TRAIN_LATENT
     batch = {"x0": torch.randn((1, VIDEO_TRAIN_FRAMES, lat, lat, 4), generator=g, device=dev),
              "y": ctx[:1], "zero_y_negative": ctx[1:], "fps": torch.tensor([8], device=dev)}
+    if variant == "i2vgen":
+        batch["image"] = torch.randn((1, ucfg.y_dim), generator=g, device=dev)
+        batch["local_image"] = torch.randn((1, lat, lat, 4), generator=g, device=dev)
     tcfg = tv.VideoTrainConfig()
     sched = DiffusionSchedule.create("cosine", 1000, zero_terminal_snr=True)
     step = tv.make_video_train_step(ucfg, sched, tcfg, video_optimizer(ts, tv, tcfg))
-    want = video_train_launches(ucfg, lat, lat, t2v.text.max_length)
+    want = video_train_launches(ucfg, lat, lat, n_ctx)
 
     def run(label):
         t1 = time.perf_counter()
@@ -4673,10 +4765,11 @@ def phase_train_video(torch, card: str):
             state, loss = step(state, batch, gen)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t1)
-            total.update(expect_launches(want, f"train video {label} step {i + 1}"))
+            total.update(expect_launches(want, f"train {variant} {label} step {i + 1}"))
             losses.append(float(loss))
             for path, (finite, nonzero) in stats.read().items():
-                check(finite, f"train video {label} step {i + 1}: gradient {path} not finite")
+                check(finite, f"train {variant} {label} step {i + 1}: gradient {path} not "
+                      f"finite")
                 flags[path] = flags.get(path, False) or nonzero
         stats.remove()
         return state, losses, secs, dict(total), flags, build_s
@@ -4697,15 +4790,16 @@ def phase_train_video(torch, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     state, losses2, secs2, _, _, _ = run("run 2")
-    t1 = time.perf_counter()
-    state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(2))
-    torch.cuda.synchronize()
-    profile_breakdown(torch, card, f"train video: one step (1 x {VIDEO_TRAIN_FRAMES} frames, "
-                      f"{lat}x{lat})",
-                      lambda: step(state, batch, torch.Generator(device=dev).manual_seed(3)),
-                      (time.perf_counter() - t1) * 1e3, VIDEO_TRAIN_KERNEL_GROUPS)
+    if variant == "t2v":
+        t1 = time.perf_counter()
+        state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+        profile_breakdown(torch, card, f"train video: one step (1 x {VIDEO_TRAIN_FRAMES} "
+                          f"frames, {lat}x{lat})",
+                          lambda: step(state, batch, torch.Generator(device=dev).manual_seed(3)),
+                          (time.perf_counter() - t1) * 1e3, VIDEO_TRAIN_KERNEL_GROUPS)
     no_grad = sorted(".".join(map(str, p)) for p in moved if not flags.get(p, False))
-    print(f"train video: t2v UNet {n_params / 1e9:.3f}B params built on the card in "
+    print(f"train video: {variant} UNet {n_params / 1e9:.3f}B params built on the card in "
           f"{build_s:.1f} s; losses {losses} then {losses2}; step s "
           f"{', '.join(f'{x:.3f}' for x in secs)} then {', '.join(f'{x:.3f}' for x in secs2)} "
           f"(mean of steps 2-{VIDEO_TRAIN_STEPS}: {statistics.mean(secs2[1:]):.3f} s); peak "
@@ -4713,10 +4807,11 @@ def phase_train_video(torch, card: str):
           f"{sum(moved.values())} of {len(moved)} tensors moved, no or zero gradient on "
           f"{no_grad or 'none'}; EMA finite {ema_finite} [{card}]", flush=True)
     check(all(np.isfinite(losses)) and losses == losses2,
-          f"train video: the same steps twice gave other losses: {losses} vs {losses2}")
+          f"train {variant}: the same steps twice gave other losses: {losses} vs {losses2}")
     check(all(moved[p] == flags.get(p, False) for p in moved),
-          "train video: a tensor with a nonzero gradient did not move (or one without moved)")
-    check(ema_finite, "train video: the EMA is not finite")
+          f"train {variant}: a tensor with a nonzero gradient did not move (or one without "
+          f"moved)")
+    check(ema_finite, f"train {variant}: the EMA is not finite")
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4798,13 +4893,10 @@ def phase_train_cpu_vs_card_diffusion(torch, card: str):
     the step moves the weights), float32 on both sides: the loss and each
     gradient within TRAIN_CPU_GPU_TOL. Both: the card's updated tensors (and
     the EMA) against the CPU's optimizer run on the card's gradients
-    (UPDATE_TOL), and the card's launches."""
-    from vitron_tpu_torch.models.diffusion import unet_sd_video
-    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
-    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    (UPDATE_TOL), and the card's launches. The i2vgen UNet's step
+    (`UNetSDVideoConfig.i2vgen_xl(dim_mult=(1,))`, with its image
+    conditions) is held as the t2v one (ROADMAP C15)."""
     from vitron_tpu_torch.train import gligen as tg
-    from vitron_tpu_torch.train import train_step as ts
-    from vitron_tpu_torch.train import video as tv
 
     cpu, dev = torch.device("cpu"), torch.device("cuda")
     setup = gligen_cpu_vs_card_setup(torch)
@@ -4837,19 +4929,38 @@ def phase_train_cpu_vs_card_diffusion(torch, card: str):
           f"{[k for k, v in held.items() if not v[2]]}")
     check(max(upd.values()) <= UPDATE_TOL, f"gligen cpu-vs-card: updates {max(upd.values())}")
 
-    # video
-    vcfg = unet_sd_video.UNetSDVideoConfig.t2v(dim_mult=(1,))
+    for variant in ("t2v", "i2vgen"):
+        video_cpu_vs_card_step(torch, card, variant)
+
+
+def video_cpu_vs_card_step(torch, card: str, variant: str) -> None:
+    """Phase 24's video step: the t2v or the i2vgen UNet (with its global
+    `image` and `local_image` conditions) at full width but one level."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video
+    from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+    from vitron_tpu_torch.train import train_step as ts
+    from vitron_tpu_torch.train import video as tv
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    vcfg = (unet_sd_video.UNetSDVideoConfig.t2v(dim_mult=(1,)) if variant == "t2v"
+            else unet_sd_video.UNetSDVideoConfig.i2vgen_xl(dim_mult=(1,)))
     g = torch.Generator().manual_seed(32)
     params = fill_zero_leaves(unet_sd_video.init_params(g, vcfg, cpu), g)
     batch = {"x0": torch.randn((2, 4, 16, 16, 4), generator=g),
              "y": 0.5 * torch.randn((2, 77, 1024), generator=g),
              "zero_y_negative": 0.5 * torch.randn((1, 77, 1024), generator=g),
              "fps": torch.tensor([8, 8])}
+    n_ctx = 77
+    if variant == "i2vgen":
+        batch["image"] = torch.randn((2, vcfg.y_dim), generator=g)
+        batch["local_image"] = torch.randn((2, 16, 16, 4), generator=g)
+        n_ctx = i2v_context(vcfg, 77)
     draws = {"drop": torch.tensor([True, False]), "t": torch.tensor([250, 900]),
              "noise": torch.randn((2, 4, 16, 16, 4), generator=g)}
     tcfg = tv.VideoTrainConfig(warmup_steps=0)
     sched = DiffusionSchedule.create("cosine", 1000, zero_terminal_snr=True)
-    want_launches = video_train_launches(vcfg, 16, 16, 77)
+    want_launches = video_train_launches(vcfg, 16, 16, n_ctx)
     runs = {}
     for name, device in (("cuda", dev), ("cpu", cpu)):
         tx = video_optimizer(ts, tv, tcfg)
@@ -4862,11 +4973,11 @@ def phase_train_cpu_vs_card_diffusion(torch, card: str):
                            to_device(torch, draws, device), grads)
         if name == "cuda":
             torch.cuda.synchronize()
-            expect_launches(want_launches, "video cpu-vs-card step")
+            expect_launches(want_launches, f"{variant} cpu-vs-card step")
         runs[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
                       {k: t.detach().cpu() for k, t in ts.named_leaves(state["params"])},
                       {k: t.cpu() for k, t in ts.named_leaves(state["ema"])})
-        print(f"video cpu-vs-card: {name} step {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"{variant} cpu-vs-card: {name} step {time.perf_counter() - t0:.1f} s", flush=True)
     (loss, grads, after, ema), (loss_cpu, grads_cpu, _, _) = runs["cuda"], runs["cpu"]
     loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
     top = max(w.abs().max().item() for w in grads_cpu.values())
@@ -4879,20 +4990,459 @@ def phase_train_cpu_vs_card_diffusion(torch, card: str):
     ema_rel = {k: rel_err(ema[k], after[k] + tcfg.ema_decay * (before[k] - after[k]))[1]
                for k in before}
     worst = max(grad_rel, key=grad_rel.get)
-    print(f"video cpu-vs-card: one-level full-width t2v step (2 x 4 frames, 16x16, float32 on "
-          f"both), loss {loss_cpu:.6f} rel_err={loss_rel:.3e} (limit "
+    print(f"{variant} cpu-vs-card: one-level full-width {variant} step (2 x 4 frames, 16x16, "
+          f"float32 on both), loss {loss_cpu:.6f} rel_err={loss_rel:.3e} (limit "
           f"{TRAIN_CPU_GPU_TOL['loss']}), {len(grad_rel)} gradients, worst "
           f"{'.'.join(map(str, worst))} rel_err={grad_rel[worst]:.3e}, median "
           f"{statistics.median(grad_rel.values()):.3e} (limit {TRAIN_CPU_GPU_TOL['grad']}, floor "
           f"{GRAD_FLOOR} of the largest); updated tensors against the CPU's value clip + "
           f"Adafactor on the card's gradients, worst rel_err {max(upd.values()):.3e}, EMA "
           f"{max(ema_rel.values()):.3e} (limit {UPDATE_TOL}) [{card}]", flush=True)
-    check(grads.keys() == grads_cpu.keys(), "video cpu-vs-card: other gradients on the two sides")
-    check(loss_rel <= TRAIN_CPU_GPU_TOL["loss"], f"video cpu-vs-card loss: {loss_rel}")
-    check(grad_rel[worst] <= TRAIN_CPU_GPU_TOL["grad"], f"video cpu-vs-card gradient {worst}: "
+    check(grads.keys() == grads_cpu.keys(),
+          f"{variant} cpu-vs-card: other gradients on the two sides")
+    check(loss_rel <= TRAIN_CPU_GPU_TOL["loss"], f"{variant} cpu-vs-card loss: {loss_rel}")
+    check(grad_rel[worst] <= TRAIN_CPU_GPU_TOL["grad"], f"{variant} cpu-vs-card gradient {worst}: "
           f"{grad_rel[worst]}")
     check(max(upd.values()) <= UPDATE_TOL and max(ema_rel.values()) <= UPDATE_TOL,
-          f"video cpu-vs-card: updates {max(upd.values())}, EMA {max(ema_rel.values())}")
+          f"{variant} cpu-vs-card: updates {max(upd.values())}, EMA {max(ema_rel.values())}")
+
+
+# ------------------------------------------------------------ checkpoint load (phase 25)
+
+# Vicuna-7B v1.5's config.json (the fields `assembly.llama_cfg_from_hf` reads)
+VICUNA_CONFIG = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                 "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+                 "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+                 "max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+                 "torch_dtype": "float16", "tie_word_embeddings": False}
+# CLIP ViT-L/14-336's vision config
+CLIP_CONFIG = {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
+               "hidden_size": 1024, "image_size": 336, "intermediate_size": 4096,
+               "num_attention_heads": 16, "num_hidden_layers": 24, "patch_size": 14,
+               "projection_dim": 768}
+CKPT_SHARDS = 4        # model-0000k-of-00004.safetensors: 8 layers each
+CKPT_STD = 2e-2        # HF's initializer_range: every weight N(0, 0.02)
+CKPT_LORA = {"peft_type": "LORA", "task_type": "CAUSAL_LM", "r": 128, "lora_alpha": 256,
+             "lora_dropout": 0.05, "bias": "none",  # the reference's finetune_lora.sh
+             "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                                "up_proj", "down_proj"]}
+CKPT_FREE_BYTES = 20 * 1024 ** 3  # room the deployment (~16 GB) needs on its disk
+SAFETENSORS_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16",
+                      "torch.int8": "I8", "torch.uint8": "U8", "torch.int32": "I32",
+                      "torch.int64": "I64"}
+
+
+def write_safetensors(path, entries) -> int:
+    """{name: (dtype, shape, make)} -> one .safetensors file: an 8-byte
+    little-endian header length, the JSON header (each tensor's dtype, shape
+    and byte offsets), then the bytes of each make() in turn, so the host
+    holds one tensor at a time. -> bytes written."""
+    import torch
+
+    header, offset = {}, 0
+    for name, (dtype, shape, _) in entries.items():
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(dtype)], "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(head)) + head)
+        for name, (dtype, shape, make) in entries.items():
+            t = make().to("cpu", dtype).contiguous()
+            check(tuple(t.shape) == tuple(shape), f"{name}: {tuple(t.shape)}, header {shape}")
+            fh.write(t.reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(head) + offset
+
+
+def ckpt_root():
+    """A directory with CKPT_FREE_BYTES free: the temp dir, else the
+    checkout's `build/` (ignored by git)."""
+    import shutil
+    import tempfile
+
+    for d in (tempfile.gettempdir(), os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                  "build")):
+        os.makedirs(d, exist_ok=True)
+        free = shutil.disk_usage(d).free
+        print(f"checkpoint: {d} has {free / 2**30:.1f} GiB free", flush=True)
+        if free >= CKPT_FREE_BYTES:
+            return tempfile.mkdtemp(prefix="vitron_ckpt_", dir=d)
+    raise RuntimeError(f"no directory with {CKPT_FREE_BYTES / 2**30:.0f} GiB free")
+
+
+def write_deployment(torch, root, seed: int) -> int:
+    """Phase 25's synthetic HF-layout deployment under `root`, from `seed`
+    (values made on the card, written tensor by tensor):
+    - vicuna-7b/: Vicuna-7B v1.5's config.json, fp16 shards with
+      model.safetensors.index.json, every weight N(0, CKPT_STD), norms 1;
+    - vitron_lora/: a peft adapter (adapter_model.safetensors, fp16, r 128,
+      alpha 256 on the seven projections) and non_lora_trainables.bin (bf16:
+      the projector 1024 -> 4096 -> 4096 and the region extractor);
+    - clip_vit_l14/: CLIPVisionModel keys of ViT-L/14-336, float32
+      safetensors;
+    - languagebind_video/: the same tower with LanguageBind's temporal keys,
+      fp16 pytorch_model.bin.
+    -> bytes written."""
+    import pathlib
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f16, f32, bf16 = torch.float16, torch.float32, torch.bfloat16
+
+    def rand(shape, dtype=f16, mean=0.0):
+        def make():
+            return (torch.randn(shape, generator=g, device=dev) * CKPT_STD + mean).to(dtype)
+        return dtype, tuple(shape), make
+
+    def ones(shape, dtype=f16):
+        return dtype, tuple(shape), lambda: torch.ones(shape, dtype=dtype)
+
+    root = pathlib.Path(root)
+    written = 0
+    c = VICUNA_CONFIG
+    h, ff, n_layers, vocab = (c["hidden_size"], c["intermediate_size"],
+                              c["num_hidden_layers"], c["vocab_size"])
+    base = root / "vicuna-7b"
+    base.mkdir()
+    (base / "config.json").write_text(json.dumps(c))
+    shards = [{} for _ in range(CKPT_SHARDS)]
+    shards[0]["model.embed_tokens.weight"] = rand((vocab, h))
+    shapes = {"self_attn.q_proj": (h, h), "self_attn.k_proj": (h, h), "self_attn.v_proj": (h, h),
+              "self_attn.o_proj": (h, h), "mlp.gate_proj": (ff, h), "mlp.up_proj": (ff, h),
+              "mlp.down_proj": (h, ff)}
+    for i in range(n_layers):
+        s = shards[i * CKPT_SHARDS // n_layers]
+        s[f"model.layers.{i}.input_layernorm.weight"] = ones((h,))
+        s[f"model.layers.{i}.post_attention_layernorm.weight"] = ones((h,))
+        for mod, shape in shapes.items():
+            s[f"model.layers.{i}.{mod}.weight"] = rand(shape)
+    shards[-1]["model.norm.weight"] = ones((h,))
+    shards[-1]["lm_head.weight"] = rand((vocab, h))
+    weight_map = {}
+    for k, s in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(base / name, s)
+        weight_map.update({n: name for n in s})
+    (base / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": written}, "weight_map": weight_map}))
+
+    lora = root / "vitron_lora"
+    lora.mkdir()
+    (lora / "adapter_config.json").write_text(json.dumps(CKPT_LORA))
+    r = CKPT_LORA["r"]
+    adapter = {}
+    for i in range(n_layers):
+        for mod, (out, inp) in shapes.items():
+            stem = f"base_model.model.model.layers.{i}.{mod}"
+            adapter[f"{stem}.lora_A.weight"] = rand((r, inp))
+            adapter[f"{stem}.lora_B.weight"] = rand((out, r))
+    written += write_safetensors(lora / "adapter_model.safetensors", adapter)
+    v = CLIP_CONFIG["hidden_size"]
+    nl = {"model.mm_projector.0.weight": (h, v), "model.mm_projector.0.bias": (h,),
+          "model.mm_projector.2.weight": (h, h), "model.mm_projector.2.bias": (h,),
+          "model.region_extractor.region_linear.layers.0.weight": (h, v),
+          "model.region_extractor.loc_encoder.loc_encoder.0.weight": (h // 2, 4),
+          "model.region_extractor.loc_encoder.loc_encoder.0.bias": (h // 2,),
+          "model.region_extractor.loc_encoder.loc_encoder.2.weight": (h, h // 2),
+          "model.region_extractor.loc_encoder.loc_encoder.2.bias": (h,)}
+    for j in range(3):
+        nl[f"model.region_extractor.region_linear.layers.{j}.bias"] = (h,)
+    for j in (1, 2):
+        nl[f"model.region_extractor.region_linear.layers.{j}.weight"] = (h, h)
+    nl = {k: rand(shape, bf16)[2]().cpu() for k, shape in nl.items()}
+    torch.save(nl, lora / "non_lora_trainables.bin")
+    written += (lora / "non_lora_trainables.bin").stat().st_size
+
+    cc = CLIP_CONFIG
+    p, ffv, grid = cc["patch_size"], cc["intermediate_size"], cc["image_size"] // cc["patch_size"]
+
+    def tower(dtype, temporal: bool):
+        e = {"vision_model.embeddings.class_embedding": rand((v,), dtype),
+             "vision_model.embeddings.patch_embedding.weight": rand((v, 3, p, p), dtype),
+             "vision_model.embeddings.position_embedding.weight": rand((grid ** 2 + 1, v), dtype),
+             "vision_model.embeddings.position_ids": (
+                 torch.int64, (1, grid ** 2 + 1),
+                 lambda: torch.arange(grid ** 2 + 1, dtype=torch.int64)[None]),
+             "vision_model.pre_layrnorm.weight": rand((v,), dtype, 1.0),
+             "vision_model.pre_layrnorm.bias": rand((v,), dtype)}
+        for i in range(cc["num_hidden_layers"]):
+            stem = f"vision_model.encoder.layers.{i}"
+            attns = ("self_attn", "temporal_attn") if temporal else ("self_attn",)
+            for a in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    e[f"{stem}.{a}.{proj}.weight"] = rand((v, v), dtype)
+                    e[f"{stem}.{a}.{proj}.bias"] = rand((v,), dtype)
+            norms = ("layer_norm1", "layer_norm2") + (("temporal_layer_norm1",) if temporal
+                                                      else ())
+            for ln in norms:
+                e[f"{stem}.{ln}.weight"] = rand((v,), dtype, 1.0)
+                e[f"{stem}.{ln}.bias"] = rand((v,), dtype)
+            e[f"{stem}.mlp.fc1.weight"] = rand((ffv, v), dtype)
+            e[f"{stem}.mlp.fc1.bias"] = rand((ffv,), dtype)
+            e[f"{stem}.mlp.fc2.weight"] = rand((v, ffv), dtype)
+            e[f"{stem}.mlp.fc2.bias"] = rand((v,), dtype)
+            if temporal:
+                e[f"{stem}.temporal_embedding"] = rand((1, 8, v), dtype)
+        e["vision_model.post_layernorm.weight"] = rand((v,), dtype, 1.0)
+        e["vision_model.post_layernorm.bias"] = rand((v,), dtype)
+        return e
+
+    clip = root / "clip_vit_l14"
+    clip.mkdir()
+    (clip / "config.json").write_text(json.dumps(cc))
+    written += write_safetensors(clip / "model.safetensors", tower(f32, False))
+    lbv = root / "languagebind_video"
+    lbv.mkdir()
+    (lbv / "config.json").write_text(json.dumps(cc))
+    torch.save({k: make().cpu() for k, (_, _, make) in tower(f16, True).items()},
+               lbv / "pytorch_model.bin")
+    written += (lbv / "pytorch_model.bin").stat().st_size
+    return written
+
+
+class RssPeak:
+    """The process's resident set, read from /proc/self/statm every 20 ms
+    on a thread while the block runs: `before` and `peak` bytes."""
+
+    def _read(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = self._read()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, self._read())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._read())
+
+
+class _LayerView(collections.abc.Mapping):
+    """Layer i of an HF state dict as layer 0 of a one-layer model (lazy)."""
+
+    def __init__(self, sd, i: int):
+        self.sd, self.i = sd, i
+
+    def _key(self, k: str) -> str:
+        return k.replace("model.layers.0.", f"model.layers.{self.i}.", 1)
+
+    def __getitem__(self, k):
+        return self.sd[self._key(k)]
+
+    def __contains__(self, k):
+        return self._key(k) in self.sd
+
+    def __iter__(self):
+        return iter(k.replace(f"model.layers.{self.i}.", "model.layers.0.", 1) for k in self.sd)
+
+    def __len__(self):
+        return len(self.sd)
+
+
+def check_loaded_leaves(torch, system, root) -> list:
+    """The card's loaded leaves against the port's own CPU conversion of the
+    same tensors, bit for bit: embed, final norm and lm_head, every leaf of
+    layers 0 and 31 (the packed int4 projections and their scales, LoRA
+    merged), the image tower's embeddings and first layer, the video
+    tower's first layer (temporal leaves included), the projector and the
+    region extractor. -> the names held."""
+    from vitron_tpu_torch.models.llm import loader
+    from vitron_tpu_torch.models.vision import loader as vloader
+    from vitron_tpu_torch.models.vision import projector, region_extractor
+
+    cpu = torch.device("cpu")
+    gen_ = system.engine.generator
+    params, cfg = gen_.params, gen_.cfg
+    held = []
+
+    def same(name, got, want):
+        if isinstance(want, dict):
+            for k in want:
+                same(f"{name}.{k}", got[k], want[k])
+            return
+        ok = got.dtype == want.dtype and torch.equal(got.cpu(), want)
+        check(ok, f"checkpoint: {name} on the card differs from the CPU conversion")
+        held.append(name)
+
+    def layer(tree, i):
+        return {k: layer(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+    sd = loader.load_safetensors_dir(root / "vicuna-7b")
+    lora_sd, r, alpha = loader.load_lora_dir(root / "vitron_lora")
+    one = dataclasses.replace(cfg.llm, num_layers=1)
+    pairs = loader.lora_pairs(sd, lora_sd, r=r, alpha=alpha)
+    for i in (0, cfg.llm.num_layers - 1):
+        stem = f"model.layers.{i}."
+        pairs_i = {k.replace(stem, "model.layers.0.", 1): v for k, v in pairs.items()
+                   if k.startswith(stem)}
+        ref = loader.convert_hf_llama(_LayerView(sd, i), one, cpu, bits=4, lora=pairs_i,
+                                      lora_state=lora_sd)
+        same(f"llm.layers[{i}]", layer(params["llm"]["layers"], i), layer(ref["layers"], 0))
+        if i == 0:
+            for k in ("embed", "final_norm", "lm_head"):
+                same(f"llm.{k}", params["llm"][k], ref[k])
+    for key, d in (("image_tower", "clip_vit_l14"), ("video_tower", "languagebind_video")):
+        tcfg = dataclasses.replace(getattr(cfg, key), num_layers=1)
+        from vitron_tpu_torch.runtime.assembly import _load_state_dir
+
+        ref = vloader.convert_hf_clip_vision(_load_state_dir(root / d), tcfg, device=cpu)
+        got = {k: v for k, v in params[key].items() if k != "layers"}
+        same(key, got, {k: v for k, v in ref.items() if k != "layers"})
+        same(f"{key}.layers[0]", layer(params[key]["layers"], 0), layer(ref["layers"], 0))
+    nl = loader.load_torch_bin(root / "vitron_lora" / "non_lora_trainables.bin")
+    same("projector", params["projector"], projector.convert_hf(nl, device=cpu))
+    same("region", params["region"], region_extractor.convert_hf(nl, device=cpu))
+    return held
+
+
+def phase_checkpoint(torch, card: str):
+    """Phase 25: write the synthetic full-width deployment, load it with
+    `build_mllm_system(..., quantize="int4")` on the card, hold its leaves
+    against the CPU conversion, chat twice (128 greedy tokens, exact B1
+    launches), hold B1 against its plain version at the loaded prefill's M,
+    and chat once over HTTP. -> (the loaded chat's launches, B1's rows)."""
+    import base64
+    import io
+    import pathlib
+    import resource
+    import shutil
+    import urllib.request
+
+    from PIL import Image
+
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.apps.serve import serve
+    from vitron_tpu_torch.runtime import assembly
+    from vitron_tpu_torch.runtime.generation import DEFAULT_DECODE_CHUNK, SamplingConfig
+
+    root = pathlib.Path(ckpt_root())
+    try:
+        t0 = time.perf_counter()
+        written = write_deployment(torch, root, seed=25)
+        t_write = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            system, report = assembly.build_mllm_system(
+                str(root / "vicuna-7b"), lora=str(root / "vitron_lora"),
+                clip_tower=str(root / "clip_vit_l14"),
+                video_tower=str(root / "languagebind_video"),
+                quantize="int4", mesh="auto", tokenizer=DemoTokenizer(), device="cuda")
+            torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        dev_peak = torch.cuda.max_memory_allocated()
+        max_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        print("checkpoint: report\n" + report.summary(), flush=True)
+        print(f"checkpoint: wrote {written} bytes in {t_write:.1f} s under {root}; "
+              f"build_mllm_system(quantize='int4') {t_load:.1f} s, host RSS "
+              f"{rss.before / 2**30:.2f} GiB before the load and {rss.peak / 2**30:.2f} GiB at "
+              f"its peak (sampled every 20 ms; the process's ru_maxrss so far "
+              f"{max_rss / 2**30:.2f} GiB), device peak {dev_peak / 2**30:.2f} GiB [{card}]",
+              flush=True)
+        check(report.loaded() == ["llm", "image_tower", "video_tower", "projector",
+                                  "region_extractor"]
+              and report.rows["mesh"]["status"] == "skipped", f"checkpoint: report {report.rows}")
+        t0 = time.perf_counter()
+        held = check_loaded_leaves(torch, system, root)
+        print(f"checkpoint: {len(held)} leaves bit-equal to the CPU conversion "
+              f"({time.perf_counter() - t0:.1f} s): {', '.join(held[:6])}, ... [{card}]",
+              flush=True)
+
+        cfg = system.engine.generator.cfg
+        image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+        sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
+        timed_chat(torch, system, image, sampling)  # warm-up: captures the decode chunk
+        reset_launches()
+        out1, t_req = timed_chat(torch, system, image, sampling)
+        per_forward = 7 * cfg.llm.num_layers + 1
+        steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
+        launches = expect_launches({"int4_matmul": per_forward * (1 + steps),
+                                    "flash_attention": 0}, "checkpoint chat")
+        tokens = out1["reply"]["tokens"]
+        out2, _ = timed_chat(torch, system, image, sampling)
+        _, t_prefill = timed_chat(torch, system, image,
+                                  SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
+        logits = system.engine.generator.last_prefill_logits
+        check(len(tokens) == NEW_TOKENS and out2["reply"]["tokens"] == tokens
+              and bool(torch.isfinite(logits).all()),
+              f"checkpoint chat: {len(tokens)} tokens, the same twice "
+              f"{out2['reply']['tokens'] == tokens}, finite logits")
+        decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
+        print(f"checkpoint chat: {len(tokens)} tokens, the same twice; request {t_req:.3f} s, "
+              f"prefill request {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s [{card}]",
+              flush=True)
+
+        # B1 at the M this chat's prefill gives every projection and lm_head
+        prepared = system.prepare(PROMPT, image=image, region_box=BBOX)
+        m = int(system.engine.plan_turn(prepared["msg"], prepared["media"])[0]
+                .token_ids.shape[-1])
+        g = torch.Generator(device=torch.device("cuda")).manual_seed(25)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=torch.device("cuda"))
+        int4_rows = [int4_row(torch, card, g, m, k, n, flush=flush) for k, n in INT4_SHAPES]
+        del flush
+        print_sums(f"B1 at the loaded prefill's M {m}", int4_rows, card)
+
+        # 4. one POST /chat: the server's batched, staged path. Its reply
+        # against `system.chat` through the same pipeline (the same tokens),
+        # the first divergence from the single stream at a near-tie (as
+        # phase 6b holds it), and every served token against the single
+        # stream fed the served tokens before it
+        greedy = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS)
+        alone = system.chat(PROMPT, image=image, sampling=greedy)["reply"]["tokens"]
+        gen_ = system.engine.generator
+        slots = gen_.last_chunk.cache.k.shape[2]
+        srv = serve(system, host="127.0.0.1", port=0, background=True)
+        try:
+            buf = io.BytesIO()
+            Image.fromarray(image).save(buf, format="PNG")
+            body = json.dumps({"prompt": PROMPT, "image": base64.b64encode(buf.getvalue()).decode(),
+                               "greedy": True, "max_new_tokens": NEW_TOKENS}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/chat",
+                                         data=body, headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                reply = json.loads(resp.read())
+            t_http = time.perf_counter() - t0
+            direct = system.chat(PROMPT, image=image, sampling=greedy)["reply"]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.pipeline.close()
+        got = [int(w[3:]) for w in reply.get("raw", "").split()]
+        check(reply.get("status") == "chat" and reply.get("raw") == direct["raw"]
+              and got == direct["tokens"],
+              f"checkpoint http: {reply.get('status')}, {reply.get('raw', '')[:80]!r} against "
+              f"the direct chat's {direct['raw'][:80]!r}")
+        prepared = system.prepare(PROMPT, image=image)
+        pl, im, _, _, _ = system.engine.plan_turn(prepared["msg"], prepared["media"])
+        first = check_divergence(
+            "checkpoint http", got, alone,
+            lambda j: stream_logits(torch, gen_, plan_arrays(pl), im.to(gen_.device), alone, j,
+                                    slots), card)
+        held = check_teacher_forced(torch, "checkpoint http", got, gen_, plan_arrays(pl),
+                                    im.to(gen_.device), slots, card)
+        print(f"checkpoint http: POST /chat status {reply.get('status')}, {len(got)} tokens in "
+              f"{t_http:.3f} s, the same as system.chat through the server's pipeline; against "
+              f"the single stream: {first}; {held} [{card}]", flush=True)
+        del system
+        torch.cuda.empty_cache()
+        return launches, int4_rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def timed_phase(card: str, what: str, fn, *args):
@@ -4934,6 +5484,10 @@ def main() -> int:
         rows.update(phase_video_kernels(torch, card))
         rows.update(phase_conv3x3(torch, card))
         rows.update(phase_i2v_kernels(torch, card))
+        with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # the plain decode
+            ckpt, ckpt_int4 = timed_phase(card, "25 checkpoint load", phase_checkpoint, torch,
+                                          card)
+        rows["int4"] += ckpt_int4
         chat_system = build_chat_system(torch)
         with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # 6 and 6b: the plain decode
             chat = phase_slice(torch, card, *chat_system)
@@ -5033,6 +5587,8 @@ def main() -> int:
                                  phase_diffusion_train_kernels, torch, card)
     train_gligen = timed_phase(card, "22 GLIGEN training", phase_train_gligen, torch, card)
     train_video = timed_phase(card, "23 video training", phase_train_video, torch, card)
+    train_i2vgen = timed_phase(card, "23 i2vgen training", phase_train_video, torch, card,
+                               "i2vgen")
     timed_phase(card, "24 diffusion trainers cpu-vs-card", phase_train_cpu_vs_card_diffusion,
                 torch, card)
     rows["flash"] += diffusion_rows.pop("flash_lse_diffusion")
@@ -5060,13 +5616,14 @@ def main() -> int:
 
     def paths(name):
         return {"chat": chat[name], "serve": serve[name], "spec": spec[name],
+                "checkpoint": ckpt[name],
                 "task_a": task_a[name], "task_f": task_f[name],
                 "task_c": task_c[name],
                 "task_b": task_b[name], "task_e": task_e[name], "task_c_seem": task_c_seem[name],
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name],
                 "style": style[name], "samplers": sampler[name], "grounding": grounding[name],
                 "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
-                "train_video": train_video[name]}
+                "train_video": train_video[name], "train_i2vgen": train_i2vgen[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)

@@ -35,6 +35,7 @@ import torch
 
 import chip_smoke
 from vitron_tpu_torch.kernels import conv2d as cv
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32_TOL, BF16_TOL = 1e-5, 1e-2
 

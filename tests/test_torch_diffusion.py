@@ -30,6 +30,7 @@ from vitron_tpu_torch.models.diffusion import vae as tvae
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RTOL = ATOL = 1e-4

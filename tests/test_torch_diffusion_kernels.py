@@ -18,6 +18,7 @@ import torch
 from vitron_tpu_torch.kernels import flash_attention as fa
 from vitron_tpu_torch.kernels import geglu_ff as gf
 from vitron_tpu_torch.kernels import group_norm as gn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vitron_tpu_torch.kernels import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from vitron_tpu_torch.kernels import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

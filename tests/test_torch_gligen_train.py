@@ -39,6 +39,7 @@ from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule as TSch
 from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
 from vitron_tpu_torch.train import gligen as tg
 from vitron_tpu_torch.train import train_step as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4

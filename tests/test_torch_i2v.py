@@ -28,6 +28,7 @@ from vitron_tpu_torch.models.diffusion.synthetic import (StubClipTokenizer, Stub
                                                          fill_zero_leaves)
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODULE_TOL, UNET_TOL = 1e-5, 1e-3
 PROMPT = "a kite flying over the sea"
@@ -90,6 +91,24 @@ def test_adaptive_avg_pool2d_matches_jax(hw, out):
     got = tusv.adaptive_avg_pool2d(torch.from_numpy(x), out)
     want = jusv.adaptive_avg_pool2d(jnp.asarray(x), out)
     assert _rel(got, want) <= MODULE_TOL
+
+
+@pytest.mark.parametrize("side", [32, 64, 128])
+def test_equal_window_pooling_matches_adaptive_and_jax(side):
+    """At the i2vgen sides that divide by 32 (task G's 64, the training
+    step's 32) `adaptive_avg_pool2d` pools with `avg_pool2d` at kernel =
+    stride (ROADMAP C15): held against `F.adaptive_avg_pool2d`, the form it
+    replaces, and JAX's integral-image form."""
+    import jax.numpy as jnp
+    import torch.nn.functional as F
+
+    from vitron_tpu.models.diffusion import unet_sd_video as jusv
+
+    x = _x(np.random.RandomState(side), 2, side, side, 5)
+    got = tusv.adaptive_avg_pool2d(torch.from_numpy(x), (32, 32))
+    before = F.adaptive_avg_pool2d(torch.from_numpy(x).permute(0, 3, 1, 2), (32, 32))
+    assert _rel(got, before.permute(0, 2, 3, 1)) <= 1e-6
+    assert _rel(got, jusv.adaptive_avg_pool2d(jnp.asarray(x), (32, 32))) <= MODULE_TOL
 
 
 def test_transformer_v2_matches_jax(unet):

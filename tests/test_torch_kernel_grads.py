@@ -30,6 +30,7 @@ from vitron_tpu_torch.kernels import geglu_ff as tgf
 from vitron_tpu_torch.kernels import group_norm as tgn
 from vitron_tpu_torch.kernels import temporal_attention as tta
 from vitron_tpu_torch.kernels import temporal_conv as ttc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -13,6 +13,7 @@ import torch
 from vitron_tpu_torch.kernels import quantization as tq
 from vitron_tpu_torch.models.convert import from_jax
 from vitron_tpu_torch.models.llm import llama as tl
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4
 

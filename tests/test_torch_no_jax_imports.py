@@ -28,6 +28,7 @@ from vitron_tpu_torch.mm import sketch as tsketch
 from vitron_tpu_torch.mm import splice as tsplice
 from vitron_tpu_torch.mm import tokenization as ttok
 from vitron_tpu_torch.runtime import router as trouter
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "vitron_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -53,6 +54,42 @@ def test_no_jax_or_jax_package_import(path):
     bad = [f"{path.name}:{line} imports {name}" for line, name in _imported_modules(path)
            if _forbidden(name)]
     assert not bad, bad
+
+
+def _module_level_imports(path: pathlib.Path):
+    """The modules that the file's top-level statements import."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_safetensors_and_no_module_level_transformers(path):
+    """The card's machine has neither package: the port reads safetensors
+    with its own reader, and imports transformers (the tokenizer seam of
+    `runtime/assembly.py`) only inside the function that needs it."""
+    bad = [name for _, name in _imported_modules(path) if name.split(".")[0] == "safetensors"]
+    bad += [name for name in _module_level_imports(path)
+            if name.split(".")[0] == "transformers"]
+    assert not bad, bad
+
+
+def test_every_port_module_imports_without_safetensors_or_transformers():
+    modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                     for p in (REPO / "vitron_tpu_torch").rglob("*.py"))
+    modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    script = ("import importlib, sys\n"
+              "sys.modules['safetensors'] = sys.modules['transformers'] = None\n"
+              f"for m in {modules!r}:\n"
+              "    importlib.import_module(m)\n"
+              "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_the_scan_sees_function_level_imports(tmp_path):

@@ -16,6 +16,7 @@ import torch
 from vitron_tpu_torch.models.convert import from_jax
 from vitron_tpu_torch.models.llm import llama as tl
 from vitron_tpu_torch.models.llm import paged_cache as tp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import torch
 
 from vitron_tpu_torch.kernels import int4_matmul as i4
 from vitron_tpu_torch.kernels import quantization as tq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4
 

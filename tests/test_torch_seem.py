@@ -34,6 +34,7 @@ from vitron_tpu_torch.models.seem import pixel_decoder as tpix
 from vitron_tpu_torch.models.seem import postprocess as tpp
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-4
 

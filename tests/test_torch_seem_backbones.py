@@ -28,6 +28,7 @@ from vitron_tpu_torch.models.seem import davit as tdavit
 from vitron_tpu_torch.models.seem import deform_decoder as tdd
 from vitron_tpu_torch.models.seem import resnet as tresnet
 from vitron_tpu_torch.models.seem import swin as tswin
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-4
 

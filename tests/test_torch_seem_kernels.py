@@ -21,6 +21,7 @@ import torch
 
 import chip_smoke
 from vitron_tpu_torch.kernels import depthwise_conv as dw
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

@@ -44,6 +44,7 @@ from vitron_tpu_torch.runtime.engine import VitronEngine
 from vitron_tpu_torch.runtime.generation import SamplingConfig
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan, tree_bytes
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4  # float32, as tests/test_torch_llama.py
 WAIT = 300  # seconds any future or server call may take here
@@ -764,13 +765,14 @@ def test_serve_stats_reports_batching(servers):
 
 def test_main_runs_on_the_card_unless_asked_for_the_cpu(capsys):
     """`--device` defaults to cuda, which is an error without a card, never
-    the CPU; the checkpoint flags name the items that port them."""
+    the CPU; `--weights` names the item that ports it, a `--base-model`
+    that is not a checkpoint dir is refused with the reason."""
     from vitron_tpu_torch.apps import serve as tserve
 
     assert tserve.main(["--weights", "w"]) == 2
-    assert "A7" in capsys.readouterr().err
-    assert tserve.main(["--base-model", "m", "--device", "cpu"]) == 2
     assert "A14" in capsys.readouterr().err
+    assert tserve.main(["--base-model", "m", "--device", "cpu"]) == 2
+    assert "HF llama dir" in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert tserve.main(["--demo", "--port", "0"]) == 2
         assert "no CUDA device" in capsys.readouterr().err

@@ -49,6 +49,7 @@ from vitron_tpu_torch.models.convert import from_jax
 from vitron_tpu_torch.models.llm import llama as tl
 from vitron_tpu_torch.runtime import generation as tgen
 from vitron_tpu_torch.runtime import speculative as tsp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4  # float32, as tests/test_torch_llama.py
 PROMPT = [1, 5, 9, 7, 5, 9, 3]

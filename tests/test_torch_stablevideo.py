@@ -34,6 +34,7 @@ from vitron_tpu_torch.models.diffusion import vae as tvae
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODULE_TOL, NET_TOL = 1e-5, 1e-4
 U8_LEVELS, U8_SHARE = 2, 0.99

@@ -29,6 +29,7 @@ from vitron_tpu_torch.models.diffusion import samplers as tsamp
 from vitron_tpu_torch.models.diffusion import unet2d as tunet
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
 from vitron_tpu_torch.models.vision import vit as tvit
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-4
 

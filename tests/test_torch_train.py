@@ -25,6 +25,7 @@ from vitron_tpu_torch.train import data as tdata
 from vitron_tpu_torch.train import lora as tlora
 from vitron_tpu_torch.train import train_step as tstep
 from vitron_tpu_torch.train import trainer as ttrainer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL = 1e-4   # float32 on both sides; attention by two routes (flash / einsum)
 GRAD_TOL = 1e-4    # max |port - JAX| / max |JAX| per gradient

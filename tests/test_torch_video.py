@@ -30,6 +30,7 @@ from vitron_tpu_torch.models.diffusion import video_unet as tvu
 from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
 from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 from vitron_tpu_torch.runtime.system import VitronSystem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODULE_TOL, UNET_TOL, BF16_TOL = 1e-5, 1e-3, 2e-2
 

@@ -20,6 +20,7 @@ import torch
 from vitron_tpu_torch.kernels import geglu_ff as gf
 from vitron_tpu_torch.kernels import temporal_attention as ta
 from vitron_tpu_torch.kernels import temporal_conv as tc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 
@@ -311,6 +312,23 @@ def test_frame_attention_kernel_every_frame_count_and_head_dim(cuda, f, d, n, dt
     assert _rel_t(got, want) <= (F32_TOL if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [33, 40, 64, 128])
+def test_frame_attention_kernel_past_32_frames(cuda, f, dtype):
+    """F > 32 (the online-softmax kernel, ROADMAP C14) at D 64: within the
+    limit of the F <= 32 rows, the same bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(f)
+    q, k, v = (torch.randn((2, f, 45, 2 * 64), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = ta.launches
+    got, again = (ta.frame_attention(q, k, v, 2, 64 ** -0.5) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ta.launches == before + 2 and torch.equal(got, again)
+    want = ta.frame_attention_plain(q, k, v, 2, 64 ** -0.5)
+    assert _rel_t(got, want) <= (F32_TOL if dtype == torch.float32 else 1e-2)
+
+
 # (M, C) of the video UNet's feed-forward sites (CFG batch 2 x 24 frames) and
 # a ragged M
 GEGLU_VIDEO_SITES = [(138240, 512), (34560, 1024), (8640, 2048), (2160, 2048), (1001, 1024)]
@@ -336,9 +354,6 @@ def test_geglu_kernel_matches_plain_at_video_widths(cuda, m, c, dtype):
 
 @pytest.mark.cuda
 def test_video_kernels_reject_unsupported_shapes(cuda):
-    q = torch.zeros((1, 33, 4, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="F=33"):
-        ta.frame_attention(q, q, q, 1, 0.125)
     q = torch.zeros((1, 4, 4, 96), device=cuda)
     with pytest.raises(NotImplementedError, match="head dim 96"):
         ta.frame_attention(q, q, q, 1, 0.125)

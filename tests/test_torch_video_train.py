@@ -41,6 +41,7 @@ from vitron_tpu_torch.models.diffusion.samplers import DiffusionSchedule as TSch
 from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
 from vitron_tpu_torch.train import train_step as ts
 from vitron_tpu_torch.train import video as tv
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 GRAD_TOL = 1e-4

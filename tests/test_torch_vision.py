@@ -14,6 +14,7 @@ from vitron_tpu_torch.models.convert import from_jax
 from vitron_tpu_torch.models.vision import projector as tproj
 from vitron_tpu_torch.models.vision import region_extractor as treg
 from vitron_tpu_torch.models.vision import vit as tvit
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-4
 

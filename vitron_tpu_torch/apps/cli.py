@@ -4,11 +4,17 @@
   python -m vitron_tpu_torch.apps.cli --demo --device cpu --image img.npy --bbox 10 10 80 90 \
       --prompt "describe the region"
 
-`--demo` runs the tiny random-weight model with a whitespace tokenizer; the
-image is a uint8 [H, W, 3] array saved with numpy (`--image x.npy`) or, if
-none is given, random pixels from `--seed`. It runs on the card unless
-`--device cpu` asks for the CPU: `cuda` (the default) on a machine without
-a CUDA device is an error, never a switch to the CPU. Loading real checkpoints is not ported yet (ROADMAP A7).
+  python -m vitron_tpu_torch.apps.cli --base-model vicuna-7b --lora vitron_lora \
+      --clip-tower clip_vit_l14 --quantize int4 --image img.npy --prompt "..."
+
+`--demo` runs the tiny random-weight model with a whitespace tokenizer;
+`--base-model` the chat system loaded from checkpoint files
+(`runtime/assembly.build_mllm_system`, the serve app's flags; a missing
+component it needs is exit 2 with the reason). The image is a uint8
+[H, W, 3] array saved with numpy (`--image x.npy`) or, if none is given,
+random pixels from `--seed`. It runs on the card unless `--device cpu` asks
+for the CPU: `cuda` (the default) on a machine without a CUDA device is an
+error, never a switch to the CPU.
 """
 from __future__ import annotations
 
@@ -39,7 +45,10 @@ class DemoTokenizer:
 
 
 def build_argparser() -> argparse.ArgumentParser:
+    from vitron_tpu_torch.apps.serve import add_checkpoint_args
+
     p = argparse.ArgumentParser(description="Vitron PyTorch/CUDA CLI inference")
+    add_checkpoint_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs on the host)")
     p.add_argument("--demo", action="store_true",
@@ -86,13 +95,23 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
         return 2
-    if not args.demo:
-        print("error: checkpoint loading is not ported yet (ROADMAP A7); use --demo",
-              file=sys.stderr)
+    if not args.demo and not args.base_model and not args.weights:
+        print("error: provide --base-model or --demo", file=sys.stderr)
         return 2
     from vitron_tpu_torch.runtime.generation import SamplingConfig
 
-    system = build_demo_system(device, args.seed)
+    if args.demo:
+        system = build_demo_system(device, args.seed)
+    else:
+        from vitron_tpu_torch.apps.serve import build_serving_system
+        from vitron_tpu_torch.runtime.assembly import MissingWeightsError
+
+        try:
+            system, report = build_serving_system(args)
+        except (MissingWeightsError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(report.summary(), file=sys.stderr)
     if args.image:
         image = np.load(args.image)
     else:

@@ -18,10 +18,14 @@ concurrent requests co-batch their decode chunks.
 
     python -m vitron_tpu_torch.apps.serve --demo               # on the card
     python -m vitron_tpu_torch.apps.serve --demo --device cpu  # on the host
+    python -m vitron_tpu_torch.apps.serve --base-model vicuna-7b --lora vitron_lora \
+        --clip-tower clip_vit_l14 --video-tower languagebind_video --quantize int4
 
-The device defaults to `cuda`; without a CUDA device that is an error (exit
-2), never a switch to the CPU. Checkpoints (`--weights`, `--base-model`)
-are not ported yet (ROADMAP A7 and A14): those flags exit with code 2.
+`--base-model` serves the chat system that `runtime/assembly.build_mllm_system`
+loads from checkpoint files (the model's tokenizer through `transformers`);
+`--weights`, the full A-G assembly, is not ported yet (ROADMAP A14) and exits
+with code 2. The device defaults to `cuda`; without a CUDA device that is an
+error (exit 2), never a switch to the CPU.
 """
 from __future__ import annotations
 
@@ -318,6 +322,56 @@ def serve(system, host: str = "127.0.0.1", port: int = 8080,
     return None
 
 
+def host_memory_bytes() -> int:
+    """The host's physical memory: the budget of a memory plan on the CPU."""
+    import os
+
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def build_serving_system(args):
+    """The checkpoint flags -> (system, report) through
+    `assembly.build_mllm_system` (`--base-model`, chat only), on
+    `args.device`; off the card the memory plan's budget is the host's
+    memory. `--weights` (the full A-G assembly) is not ported yet."""
+    import torch
+
+    from vitron_tpu_torch.runtime import assembly
+    from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
+
+    if args.weights:
+        raise NotImplementedError("--weights (the full A-G assembly) is not ported yet "
+                                  "(ROADMAP A14); use --base-model")
+    device = assembly.resolve_device(args.device)
+    plan = None if device.type == "cuda" else MemoryPlan(budget_bytes=host_memory_bytes())
+    return assembly.build_mllm_system(
+        args.base_model, lora=args.lora, clip_tower=args.clip_tower,
+        video_tower=args.video_tower, geometry=args.geometry, quantize=args.quantize,
+        mesh={"auto": "auto", "none": None}[args.mesh],
+        allow_random_towers=args.allow_random_towers, device=device, memory_plan=plan)
+
+
+def add_checkpoint_args(p) -> None:
+    """The serve / CLI checkpoint flags."""
+    p.add_argument("--weights", metavar="DIR",
+                   help="weights dir of the full A-G deployment: not ported yet (ROADMAP A14)")
+    p.add_argument("--base-model", help="HF Llama/Vicuna checkpoint dir (chat only)")
+    p.add_argument("--lora", help="LoRA adapter dir (merged at load), with "
+                                  "non_lora_trainables.bin")
+    p.add_argument("--clip-tower", help="HF CLIP vision tower dir (with --base-model)")
+    p.add_argument("--video-tower", help="LanguageBind video tower dir (with --base-model)")
+    p.add_argument("--quantize", choices=("", "int8", "int4"), default="",
+                   help="weight-only LLM quantization")
+    p.add_argument("--geometry", choices=("real", "tiny"), default="real",
+                   help="checkpoint geometry (tiny: the synthetic test shapes; real: bf16 "
+                        "towers)")
+    p.add_argument("--mesh", choices=("auto", "none"), default="auto",
+                   help="auto: one device (a mesh over several is ROADMAP A16)")
+    p.add_argument("--allow-random-towers", action="store_true",
+                   help="permit missing vision towers (smoke tests only: image questions "
+                        "are answered by a random-init tower)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -329,26 +383,35 @@ def main(argv=None) -> int:
     p.add_argument("--demo", action="store_true",
                    help="random tiny weights, whitespace tokenizer (no checkpoints)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--weights", metavar="DIR", help="not ported yet (ROADMAP A7, A14)")
-    p.add_argument("--base-model", help="not ported yet (ROADMAP A7, A14)")
+    add_checkpoint_args(p)
     args = p.parse_args(argv)
     import torch
 
-    if args.weights or args.base_model:
-        print("error: serving from checkpoints (--weights, --base-model) is not ported yet "
-              "(ROADMAP A7 loaders, A14 assembly); use --demo", file=sys.stderr)
+    if args.weights:
+        print("error: --weights (the full A-G assembly) is not ported yet (ROADMAP A14); "
+              "use --base-model or --demo", file=sys.stderr)
         return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
         return 2
-    if not args.demo:
-        print("error: provide --demo (checkpoint loading is not ported yet: ROADMAP A7)",
-              file=sys.stderr)
-        return 2
-    from vitron_tpu_torch.apps.cli import build_demo_system
+    if args.demo:
+        from vitron_tpu_torch.apps.cli import build_demo_system
 
-    serve(build_demo_system(device, args.seed), args.host, args.port)
+        serve(build_demo_system(device, args.seed), args.host, args.port)
+        return 0
+    if not args.base_model:
+        print("error: provide --base-model (chat only) or --demo", file=sys.stderr)
+        return 2
+    from vitron_tpu_torch.runtime.assembly import MissingWeightsError
+
+    try:
+        system, report = build_serving_system(args)
+    except (MissingWeightsError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(report.summary(), flush=True)
+    serve(system, args.host, args.port)
     return 0
 
 

@@ -42,7 +42,17 @@
 //   chunks g, g + 8, ..: each probability read (a broadcast to a quarter)
 //   feeds D / 8 FMAs and each v chunk F / 4; whole 16-byte output chunks are
 //   stored.
-// F <= 32 (bucketed into 8/16/24/32 at compile time); D in {32, 64, 128}.
+// F <= 32 is bucketed into 8/16/24/32 at compile time; D in {32, 64, 128}.
+//
+// F > 32 takes a second kernel of the same warp-per-item shape: an item's
+// queries in blocks of 32 rows, each against the keys in blocks of 32, with
+// a float32 online softmax (lane i keeps query row i's running max and sum;
+// a key block rescales the row's float32 sums once). The block's sums live
+// in shared memory ([32][D] float32 a warp) rather than in registers, so
+// scores and sums do not compete for them and a warp's shared memory stays
+// bounded at any F. The rows are normalised after the last key block
+// (by the rounded reciprocal of the sum), not before the product with v:
+// the two orders differ by float32 rounding.
 #include "common.cuh"
 #include "mma_sync.cuh"
 
@@ -280,6 +290,216 @@ frame_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 }
 
+// bytes of one warp's shared memory in the F > 32 kernel: one block of 32
+// q, k and v rows, the [32][p_pitch(32)] probabilities, the [32][D + 4]
+// float32 sums and 32 per-row factors
+template <typename T, int D>
+__host__ __device__ constexpr int long_warp_bytes() {
+  return 3 * kMaxF * Shape<T, D>::kRow + kMaxF * p_pitch(kMaxF) * 4 + kMaxF * (D + 4) * 4 +
+         kMaxF * 4;
+}
+
+// one warp a block, F > 32: 32-query blocks against 32-key blocks, float32
+// online softmax
+template <typename T, int D>
+__global__ void __launch_bounds__(32)
+frame_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o, int F, int N, int H,
+                            int items, float scale) {
+  using S = Shape<T, D>;
+  constexpr int KF = kMaxF;
+  constexpr int KPL = KF / 8;   // scores: keys a lane (8 key groups) ...
+  constexpr int DPP = D / 4;    // ... over a quarter of the depths
+  constexpr int RI = KF / 4;    // P V: query rows a lane (4 row groups) ...
+  constexpr int CV = S::kVec < D / 8 ? S::kVec : D / 8;  // ... and D / 8 depths, in
+  constexpr int NC = D / 8 / CV;                         // NC chunks of CV values
+  constexpr int PP = p_pitch(KF);
+  constexpr int AP = D + 4;     // pitch of the float32 sums (floats)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int grp = lane & 7, quarter = lane >> 3;
+  unsigned char* qs = smem;
+  unsigned char* ks = qs + KF * S::kRow;
+  unsigned char* vs = ks + KF * S::kRow;
+  float* pt = reinterpret_cast<float*>(vs + KF * S::kRow);  // [key][query]
+  float* acc = pt + KF * PP;                                 // [query][AP]
+  float* fac = acc + KF * AP;                                // a factor a query row
+
+  const size_t hd = (size_t)H * D;
+  const size_t frame_stride = (size_t)N * hd;
+  // rows [r0, r0 + nr) of one [F, D] slice into shared memory, 16 bytes a copy
+  auto issue = [&](unsigned char* dst, const T* src, int r0, int nr) {
+    for (int c = lane; c < nr * S::kChunks; c += 32) {
+      const int f = c / S::kChunks, ch = c % S::kChunks;
+      cp_async16(dst + f * S::kRow + ch * 16, src + (r0 + f) * frame_stride + ch * S::kVec,
+                 true);
+    }
+  };
+
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int h = item % H, bn = item / H;
+    const size_t base = ((size_t)(bn / N) * F * N + bn % N) * hd + (size_t)h * D;
+    for (int q0 = 0; q0 < F; q0 += KF) {
+      const int nq = F - q0 < KF ? F - q0 : KF;
+      __syncwarp();  // the last block's rows and sums are read out
+      issue(qs, q + base, q0, nq);
+      cp_async_commit();
+      for (int c = lane; c < KF * AP; c += 32) acc[c] = 0.f;
+      float mx = -__int_as_float(0x7f800000), sum = 0.f;  // query row `lane`
+      for (int k0 = 0; k0 < F; k0 += KF) {
+        const int nk = F - k0 < KF ? F - k0 : KF;
+        __syncwarp();  // the last key block's k, v and probabilities are read
+        issue(ks, k + base, k0, nk);
+        issue(vs, v + base, k0, nk);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncwarp();
+
+        // scores, as the F <= 32 kernel: lane (key group grp, quarter) sums
+        // keys grp + 8r of the block against every query row of the block
+        float sc[KPL][KF];
+#pragma unroll
+        for (int r = 0; r < KPL; ++r)
+#pragma unroll
+          for (int i = 0; i < KF; ++i) sc[r][i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < DPP; c += S::kVec) {
+          const int d = quarter * DPP + c;
+          float kv[KPL][S::kVec];
+#pragma unroll
+          for (int r = 0; r < KPL; ++r) {
+            const int key = grp + 8 * r < nk ? grp + 8 * r : 0;
+            load_f32<S::kVec>(reinterpret_cast<const T*>(ks + key * S::kRow) + d, kv[r]);
+          }
+#pragma unroll
+          for (int i = 0; i < KF; ++i) {
+            if (i < nq) {
+              float qv[S::kVec];
+              load_f32<S::kVec>(reinterpret_cast<const T*>(qs + i * S::kRow) + d, qv);
+#pragma unroll
+              for (int r = 0; r < KPL; ++r)
+#pragma unroll
+                for (int e = 0; e < S::kVec; ++e) sc[r][i] = fmaf(qv[e], kv[r][e], sc[r][i]);
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 8; off < 32; off <<= 1)
+#pragma unroll
+          for (int r = 0; r < KPL; ++r)
+#pragma unroll
+            for (int i = 0; i < KF; ++i) sc[r][i] += __shfl_xor_sync(0xffffffffu, sc[r][i], off);
+#pragma unroll
+        for (int r = 0; r < KPL; ++r) {
+          const int key = grp + 8 * r;
+#pragma unroll
+          for (int i = 0; i < KF; ++i)
+            if (key < nk && i < nq && (i & 3) == quarter) pt[key * PP + i] = sc[r][i] * scale;
+        }
+        __syncwarp();
+
+        // online softmax of query row `lane` over this key block: the new
+        // running max, the factor exp(old max - new max) for the row's sums
+        // so far, the block's exponentials in place
+        if (lane < nq) {
+          float bmx = mx;
+          for (int j = 0; j < nk; ++j) bmx = fmaxf(bmx, pt[j * PP + lane]);
+          const float f = expf(mx - bmx);
+          float bsum = 0.f;
+          for (int j = 0; j < nk; ++j) {
+            const float e = expf(pt[j * PP + lane] - bmx);
+            pt[j * PP + lane] = e;
+            bsum += e;
+          }
+          sum = sum * f + bsum;
+          mx = bmx;
+          fac[lane] = f;
+        }
+        __syncwarp();
+
+        // P V into the float32 sums: lane (row group quarter, depth group
+        // grp) rescales its rows' sums once, then adds the block's keys
+        float a[RI][NC * CV];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          const float f = fac[quarter * RI + r];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < CV; ++e)
+              a[r][c * CV + e] = acc[(quarter * RI + r) * AP + (grp + 8 * c) * CV + e] * f;
+        }
+        for (int j = 0; j < nk; ++j) {
+          float vv[NC * CV];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            load_f32<CV>(reinterpret_cast<const T*>(vs + j * S::kRow) + (grp + 8 * c) * CV,
+                         vv + c * CV);
+#pragma unroll
+          for (int r = 0; r < RI; ++r) {
+            const float p = pt[j * PP + quarter * RI + r];
+#pragma unroll
+            for (int e = 0; e < NC * CV; ++e) a[r][e] = fmaf(p, vv[e], a[r][e]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RI; ++r)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < CV; ++e)
+              acc[(quarter * RI + r) * AP + (grp + 8 * c) * CV + e] = a[r][c * CV + e];
+        __syncwarp();  // the factors are rewritten by the next block
+      }
+      if (lane < nq) fac[lane] = 1.f / sum;
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const int i = quarter * RI + r;
+        if (i < nq) {
+          const float inv = fac[i];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            float out[CV];
+#pragma unroll
+            for (int e = 0; e < CV; ++e) out[e] = acc[i * AP + (grp + 8 * c) * CV + e] * inv;
+            store_from_f32<CV>(o + base + (q0 + i) * frame_stride + (grp + 8 * c) * CV, out);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_long(const void* q, const void* k, const void* v, void* o, int B, int F, int N,
+                int H, float scale, cudaStream_t stream) {
+  auto kernel = frame_attention_long_kernel<T, D>;
+  constexpr int bytes = long_warp_bytes<T, D>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * N * H;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long resident = (long long)sms * per_sm;
+  const int warps = (int)(items < resident ? items : resident);
+  kernel<<<warps, 32, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), static_cast<T*>(o), F, N, H,
+                                       (int)items, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, int KF>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int F, int N, int H,
            float scale, cudaStream_t stream) {
@@ -315,7 +535,8 @@ int by_frames(const void* q, const void* k, const void* v, void* o, int B, int F
   if (F <= 8) return launch<T, D, 8>(q, k, v, o, B, F, N, H, scale, st);
   if (F <= 16) return launch<T, D, 16>(q, k, v, o, B, F, N, H, scale, st);
   if (F <= 24) return launch<T, D, 24>(q, k, v, o, B, F, N, H, scale, st);
-  return launch<T, D, 32>(q, k, v, o, B, F, N, H, scale, st);
+  if (F <= 32) return launch<T, D, 32>(q, k, v, o, B, F, N, H, scale, st);
+  return launch_long<T, D>(q, k, v, o, B, F, N, H, scale, st);
 }
 
 template <typename T>
@@ -331,12 +552,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int F,
 
 }  // namespace
 
-// q, k, v, o: [B, F, N, H*D] contiguous, 16-byte aligned; 1 <= F <= 32, D in
+// q, k, v, o: [B, F, N, H*D] contiguous, 16-byte aligned; F >= 1, D in
 // {32, 64, 128}. Returns cudaGetLastError() after the launch.
 extern "C" int vt_frame_attention(const void* q, const void* k, const void* v, void* o, int B,
                                   int F, int N, int H, int D, float scale, int is_bf16,
                                   void* stream) {
-  if (B <= 0 || F <= 0 || F > kMaxF || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorMisalignedAddress;

@@ -25,8 +25,11 @@ Weight = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 def _absmax_scale(w32: torch.Tensor, qmax: float) -> torch.Tensor:
+    """max(|w| over the input dim, 1e-8) / qmax, divided exactly: a CUDA
+    tensor divided by a Python number is multiplied by its rounded
+    reciprocal, which differs from JAX's division in the last bit."""
     amax = w32.abs().amax(dim=-2, keepdim=True)
-    return torch.clamp(amax, min=1e-8) / qmax
+    return torch.clamp(amax, min=1e-8) / torch.full_like(amax, qmax)
 
 
 def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -18,8 +18,10 @@ The kernel is `csrc/temporal_attention.cu`: each warp walks a stream of
 copies into shared memory (in the input type; the next item's q and k in
 flight while the current one computes); lanes own register tiles of
 (key, query) scores, a query row for the softmax and (query, depth) tiles
-of the product with v, so F <= 32 and D in {32, 64, 128}; other shapes on
-the card raise. The JAX gate `usable` (TPU backend, bf16,
+of the product with v, for F <= 32; above 32 frames a second kernel walks
+32-query blocks against 32-key blocks with a float32 online softmax. D is
+32, 64 or 128; other head dims on the card raise. The JAX gate `usable`
+(TPU backend, bf16,
 `VITRON_TATTN=fused`, a pixel count its block tiling divides) recorded TPU
 facts, as B3's and B8's gates did; here every CUDA call launches the kernel,
 in float32 and bfloat16. Where JAX's default bf16 path rounds the
@@ -41,7 +43,6 @@ from vitron_tpu_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
-MAX_FRAMES = 32
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -117,9 +118,9 @@ def _frame_attention(q, k, v, heads: int, scale: float) -> torch.Tensor:
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"frame_attention: q, k, v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if f > MAX_FRAMES or d not in HEAD_DIMS:
-        raise NotImplementedError(f"frame_attention: no CUDA kernel for F={f}, head dim {d} "
-                                  f"(F <= {MAX_FRAMES}, D in {HEAD_DIMS})")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"frame_attention: no CUDA kernel for head dim {d} "
+                                  f"(D in {HEAD_DIMS})")
     q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():

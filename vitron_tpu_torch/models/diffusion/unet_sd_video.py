@@ -205,8 +205,17 @@ def _mlp2(p, x):
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """torch's AdaptiveAvgPool2d on NHWC x: output bin i of an axis of n
     averages [floor(i n / out), ceil((i + 1) n / out)), the JAX integral-image
-    form's bins, also when out > n (overlapping bins)."""
-    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+    form's bins, also when out > n (overlapping bins). Where each side
+    divides by its output side the bins are equal windows, pooled by
+    `avg_pool2d` at kernel = stride: its CUDA backward is deterministic,
+    adaptive pooling's is not (ROADMAP C15)."""
+    (h, w), (oh, ow) = x.shape[1:3], out_hw
+    xc = x.permute(0, 3, 1, 2)
+    if h % oh == 0 and w % ow == 0:
+        y = F.avg_pool2d(xc, (h // oh, w // ow))
+    else:
+        y = F.adaptive_avg_pool2d(xc, out_hw)
+    return y.permute(0, 2, 3, 1)
 
 
 def _temporal_mha(p: Dict[str, Any], x: torch.Tensor, context: torch.Tensor,

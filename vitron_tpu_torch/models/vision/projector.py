@@ -32,9 +32,31 @@ def init_params(gen: torch.Generator, in_dim: int, out_dim: int, device,
 
 
 def apply(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """x takes the weights' type where that is wider (a loaded float32
+    projector on a bf16 tower's features), as jnp's promotion does."""
     if not params:
         return x
+    w = params["w"] if "w" in params else params["w1"]
+    x = x.to(torch.promote_types(x.dtype, w.dtype))
     if "w" in params:
         return x @ params["w"] + params["b"]
     h = F.gelu(x @ params["w1"] + params["b1"], approximate="none")
     return h @ params["w2"] + params["b2"]
+
+
+def convert_hf(state_dict, device="cpu") -> Dict[str, Any]:
+    """HF keys model.mm_projector.{0,2}.{weight,bias} (mlp2x_gelu's
+    Sequential) or model.mm_projector.{weight,bias} (linear) -> the param dict on
+    `device`. Torch tensors become float32, numpy arrays keep their type
+    (the JAX `convert_hf`)."""
+    import numpy as np
+
+    def g(k):
+        v = state_dict["model.mm_projector." + k]
+        v = torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v.detach().float()
+        return v.to(device)
+
+    if "model.mm_projector.2.weight" in state_dict:
+        return {"w1": g("0.weight").t().contiguous(), "b1": g("0.bias"),
+                "w2": g("2.weight").t().contiguous(), "b2": g("2.bias")}
+    return {"w": g("weight").t().contiguous(), "b": g("bias")}

@@ -70,9 +70,38 @@ def apply(params: Dict[str, Any], feats: torch.Tensor, bboxes: torch.Tensor,
     masks = rasterize_bbox_mask(bboxes, image_size).to(feats.dtype)
     pooled = mask_pool(feats, masks)
     m = params["mlp"]
+    pooled = pooled.to(torch.promote_types(pooled.dtype, m["w0"].dtype))  # as jnp promotes
     x = torch.relu(pooled @ m["w0"] + m["b0"])
     x = torch.relu(x @ m["w1"] + m["b1"])
     x = x @ m["w2"] + m["b2"]
     loc_p = params["loc"]
     loc = torch.relu(bboxes.to(x.dtype) @ loc_p["w0"] + loc_p["b0"]) @ loc_p["w1"] + loc_p["b1"]
     return (x + loc)[:, None, :]
+
+
+def convert_hf(state_dict, device="cpu") -> Dict[str, Any]:
+    """Torch keys model.region_extractor.region_linear.layers.{0,1,2}.* and
+    model.region_extractor.loc_encoder.loc_encoder.{0,2}.*
+    -> the param dict on `device` (torch tensors as float32, numpy arrays in
+    their type, as the JAX `convert_hf`)."""
+    import numpy as np
+
+    def g(k):
+        v = state_dict["model.region_extractor." + k]
+        v = torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v.detach().float()
+        return v.to(device)
+
+    def t(k):
+        return g(k).t().contiguous()
+
+    return {
+        "mlp": {
+            "w0": t("region_linear.layers.0.weight"), "b0": g("region_linear.layers.0.bias"),
+            "w1": t("region_linear.layers.1.weight"), "b1": g("region_linear.layers.1.bias"),
+            "w2": t("region_linear.layers.2.weight"), "b2": g("region_linear.layers.2.bias"),
+        },
+        "loc": {
+            "w0": t("loc_encoder.loc_encoder.0.weight"), "b0": g("loc_encoder.loc_encoder.0.bias"),
+            "w1": t("loc_encoder.loc_encoder.2.weight"), "b1": g("loc_encoder.loc_encoder.2.bias"),
+        },
+    }

@@ -203,3 +203,22 @@ def forward_video_features(params, cfg: ViTConfig, pixels: torch.Tensor) -> torc
             x = xt.reshape(b, n_tok, t, h).transpose(1, 2).reshape(b * t, n_tok, h)
         x = _spatial_block(x, lp, cfg)
     return x[:, 1:].reshape(b, t, n_tok - 1, h)
+
+
+def fold_normalization_into_patch_proj(params, cfg: ViTConfig, mean, std) -> Dict[str, Any]:
+    """Fold `(x / 255 - mean) / std` into the patch projection, so the tower
+    takes raw [0, 255] pixels: per-channel scale a = 1 / (255 std) folded
+    into patch_proj's input rows (ordered (ph, pw, c)) and the shift
+    -mean / std folded into a new "patch_bias" [hidden], which `embed` adds
+    when present (the JAX `fold_normalization_into_patch_proj`)."""
+    w = params["patch_proj"].to(torch.float32)  # [(P*P*3), H]
+    p = cfg.patch_size
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=w.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=w.device)
+    a = 1.0 / std / 255.0
+    shift = -mean / std
+    folded = (w.reshape(p * p, 3, cfg.hidden_size) * a[None, :, None]).reshape(
+        p * p * 3, cfg.hidden_size)
+    bias = (shift.repeat(p * p)[None] @ w).reshape(-1)
+    dt = params["patch_proj"].dtype
+    return {**params, "patch_proj": folded.to(dt), "patch_bias": bias.to(dt)}
