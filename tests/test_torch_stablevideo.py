@@ -1,7 +1,8 @@
 """Parity of the port's task F (StableVideo editing) with the JAX package on
 the CPU, at tiny configs: the ControlNet (`control_residuals`,
-`controlled_forward` at `UNetConfig.tiny()`), the DPT-hybrid annotator
-(`forward` and `depth_hint` at `DPTConfig.tiny()`), the atlas
+`controlled_forward` at `UNetConfig.tiny()`), the DPT annotator
+(`forward` and `depth_hint` at `DPTConfig.tiny()`, and dpt_large's
+`forward`), the atlas
 pieces (`grid_sample_bilinear`, `render_frames`, `atlas_uvs`,
 `imlp_forward`, `scatter_to_atlas`), the AGGNet refinement, the port's own
 Canny against OpenCV's, `edit_image` from noise and from an image,
@@ -185,21 +186,30 @@ def jit_dpt(monkeypatch):
 
 def test_dpt_forward_matches_jax(nets, jit_dpt):
     """DPT-hybrid's forward at two sizes, and the port's own init: the JAX
-    tree's keys and shapes."""
+    tree's keys and shapes. Then dpt_large at tests/test_depth_parity.py's
+    tiny config (four hooks, the ConvTranspose reassemble): its forward at
+    the same two sizes and the port's init against JAX's."""
+    import jax
     import jax.numpy as jnp
 
     jdp = jit_dpt
     (jp, tp), (jcfg, tcfg) = nets[0]["dpt"], nets[1]["dpt"]
+    large = dict(image_size=64, hidden_size=32, num_layers=4, num_heads=4, mlp_dim=64,
+                 hooks=(0, 1, 2, 3), features=16, reassemble_dims=(8, 16, 32, 32))
+    jl_cfg, tl_cfg = jdp.DPTConfig.dpt_large(**large), tdp.DPTConfig.dpt_large(**large)
+    jl, tl = _live(jdp.init_params(jax.random.PRNGKey(7), jl_cfg), 7)
     rs = np.random.RandomState(1)
     for hw in ((64, 64), (64, 96)):
         img = (rs.rand(1, *hw, 3) * 2 - 1).astype(np.float32)
-        want = jdp.forward(jp, jcfg, jnp.asarray(img))
-        got = tdp.forward(tp, tcfg, torch.from_numpy(img))
-        assert _rel(got, want) < NET_TOL, hw
-    own = tdp.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
-    assert _tree_map(lambda a: tuple(a.shape), own) == _tree_map(lambda a: tuple(a.shape), tp)
-    with pytest.raises(ValueError, match="not ported"):
-        tdp.forward(tp, tdp.DPTConfig.tiny(variant="dpt_large"), torch.from_numpy(img))
+        for what, (jparams, jc), (tparams, tc) in (("hybrid", (jp, jcfg), (tp, tcfg)),
+                                                   ("large", (jl, jl_cfg), (tl, tl_cfg))):
+            want = jdp.forward(jparams, jc, jnp.asarray(img))
+            got = tdp.forward(tparams, tc, torch.from_numpy(img))
+            assert _rel(got, want) < NET_TOL, (what, hw)
+    for params, cfg in ((tp, tcfg), (tl, tl_cfg)):
+        own = tdp.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        assert (_tree_map(lambda a: tuple(a.shape), own)
+                == _tree_map(lambda a: tuple(a.shape), params)), cfg.variant
 
 
 def test_depth_hint_matches_jax(nets, jit_dpt):

@@ -4,8 +4,8 @@ Port of `vitron_tpu/models/diffusion/clip_text.py`: 12 pre-LN layers,
 hidden 768, 12 heads, quick_gelu, causal mask, final LayerNorm; the output
 is the last hidden state (`skip_last` layers dropped for the clip-skip
 variant). Layer weights are stacked [L, ...] leaves indexed in a Python
-loop; attention is the plain einsum form, as in JAX. The HF converter waits
-for the loaders (ROADMAP A7).
+loop; attention is the plain einsum form, as in JAX. `convert_hf_clip_text`
+(:110) reads an HF or ldm state dict into that tree.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Any, Dict
 
 import torch
 
+from vitron_tpu_torch.models.diffusion.layers import lin_w, reading, stack, sub_dict
 from vitron_tpu_torch.models.llm.llama import dense_init
 from vitron_tpu_torch.models.vision.vit import _layer, layer_norm, quick_gelu
 
@@ -99,3 +100,50 @@ def encode(params: Dict[str, Any], cfg: TextConfig, token_ids: torch.Tensor,
         xn = layer_norm(x, lp["ln2"], cfg.layer_norm_eps)
         x = x + quick_gelu(xn @ lp["fc1"] + lp["b1"]) @ lp["fc2"] + lp["b2"]
     return layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
+
+
+def convert_hf_clip_text(state_dict, cfg: TextConfig, prefix: str = "text_model.",
+                         device="cpu") -> Dict[str, Any]:
+    """HF CLIPTextModel state dict -> the stacked param tree on `device`.
+    Also takes ldm's FrozenCLIPEmbedder prefixes: 'transformer.text_model.'
+    (the GLIGEN bundle's `text_encoder`) and
+    'cond_stage_model.transformer.text_model.' (a ControlLDM bundle)."""
+    for cand in ("cond_stage_model.transformer.text_model.", "transformer.text_model.", prefix):
+        if any(k.startswith(cand) for k in state_dict):
+            prefix = cand
+            break
+    sd = sub_dict(reading(state_dict, device), prefix)
+    l = cfg.num_layers
+
+    def stack_t(fmt):
+        return stack([lin_w(sd, fmt.format(i)) for i in range(l)])
+
+    def stack_(fmt):
+        return stack([sd[fmt.format(i)] for i in range(l)])
+
+    return {
+        "token_emb": sd["embeddings.token_embedding.weight"],
+        "pos_emb": sd["embeddings.position_embedding.weight"],
+        "layers": {
+            "ln1": {"scale": stack_("encoder.layers.{}.layer_norm1.weight"),
+                    "bias": stack_("encoder.layers.{}.layer_norm1.bias")},
+            "attn": {
+                "wq": stack_t("encoder.layers.{}.self_attn.q_proj.weight"),
+                "bq": stack_("encoder.layers.{}.self_attn.q_proj.bias"),
+                "wk": stack_t("encoder.layers.{}.self_attn.k_proj.weight"),
+                "bk": stack_("encoder.layers.{}.self_attn.k_proj.bias"),
+                "wv": stack_t("encoder.layers.{}.self_attn.v_proj.weight"),
+                "bv": stack_("encoder.layers.{}.self_attn.v_proj.bias"),
+                "wo": stack_t("encoder.layers.{}.self_attn.out_proj.weight"),
+                "bo": stack_("encoder.layers.{}.self_attn.out_proj.bias"),
+            },
+            "ln2": {"scale": stack_("encoder.layers.{}.layer_norm2.weight"),
+                    "bias": stack_("encoder.layers.{}.layer_norm2.bias")},
+            "fc1": stack_t("encoder.layers.{}.mlp.fc1.weight"),
+            "b1": stack_("encoder.layers.{}.mlp.fc1.bias"),
+            "fc2": stack_t("encoder.layers.{}.mlp.fc2.weight"),
+            "b2": stack_("encoder.layers.{}.mlp.fc2.bias"),
+        },
+        "final_ln": {"scale": sd["final_layer_norm.weight"],
+                     "bias": sd["final_layer_norm.bias"]},
+    }

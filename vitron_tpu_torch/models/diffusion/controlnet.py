@@ -8,8 +8,8 @@ zero-conv'ed residual per input block plus a middle residual, and the
 controlled UNet whose decoder adds the residuals to its skips. Both halves
 walk the port's `unet2d` block plan (`_run_block`), so they run B2 (flash
 at >= VITRON_FLASH_MIN tokens), B3 (GEGLU) and B8 (group-norm sums) at the
-UNet's sites. The checkpoint converter (`convert_torch`) waits for the
-loaders (ROADMAP A7).
+UNet's sites. `convert_torch` (:135) reads a cldm ControlNet state dict
+(`control_model.` keys) into the param tree.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.models.diffusion import unet2d
-from vitron_tpu_torch.models.diffusion.layers import conv2d, group_norm, timestep_embedding
+from vitron_tpu_torch.models.diffusion.layers import (conv2d, conv_w, group_norm, lin_w, reading,
+                                                      sub_dict, timestep_embedding)
 from vitron_tpu_torch.models.diffusion.unet2d import UNetConfig, block_plan
 
 HINT_CHANNELS = (16, 16, 32, 32, 96, 96, 256)
@@ -128,3 +129,27 @@ def controlled_forward(unet_params, cfg: UNetConfig, x: torch.Tensor, timesteps:
         h = unet2d._run_block(entries, layers, h, emb, context, None, cfg, 1.0)
     h = group_norm(h, unet_params["out_norm_s"], unet_params["out_norm_b"])
     return conv2d(F.silu(h), unet_params["out_w"], unet_params["out_b"], padding=1)
+
+
+HINT_BLOCK_CONVS = (0, 2, 4, 6, 8, 10, 12, 14)  # input_hint_block's convs, SiLUs between
+
+
+def convert_torch(sd, cfg: UNetConfig, prefix: str = "control_model.",
+                  device="cpu") -> Dict[str, Any]:
+    """ControlNet state dict (cldm naming, under `prefix`) -> param tree on
+    `device`."""
+    sub = sub_dict(reading(sd, device), prefix)
+    input_plan, middle_plan, _ = block_plan(cfg)
+    return {
+        "time_w1": lin_w(sub, "time_embed.0.weight"), "time_b1": sub["time_embed.0.bias"],
+        "time_w2": lin_w(sub, "time_embed.2.weight"), "time_b2": sub["time_embed.2.bias"],
+        "input_blocks": [unet2d._convert_block(sub, b, f"input_blocks.{i}", cfg)
+                         for i, b in enumerate(input_plan)],
+        "middle_block": unet2d._convert_block(sub, middle_plan, "middle_block", cfg),
+        "hint_block": [{"w": conv_w(sub, f"input_hint_block.{i}.weight"),
+                        "b": sub[f"input_hint_block.{i}.bias"]} for i in HINT_BLOCK_CONVS],
+        "zero_convs": [{"w": conv_w(sub, f"zero_convs.{i}.0.weight"),
+                        "b": sub[f"zero_convs.{i}.0.bias"]} for i in range(len(input_plan))],
+        "middle_out": {"w": conv_w(sub, "middle_block_out.0.weight"),
+                       "b": sub["middle_block_out.0.bias"]},
+    }

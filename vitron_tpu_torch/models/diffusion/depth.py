@@ -2,17 +2,22 @@
 
 Port of `vitron_tpu/models/diffusion/depth.py` (the vendored MiDaS DPT,
 reference annotator/midas): NHWC activations, HWIO conv weights and the JAX
-param tree, all plain torch (no kernel of the port sits under it).
+param tree, all plain torch (no kernel of the port sits under it). Two
+variants:
 
-`dpt_hybrid` (the reference default): a ResNetV2-50 stem (weight-
-standardized convs + GroupNorm(32), stages (3, 4, 9), SAME padding) feeding
-a ViT-B on the 1/16 feature map; reassemble hooks at ResNet stages 0 and 1
-and transformer blocks 8 and 11 through the 'project' readout; then the
-scratch head (per-scale 3x3 convs, residual fusion refinenets, x2
-bilinear align_corners=True, the output conv stack). The JAX package's
-`dpt_large` variant is not ported: nothing calls it (the reference
-annotator is the hybrid). `convert_midas_torch` waits for the loaders
-(ROADMAP A7).
+- `dpt_hybrid` (the reference default): a ResNetV2-50 stem (weight-
+  standardized convs + GroupNorm(32), stages (3, 4, 9), SAME padding)
+  feeding a ViT-B on the 1/16 feature map; reassemble hooks at ResNet
+  stages 0 and 1 and transformer blocks 8 and 11 through the 'project'
+  readout;
+- `dpt_large`: a plain ViT-L/16 (the patch conv folded into a dense on
+  flattened patches), hooks (5, 11, 17, 23), each through the readout and
+  a 1x1 conv, the first two upsampled by learned ConvTranspose2d (kernel
+  == stride, 4 and 2), the last down by a stride-2 3x3 conv.
+
+Both end in the scratch head (per-scale 3x3 convs, residual fusion
+refinenets, x2 bilinear align_corners=True, the output conv stack).
+`convert_midas_torch` (:440) reads either variant's MiDaS state dict.
 """
 from __future__ import annotations
 
@@ -25,18 +30,19 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.media.preprocess import _resize_hw
+from vitron_tpu_torch.models.diffusion.layers import conv_w, layout, lin_w, reading, unprefixed
 
 
 @dataclasses.dataclass(frozen=True)
 class DPTConfig:
-    variant: str = "dpt_hybrid"          # the only variant ported
+    variant: str = "dpt_hybrid"          # "dpt_hybrid" | "dpt_large"
     image_size: int = 384                # the checkpoint's native resolution
     patch_size: int = 16                 # the token grid's stride
     hidden_size: int = 768
     num_layers: int = 12
     num_heads: int = 12
     mlp_dim: int = 3072
-    hooks: Tuple[int, ...] = (8, 11)     # the two transformer hooks
+    hooks: Tuple[int, ...] = (8, 11)     # transformer hooks (the hybrid's last two)
     features: int = 256
     reassemble_dims: Tuple[int, ...] = (256, 512, 768, 768)
     resnet_layers: Tuple[int, ...] = (3, 4, 9)
@@ -47,6 +53,13 @@ class DPTConfig:
     @staticmethod
     def dpt_hybrid(**kw) -> "DPTConfig":
         return DPTConfig(**kw)
+
+    @staticmethod
+    def dpt_large(**kw) -> "DPTConfig":
+        base = dict(variant="dpt_large", hidden_size=1024, num_layers=24, num_heads=16,
+                    mlp_dim=4096, hooks=(5, 11, 17, 23), reassemble_dims=(256, 512, 1024, 1024))
+        base.update(kw)
+        return DPTConfig(**base)
 
     @staticmethod
     def tiny(**kw) -> "DPTConfig":
@@ -216,6 +229,15 @@ def _readout_project(tokens_with_cls, p):
     return F.gelu(cat @ p["w"] + p["b"])
 
 
+def _deconv_block(x, w, b, s: int):
+    """torch ConvTranspose2d with kernel_size == stride == s (each input
+    pixel scattered to its own s x s patch): an einsum and a reshape.
+    w [cin, cout, s, s]."""
+    bb, h, ww, _ = x.shape
+    y = torch.einsum("bhwc,cdij->bhiwjd", x, w)
+    return y.reshape(bb, h * s, ww * s, -1) + b
+
+
 # ---------------------------------------------------------------- the model
 
 
@@ -234,8 +256,20 @@ def forward(params: Dict[str, Any], cfg: DPTConfig, image: torch.Tensor) -> torc
         feats = [s0, s1, _conv(l3, params["post3"]["w"], params["post3"]["b"]),
                  _conv(_conv(l4, params["post4"]["w"], params["post4"]["b"]),
                        params["post4"]["w2"], params["post4"]["b2"], stride=2, padding=pad1)]
+    elif cfg.variant == "dpt_large":
+        p = cfg.patch_size
+        x = image.reshape(b, gh, p, gw, p, 3).permute(0, 1, 3, 2, 4, 5)
+        tokens = x.reshape(b, gh * gw, p * p * 3) @ params["patch_w"] + params["patch_b"]
+        grids = [_conv(_readout_project(h, params["readout"][i]).reshape(b, gh, gw, -1),
+                       params[f"post{i + 1}"]["w"], params[f"post{i + 1}"]["b"])
+                 for i, h in enumerate(_vit_trunk(params, cfg, tokens, gh, gw))]
+        feats = [_deconv_block(grids[0], params["post1"]["up_w"], params["post1"]["up_b"], 4),
+                 _deconv_block(grids[1], params["post2"]["up_w"], params["post2"]["up_b"], 2),
+                 grids[2],
+                 _conv(grids[3], params["post4"]["w2"], params["post4"]["b2"], stride=2,
+                       padding=pad1)]
     else:
-        raise ValueError(f"DPT variant {cfg.variant!r} is not ported (only dpt_hybrid)")
+        raise ValueError(f"unknown DPT variant {cfg.variant!r}")
     rn = [_conv(f, params["scratch"][i]["w"], padding=pad1) for i, f in enumerate(feats)]
 
     def rcu(y, u):
@@ -328,10 +362,19 @@ def init_params(gen: torch.Generator, cfg: DPTConfig, device) -> Dict[str, Any]:
                  "w2": conv(3, 3, f // 2, 32), "b2": zeros(32),
                  "w3": conv(1, 1, 32, 1), "b3": zeros(1)},
     }
-    d3, d4 = cfg.reassemble_dims[2], cfg.reassemble_dims[3]
+    d1, d2, d3, d4 = cfg.reassemble_dims
     params["post3"] = {"w": conv(1, 1, c, d3), "b": zeros(d3)}
     params["post4"] = {"w": conv(1, 1, c, d4), "b": zeros(d4), "w2": conv(3, 3, d4, d4),
                        "b2": zeros(d4)}
+    if cfg.variant == "dpt_large":
+        params["patch_w"] = dense(cfg.patch_size ** 2 * 3, c)
+        params["patch_b"] = zeros(c)
+        params["readout"] = [{"w": dense(2 * c, c), "b": zeros(c)} for _ in range(4)]
+        params["post1"] = {"w": conv(1, 1, c, d1), "b": zeros(d1),
+                           "up_w": randn(d1, d1, 4, 4) / math.sqrt(d1), "up_b": zeros(d1)}
+        params["post2"] = {"w": conv(1, 1, c, d2), "b": zeros(d2),
+                           "up_w": randn(d2, d2, 2, 2) / math.sqrt(d2), "up_b": zeros(d2)}
+        return params
     stages, cin = [], cfg.stem_width
     for si, n_blocks in enumerate(cfg.resnet_layers):
         cout = cfg.resnet_channels[si]
@@ -352,4 +395,99 @@ def init_params(gen: torch.Generator, cfg: DPTConfig, device) -> Dict[str, Any]:
     params["patch_w"] = dense(cfg.resnet_channels[-1], c)
     params["readout"] = [{"w": dense(2 * c, c), "b": zeros(c)} for _ in range(2)]
     params["patch_b"] = zeros(c)
+    return params
+
+
+# ---------------------------------------------------------------- convert
+
+
+def convert_midas_torch(sd, cfg: DPTConfig, device="cpu") -> Dict[str, Any]:
+    """A MiDaS DPT torch state dict (the dpt_hybrid-midas-501f0c75.pt /
+    dpt_large-midas-2f21e586.pt layout: pretrained.model.* + scratch.*,
+    optionally under MiDaSInference's 'model.' prefix) -> param tree on
+    `device`."""
+    sd = unprefixed(reading(sd, device), "model.")
+
+    def cw(k):
+        return conv_w(sd, k)
+
+    def lin(pfx):
+        return {"w": lin_w(sd, pfx + ".weight"), "b": sd[pfx + ".bias"]}
+
+    def ln(pfx):
+        return {"scale": sd[pfx + ".weight"], "bias": sd[pfx + ".bias"]}
+
+    m = "pretrained.model."
+    params: Dict[str, Any] = {"cls": sd[m + "cls_token"],
+                              "pos_emb": layout(sd[m + "pos_embed"], "first"),
+                              "blocks": []}
+    for i in range(cfg.num_layers):
+        b = f"{m}blocks.{i}."
+        qkv, proj, fc1, fc2 = (lin(b + n) for n in ("attn.qkv", "attn.proj", "mlp.fc1",
+                                                    "mlp.fc2"))
+        params["blocks"].append({
+            "ln1": ln(b + "norm1"), "ln2": ln(b + "norm2"),
+            "qkv_w": qkv["w"], "qkv_b": qkv["b"], "proj_w": proj["w"], "proj_b": proj["b"],
+            "fc1_w": fc1["w"], "fc1_b": fc1["b"], "fc2_w": fc2["w"], "fc2_b": fc2["b"],
+        })
+
+    if cfg.variant == "dpt_hybrid":
+        bb = m + "patch_embed.backbone."
+        stages = []
+        for si, n_blocks in enumerate(cfg.resnet_layers):
+            blocks = []
+            for bi in range(n_blocks):
+                p = f"{bb}stages.{si}.blocks.{bi}."
+                bp = {"w1": cw(p + "conv1.weight"), "n1": ln(p + "norm1"),
+                      "w2": cw(p + "conv2.weight"), "n2": ln(p + "norm2"),
+                      "w3": cw(p + "conv3.weight"), "n3": ln(p + "norm3")}
+                if p + "downsample.conv.weight" in sd:
+                    bp["down_w"] = cw(p + "downsample.conv.weight")
+                    bp["down_norm"] = ln(p + "downsample.norm")
+                blocks.append(bp)
+            stages.append(blocks)
+        params["resnet"] = {"stem_w": cw(bb + "stem.conv.weight"),
+                            "stem_norm": ln(bb + "stem.norm"), "stages": stages}
+        # the 1x1 proj conv is a dense on the channel axis
+        params["patch_w"] = layout(sd[m + "patch_embed.proj.weight"], "conv1x1")
+        params["patch_b"] = sd[m + "patch_embed.proj.bias"]
+        params["readout"] = [lin(f"pretrained.act_postprocess{i}.0.project.0") for i in (3, 4)]
+        params["post3"] = {"w": cw("pretrained.act_postprocess3.3.weight"),
+                           "b": sd["pretrained.act_postprocess3.3.bias"]}
+        params["post4"] = {"w": cw("pretrained.act_postprocess4.3.weight"),
+                           "b": sd["pretrained.act_postprocess4.3.bias"],
+                           "w2": cw("pretrained.act_postprocess4.4.weight"),
+                           "b2": sd["pretrained.act_postprocess4.4.bias"]}
+    else:
+        # the 16x16 / 16 patch conv, folded into a dense on flattened patches
+        params["patch_w"] = layout(sd[m + "patch_embed.proj.weight"], "patch")
+        params["patch_b"] = sd[m + "patch_embed.proj.bias"]
+        params["readout"] = [lin(f"pretrained.act_postprocess{i}.0.project.0")
+                             for i in (1, 2, 3, 4)]
+        for i in (1, 2, 3, 4):
+            a = f"pretrained.act_postprocess{i}."
+            pp = {"w": cw(a + "3.weight"), "b": sd[a + "3.bias"]}
+            if i in (1, 2):  # ConvTranspose2d [cin, cout, s, s], as it is
+                pp["up_w"] = sd[a + "4.weight"]
+                pp["up_b"] = sd[a + "4.bias"]
+            if i == 4:
+                pp["w2"] = cw(a + "4.weight")
+                pp["b2"] = sd[a + "4.bias"]
+            params[f"post{i}"] = pp
+
+    params["scratch"] = [{"w": cw(f"scratch.layer{i + 1}_rn.weight")} for i in range(4)]
+
+    def rcu(r):
+        return {"w1": cw(r + "conv1.weight"), "b1": sd[r + "conv1.bias"],
+                "w2": cw(r + "conv2.weight"), "b2": sd[r + "conv2.bias"]}
+
+    params["fusion"] = [{"res1": rcu(f"scratch.refinenet{i + 1}.resConfUnit1."),
+                         "res2": rcu(f"scratch.refinenet{i + 1}.resConfUnit2."),
+                         "out_w": cw(f"scratch.refinenet{i + 1}.out_conv.weight"),
+                         "out_b": sd[f"scratch.refinenet{i + 1}.out_conv.bias"]}
+                        for i in range(4)]
+    o = "scratch.output_conv."
+    params["head"] = {"w1": cw(o + "0.weight"), "b1": sd[o + "0.bias"],
+                      "w2": cw(o + "2.weight"), "b2": sd[o + "2.bias"],
+                      "w3": cw(o + "4.weight"), "b3": sd[o + "4.bias"]}
     return params

@@ -21,7 +21,11 @@ feature and a style crop's pooled CLIP image feature (ViT-L/14 through
 through `reproject_image_feature`), which `layers.position_net_with_image`
 turns into 2 x max_objs grounding tokens. `generate_styled` splits the same
 way: `prepare_styled` on the host, then `run_styled` on the device from a
-given x_T. The checkpoint loader waits (ROADMAP A7).
+given x_T.
+
+`load_gligen_checkpoint` (:369) reads a GLIGEN .pth bundle (the UNet, the
+VAE and the CLIP text encoder) into the three trees a `GligenPipeline`
+takes, on the device it is given.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from vitron_tpu_torch.models.diffusion import clip_text, samplers, unet2d, vae
 from vitron_tpu_torch.models.diffusion.layers import position_net_with_image
 from vitron_tpu_torch.models.diffusion.vae import SD_SCALE_FACTOR
+from vitron_tpu_torch.models.llm.loader import load_torch_bundle
 from vitron_tpu_torch.models.vision import vit
 
 
@@ -341,3 +346,27 @@ class GligenStylePipeline(GligenPipeline):
         return self.run_styled(**inputs, x_t=x_t, steps=steps or cfg.steps,
                                guidance_scale=float(guidance_scale),
                                alpha_type=tuple(alpha_type))
+
+
+GLIGEN_BUNDLE_ENTRIES = ("model", "autoencoder", "text_encoder")
+
+
+def load_gligen_checkpoint(path, cfg: GligenConfig, inpaint: bool = False, device="cpu"):
+    """A GLIGEN .pth bundle (the reference's load_ckpt: a dict of the 'model'
+    (UNet), 'autoencoder' and 'text_encoder' state dicts, with an OmegaConf
+    'config' pickled beside them) -> (unet_params, vae_params, text_params)
+    on `device`, converted tensor by tensor there.
+
+    The bundle is read without importing the config's classes
+    (`loader.load_torch_bundle`); a bundle without one of the three state
+    dicts raises. Pass inpaint=True for the 9-channel inpainting checkpoint:
+    the UNet is read at `cfg.unet` with 9 input channels."""
+    bundle = load_torch_bundle(path)
+    missing = [k for k in GLIGEN_BUNDLE_ENTRIES if k not in bundle]
+    if missing:
+        raise KeyError(f"{path}: not a GLIGEN bundle, it lacks {missing} "
+                       f"(it holds {sorted(bundle)})")
+    ucfg = dataclasses.replace(cfg.unet, in_channels=9) if inpaint else cfg.unet
+    return (unet2d.convert_ldm_unet(bundle["model"], ucfg, device=device),
+            vae.convert_ldm_vae(bundle["autoencoder"], cfg.vae, device=device),
+            clip_text.convert_hf_clip_text(bundle["text_encoder"], cfg.text, device=device))

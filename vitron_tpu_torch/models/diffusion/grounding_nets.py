@@ -1,7 +1,8 @@
 """GLIGEN grounding-net variants: canny / depth / hed / normal / sem / keypoint.
 
-Port of `vitron_tpu/models/diffusion/grounding_nets.py` (all of it but the
-checkpoint converters, which wait for the loaders, ROADMAP A7):
+Port of `vitron_tpu/models/diffusion/grounding_nets.py`, its checkpoint
+converters (`convert_convnext_torch`, `convert_hint_position_net`,
+`convert_keypoint_position_net`, `convert_grounding_downsampler`) too:
 
 - canny / depth / hed / normal: resize the hint map (nearest) to
   `resize_input`, run a ConvNeXt-T trunk, take its (r/32)^2 grid tokens,
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.depthwise_conv import depthwise_conv2d
 from vitron_tpu_torch.media.preprocess import _resize_hw
-from vitron_tpu_torch.models.diffusion.layers import _mlp3, conv2d, fourier_embed
+from vitron_tpu_torch.models.diffusion.layers import (_convert_mlp3, _mlp3, conv2d, conv_w,
+                                                      fourier_embed, lin_w, reading)
 from vitron_tpu_torch.models.vision.vit import layer_norm
 
 CONVNEXT_TINY_DEPTHS = (3, 3, 9, 3)
@@ -196,3 +198,75 @@ def init_keypoint_position_net(gen: torch.Generator, device, max_persons: int = 
             "keypoint_embeddings": zeros(KEYPOINTS, out_dim),
             "null_person": zeros(out_dim), "null_xy": zeros(pos_dim),
             "linears": _mlp3_init(normal, zeros, out_dim + pos_dim, out_dim)}
+
+
+# ----------------------------------------------------------------- convert
+
+
+def convert_convnext_torch(sd, pfx: str = "convnext_tiny_backbone.",
+                           depths=CONVNEXT_TINY_DEPTHS, device="cpu") -> Dict[str, Any]:
+    """A ConvNeXt trunk's state dict (torchvision / GLIGEN naming) -> param
+    tree on `device`; the depthwise convs [C, 1, 7, 7] -> HWIO [7, 7, 1, C]."""
+    sd = reading(sd, device)
+    downsample = []
+    for i in range(len(depths)):
+        base = f"{pfx}downsample_layers.{i}."
+        conv, norm = ("0.", "1.") if i == 0 else ("1.", "0.")  # stem: conv, LN; then LN, conv
+        downsample.append({"conv_w": conv_w(sd, base + conv + "weight"),
+                           "conv_b": sd[base + conv + "bias"],
+                           "norm_w": sd[base + norm + "weight"],
+                           "norm_b": sd[base + norm + "bias"]})
+    stages = []
+    for i, d in enumerate(depths):
+        blocks = []
+        for j in range(d):
+            base = f"{pfx}stages.{i}.{j}."
+            blocks.append({
+                "dw_w": conv_w(sd, base + "dwconv.weight"),
+                "dw_b": sd[base + "dwconv.bias"],
+                "norm_w": sd[base + "norm.weight"],
+                "norm_b": sd[base + "norm.bias"],
+                "pw1_w": lin_w(sd, base + "pwconv1.weight"),
+                "pw1_b": sd[base + "pwconv1.bias"],
+                "pw2_w": lin_w(sd, base + "pwconv2.weight"),
+                "pw2_b": sd[base + "pwconv2.bias"],
+                "gamma": sd[base + "gamma"],
+            })
+        stages.append(blocks)
+    return {"downsample": downsample, "stages": stages}
+
+
+def convert_hint_position_net(sd, pfx: str = "position_net.", device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    p = {
+        "convnext": convert_convnext_torch(sd, pfx + "convnext_tiny_backbone."),
+        "pos_embedding": sd[pfx + "pos_embedding"],
+        "null_feature": sd[pfx + "null_feature"],
+        "linears": _convert_mlp3(sd, pfx + "linears"),
+    }
+    if (pfx + "in_conv.weight") in sd:
+        p["in_conv"] = {"w": conv_w(sd, pfx + "in_conv.weight"), "b": sd[pfx + "in_conv.bias"]}
+    return p
+
+
+def convert_keypoint_position_net(sd, pfx: str = "position_net.",
+                                  device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "person_embeddings": sd[pfx + "person_embeddings"],
+        "keypoint_embeddings": sd[pfx + "keypoint_embeddings"],
+        "null_person": sd[pfx + "null_person_feature"],
+        "null_xy": sd[pfx + "null_xy_feature"],
+        "linears": _convert_mlp3(sd, pfx + "linears"),
+    }
+
+
+def convert_grounding_downsampler(sd, pfx: str = "downsample_net.",
+                                  device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "conv1_w": conv_w(sd, pfx + "layers.0.weight"),
+        "conv1_b": sd[pfx + "layers.0.bias"],
+        "conv2_w": conv_w(sd, pfx + "layers.2.weight"),
+        "conv2_b": sd[pfx + "layers.2.bias"],
+    }

@@ -11,14 +11,18 @@ package does on the TPU. CPU tensors take the same code with the kernels'
 plain versions and the einsum attention path.
 
 `position_net_with_image` (:429) is the style pipeline's text + image
-grounding net. The checkpoint converters (:334-469) wait for the loaders
-(ROADMAP A7).
+grounding net. The checkpoint converters (:334-469) close the module, with
+the pieces every diffusion converter reads a state dict through: `_np` (one
+entry on the converter's device, widened), the `LAYOUTS` from the
+reference's tensors to the port's, and `KeyMap`, on which a converter
+returns its key map instead of a tree.
 """
 from __future__ import annotations
 
+import collections.abc
 import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -235,3 +239,245 @@ def position_net_with_image(p: Dict[str, Any], boxes, masks, text_masks, image_m
     objs_text = _mlp3(p["text"], torch.cat([text, xyxy], dim=-1))
     objs_image = _mlp3(p["image"], torch.cat([image, xyxy], dim=-1))
     return torch.cat([objs_text, objs_image], dim=1)
+
+
+# ---------------------------------------------------------------- converters
+#
+# Port of the JAX converters (:334-469). A converter reads a reference state
+# dict by name, as JAX's does, and returns the port's tree: dict for dict and
+# key for key what `models.convert.from_jax` makes of the JAX converter's
+# output on the same dict. Each entry is moved to the converter's `device`
+# and widened there as it is looked up (`_np`), so on the card the host never
+# holds a converted copy. Run on a `KeyMap` in place of a state dict, the same
+# converter returns its key map: the tree with a `Key` at each leaf, which
+# `synthetic.reference_state_dict` reads the other way to write a port tree
+# out in the reference's layout. (`stablevideo.convert_imlp_torch` finds its
+# layers from the keys a dict holds, so on a `KeyMap` it raises; its inverse
+# is `synthetic.imlp_state_dict`.)
+
+
+class Key(NamedTuple):
+    """A leaf of a key map: the state-dict key it is read from (a tuple of
+    keys: their tensors stacked on a new first axis) and the kind of layout
+    that turns the reference's tensor into the port's (`LAYOUTS`)."""
+
+    key: Union[str, Tuple[str, ...]]
+    kind: str = "plain"
+
+
+def _unpatch(w):
+    """[p*p*3, C] -> the p x p patch conv's [C, 3, p, p]."""
+    p = math.isqrt(w.shape[0] // 3)
+    return w.reshape(p, p, 3, w.shape[1]).permute(3, 2, 0, 1)
+
+
+# kind -> (the reference's layout -> the port's, the port's -> the reference's)
+LAYOUTS = {
+    "plain": (lambda t: t, lambda t: t),
+    # nn.Linear [out, in] <-> x @ w's [in, out]
+    "linear": (lambda t: t.t(), lambda t: t.t()),
+    # torch conv OIHW <-> HWIO
+    "conv": (lambda t: t.permute(2, 3, 1, 0), lambda t: t.permute(3, 2, 0, 1)),
+    # a k=1 Conv1d [O, I, 1] <-> [I, O]
+    "conv1d": (lambda t: t[:, :, 0].t(), lambda t: t.t()[:, :, None]),
+    # a 1x1 Conv2d [O, I, 1, 1] <-> [I, O]
+    "conv1x1": (lambda t: t[:, :, 0, 0].t(), lambda t: t.t()[:, :, None, None]),
+    # a (3, 1, 1) Conv3d [O, I, 3, 1, 1] <-> [3, 1, I, O]
+    "conv3d_t": (lambda t: t[:, :, :, 0, 0].permute(2, 1, 0)[:, None],
+                 lambda t: t[:, 0].permute(2, 1, 0)[:, :, :, None, None]),
+    # a p x p stride-p patch conv [C, 3, p, p] <-> a dense on flattened patches
+    "patch": (lambda t: t.permute(2, 3, 1, 0).reshape(-1, t.shape[0]), _unpatch),
+    # [1, N, C] <-> [N, C]
+    "first": (lambda t: t[0], lambda t: t[None]),
+}
+
+
+class KeyMap:
+    """Stands in for a state dict to record a converter's key map: every key
+    is present and each entry looked up is its `Key`."""
+
+    def __getitem__(self, key: str) -> Key:
+        return Key(key)
+
+    def __contains__(self, key) -> bool:
+        return True
+
+    def __iter__(self):
+        return iter(())
+
+    def items(self):
+        return iter(())
+
+
+def _np(x, device="cpu") -> torch.Tensor:
+    """One state-dict entry (a tensor or a numpy array) as a new tensor on
+    `device`: fp16 and bf16 widened to float32 there, exactly, as the JAX
+    package's `_np` widens them; any other dtype as it is."""
+    t = torch.as_tensor(x).detach()
+    moved = t.to(device)
+    if moved.dtype in (torch.float16, torch.bfloat16):
+        return moved.float()
+    return moved.clone() if moved is t else moved
+
+
+class OnDevice(collections.abc.Mapping):
+    """A state dict as the converters read it: each entry moved to `device`
+    and widened (`_np`) when it is looked up, one at a time."""
+
+    def __init__(self, sd: Mapping[str, Any], device):
+        self.sd, self.device = sd, device
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return _np(self.sd[key], self.device)
+
+    def __contains__(self, key) -> bool:
+        return key in self.sd
+
+    def __iter__(self):
+        return iter(self.sd)
+
+    def __len__(self) -> int:
+        return len(self.sd)
+
+
+def reading(sd, device="cpu"):
+    """`sd` as a converter reads it: a `KeyMap` or an `OnDevice` view as it
+    is, any other mapping viewed on `device`."""
+    return sd if isinstance(sd, (KeyMap, OnDevice)) else OnDevice(sd, device)
+
+
+def sub_dict(sd, prefix: str):
+    """The entries of a `reading` view under `prefix`, with it taken off
+    their keys (a `KeyMap` as it is: its keys are recorded without it)."""
+    if isinstance(sd, KeyMap):
+        return sd
+    return OnDevice({k[len(prefix):]: v for k, v in sd.sd.items() if k.startswith(prefix)},
+                    sd.device)
+
+
+def unprefixed(sd, prefix: str):
+    """A `reading` view with `prefix` taken off each key that starts with
+    it, the other keys as they are (a `KeyMap` as it is)."""
+    if isinstance(sd, KeyMap):
+        return sd
+    return OnDevice({k[len(prefix):] if k.startswith(prefix) else k: v
+                     for k, v in sd.sd.items()}, sd.device)
+
+
+def layout(x, kind: str):
+    """A read entry in the port's layout (a `Key`: its kind recorded)."""
+    if isinstance(x, Key):
+        return Key(x.key, kind)
+    return LAYOUTS[kind][0](x).contiguous()
+
+
+def stack(xs):
+    """Entries of one stacked leaf, [L, ...] (`Key`s: one key of each)."""
+    if isinstance(xs[0], Key):
+        return Key(tuple(x.key for x in xs), xs[0].kind)
+    return torch.stack(xs)
+
+
+def conv_w(sd, key: str):
+    """torch conv [O, I, kh, kw] -> HWIO."""
+    return layout(sd[key], "conv")
+
+
+def lin_w(sd, key: str):
+    return layout(sd[key], "linear")
+
+
+def convert_attention(sd, pfx: str, device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "to_q": lin_w(sd, pfx + "to_q.weight"),
+        "to_k": lin_w(sd, pfx + "to_k.weight"),
+        "to_v": lin_w(sd, pfx + "to_v.weight"),
+        "out_w": lin_w(sd, pfx + "to_out.0.weight"),
+        "out_b": sd[pfx + "to_out.0.bias"],
+    }
+
+
+def convert_ln(sd, pfx: str, device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {"scale": sd[pfx + "weight"], "bias": sd[pfx + "bias"]}
+
+
+def convert_ff(sd, pfx: str, device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "proj_w": lin_w(sd, pfx + "net.0.proj.weight"),
+        "proj_b": sd[pfx + "net.0.proj.bias"],
+        "out_w": lin_w(sd, pfx + "net.2.weight"),
+        "out_b": sd[pfx + "net.2.bias"],
+    }
+
+
+def convert_gated_sa(sd, pfx: str, device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "linear_w": lin_w(sd, pfx + "linear.weight"),
+        "linear_b": sd[pfx + "linear.bias"],
+        "attn": convert_attention(sd, pfx + "attn."),
+        "ff": convert_ff(sd, pfx + "ff."),
+        "norm1": convert_ln(sd, pfx + "norm1."),
+        "norm2": convert_ln(sd, pfx + "norm2."),
+        "alpha_attn": sd[pfx + "alpha_attn"],
+        "alpha_dense": sd[pfx + "alpha_dense"],
+    }
+
+
+def convert_transformer_block(sd, pfx: str, with_fuser: bool = True,
+                              device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    p = {
+        "attn1": convert_attention(sd, pfx + "attn1."),
+        "attn2": convert_attention(sd, pfx + "attn2."),
+        "ff": convert_ff(sd, pfx + "ff."),
+        "norm1": convert_ln(sd, pfx + "norm1."),
+        "norm2": convert_ln(sd, pfx + "norm2."),
+        "norm3": convert_ln(sd, pfx + "norm3."),
+    }
+    if with_fuser and (pfx + "fuser.linear.weight") in sd:
+        p["fuser"] = convert_gated_sa(sd, pfx + "fuser.")
+    return p
+
+
+def convert_spatial_transformer(sd, pfx: str, depth: int = 1, device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "norm_scale": sd[pfx + "norm.weight"],
+        "norm_bias": sd[pfx + "norm.bias"],
+        "proj_in_w": conv_w(sd, pfx + "proj_in.weight"),
+        "proj_in_b": sd[pfx + "proj_in.bias"],
+        "proj_out_w": conv_w(sd, pfx + "proj_out.weight"),
+        "proj_out_b": sd[pfx + "proj_out.bias"],
+        "blocks": [convert_transformer_block(sd, f"{pfx}transformer_blocks.{i}.")
+                   for i in range(depth)],
+    }
+
+
+def _convert_mlp3(sd, stem: str) -> Dict[str, Any]:
+    """nn.Sequential(Linear, SiLU, Linear, SiLU, Linear) at `stem`."""
+    return {"w0": lin_w(sd, stem + ".0.weight"), "b0": sd[stem + ".0.bias"],
+            "w1": lin_w(sd, stem + ".2.weight"), "b1": sd[stem + ".2.bias"],
+            "w2": lin_w(sd, stem + ".4.weight"), "b2": sd[stem + ".4.bias"]}
+
+
+def convert_position_net(sd, pfx: str = "position_net.", device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {"null_positive": sd[pfx + "null_positive_feature"],
+            "null_position": sd[pfx + "null_position_feature"],
+            **_convert_mlp3(sd, pfx + "linears")}
+
+
+def convert_position_net_with_image(sd, pfx: str = "position_net.",
+                                    device="cpu") -> Dict[str, Any]:
+    sd = reading(sd, device)
+    return {
+        "null_text": sd[pfx + "null_text_feature"],
+        "null_image": sd[pfx + "null_image_feature"],
+        "null_position": sd[pfx + "null_position_feature"],
+        "text": _convert_mlp3(sd, pfx + "linears_text"),
+        "image": _convert_mlp3(sd, pfx + "linears_image"),
+    }

@@ -20,8 +20,9 @@ Every ControlNet + UNet call runs the port's SD UNet block plan, so B2
 carry the edit on the card; the VAE adds B2 at D 512 and B8. The canny
 hint is the port's own (`canny`, OpenCV's algorithm in numpy: the card's
 machine has no OpenCV). `edit_image` refuses sizes whose latent the UNet's
-down and up path cannot return to its skips (ROADMAP C12). The IMLP
-converter (`convert_imlp_torch`) waits for the loaders (ROADMAP A7).
+down and up path cannot return to its skips (ROADMAP C12).
+`convert_imlp_torch` (:78) reads a torch IMLP state dict into the param
+tree.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.media.preprocess import _resize_hw
+from vitron_tpu_torch.models.diffusion.layers import lin_w, reading
 
 # ----------------------------------------------------------------- IMLP
 
@@ -79,6 +81,28 @@ def imlp_init(gen: torch.Generator, cfg: IMLPConfig, device) -> Dict[str, Any]:
         w = torch.randn((d_in, dims[i + 1]), generator=gen, dtype=torch.float32, device=device)
         layers.append({"w": w / math.sqrt(d_in),
                        "b": torch.zeros((dims[i + 1],), dtype=torch.float32, device=device)})
+    return {"layers": layers}
+
+
+IMLP_STEMS = ("hidden", "hidden_layers", "layers")
+
+
+def convert_imlp_torch(sd, prefix: str = "", device="cpu") -> Dict[str, Any]:
+    """A torch IMLP state dict -> param tree on `device`. The released NLA
+    checkpoints name the stack `hidden.{i}`; `layers.{i}` / `hidden_layers.{i}`
+    are accepted for other IMLP exports."""
+    sd = reading(sd, device)
+    weights = {k for k in sd if k.endswith(".weight")}
+    layers = []
+    for i in range(len(weights)):  # layers 0, 1, ... up to the first one missing
+        stem = next((f"{prefix}{nm}.{i}" for nm in IMLP_STEMS
+                     if f"{prefix}{nm}.{i}.weight" in weights), None)
+        if stem is None:
+            break
+        layers.append({"w": lin_w(sd, stem + ".weight"), "b": sd[stem + ".bias"]})
+    if not layers:
+        raise ValueError(f"no IMLP layers found under prefix {prefix!r}; keys look like "
+                         f"{sorted(sd)[:3]}")
     return {"layers": layers}
 
 

@@ -1,9 +1,14 @@
-"""Synthetic weights, tokenizer and image embedder for the diffusion tests and
-smoke runs.
+"""Synthetic weights, checkpoints, tokenizer and image embedder for the
+diffusion tests and smoke runs.
 
-No checkpoint, CLIP vocabulary or OpenCLIP visual tower is in the repo (the
-loaders are ROADMAP A7), so tests and `chip_smoke.py` run on random weights,
-stub tokens and a stub image embedding.
+No released checkpoint, CLIP vocabulary or OpenCLIP visual tower is in the
+repo, so tests and `chip_smoke.py` run on random weights, stub tokens and a
+stub image embedding, and make their checkpoints here: a converter's key map
+(the converter run on `layers.KeyMap()`) read the other way writes a port
+tree out as a state dict in the reference's key layout
+(`reference_state_dict`), and `gligen_bundle` / `controlldm_state_dict` /
+`imlp_state_dict` assemble the reference's files from such dicts. Nothing
+on a main path uses them.
 
 `init_params` of the UNet (like the JAX one) zero-initialises each ResNet's
 conv2, proj_out, the final out conv, the GLIGEN gates alpha_attn/alpha_dense
@@ -14,13 +19,20 @@ gives every all-zero leaf seeded values at init scale instead.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
+import sys
+import types
 import zlib
 from typing import Any, Dict, List
 
 import numpy as np
 
 import torch
+
+from vitron_tpu_torch.models.diffusion import clip_text, controlnet, unet2d, vae
+from vitron_tpu_torch.models.diffusion.layers import LAYOUTS, Key, KeyMap
 
 
 def fill_zero_leaves(tree: Any, gen: torch.Generator) -> Any:
@@ -77,3 +89,120 @@ class StubImageEmbedder:
     def __call__(self, image) -> np.ndarray:
         means = np.asarray(image, np.float32).reshape(-1, 3).mean(0) / 255.0
         return (means @ self.proj)[None]
+
+
+# ------------------------------------------------- reference-layout state dicts
+
+
+def reference_state_dict(key_map, tree, prefix: str = "", dtype=None,
+                         device="cpu") -> Dict[str, torch.Tensor]:
+    """The inverse of a converter: the port tree `tree` written out at the
+    keys of `key_map` (the converter's output on a `KeyMap`) under `prefix`,
+    each leaf in the reference's layout, cast to `dtype` (its own when None)
+    and copied to `device`. Parts of the map the tree lacks (what a
+    converter reads only where the dict has it) are skipped; a tree leaf
+    that the map lacks raises."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key: str, t: torch.Tensor) -> None:
+        # cast where the tree lives, then a tensor of its own on `device`
+        out[prefix + key] = t.contiguous().to(dtype or t.dtype).to(device, copy=True)
+
+    def walk(m, t, path: str) -> None:
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if not isinstance(m, dict) or k not in m:
+                    raise KeyError(f"{path}{k}: not in the key map")
+                walk(m[k], v, f"{path}{k}.")
+        elif isinstance(t, (list, tuple)):
+            if not isinstance(m, list) or len(m) != len(t):
+                raise ValueError(f"{path}: {len(t)} entries, the key map has {m!r:.80}")
+            for i, (mi, ti) in enumerate(zip(m, t)):
+                walk(mi, ti, f"{path}{i}.")
+        else:
+            if not isinstance(m, Key):
+                raise ValueError(f"{path}: a leaf where the key map has {m!r:.80}")
+            inverse = LAYOUTS[m.kind][1]
+            if isinstance(m.key, tuple):  # a stacked leaf: one key a row
+                for key, row in zip(m.key, t):
+                    put(key, inverse(row))
+            else:
+                put(m.key, inverse(t))
+
+    walk(key_map, tree, "")
+    return out
+
+
+def imlp_state_dict(tree, prefix: str = "", stem: str = "hidden", dtype=None,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """An IMLP tree as the released NLA checkpoints hold it (`hidden.{i}`
+    Linears), the inverse of `stablevideo.convert_imlp_torch`."""
+    out = {}
+    for i, layer in enumerate(tree["layers"]):
+        for name, t in (("weight", layer["w"].t()), ("bias", layer["b"])):
+            out[f"{prefix}{stem}.{i}.{name}"] = t.contiguous().to(dtype or t.dtype).to(
+                device, copy=True)
+    return out
+
+
+def gligen_bundle(unet, vae_params, text, cfg, inpaint: bool = False) -> Dict[str, Any]:
+    """A GLIGEN .pth bundle's entries in the reference's layout: 'model' (the
+    UNet with its fusers and position net; 9 input channels with
+    `inpaint`), 'autoencoder' and 'text_encoder' (ldm's FrozenCLIPEmbedder
+    keys, 'transformer.text_model.'), each with a key no converter reads,
+    as released state dicts carry them (the scheduler's `betas`, the VAE
+    loss's `loss.logvar`, CLIP's `position_ids` buffer); and a 'diffusion'
+    entry of scheduler constants beside them."""
+    ucfg = dataclasses.replace(cfg.unet, in_channels=9) if inpaint else cfg.unet
+    text_sd = reference_state_dict(clip_text.convert_hf_clip_text(KeyMap(), cfg.text), text,
+                                   "transformer.text_model.")
+    text_sd["transformer.text_model.embeddings.position_ids"] = torch.arange(
+        cfg.text.max_length)[None]
+    model = reference_state_dict(unet2d.convert_ldm_unet(KeyMap(), ucfg), unet)
+    model["betas"] = torch.linspace(0.00085, 0.012, 1000)
+    autoencoder = reference_state_dict(vae.convert_ldm_vae(KeyMap(), cfg.vae), vae_params)
+    autoencoder["loss.logvar"] = torch.zeros(())
+    return {"model": model, "autoencoder": autoencoder, "text_encoder": text_sd,
+            "diffusion": {"linear_start": 0.00085, "linear_end": 0.012, "timesteps": 1000}}
+
+
+def controlldm_state_dict(unet, control, vae_params, text, ucfg, vcfg, tcfg, dtype=None,
+                          device="cpu") -> Dict[str, torch.Tensor]:
+    """One ControlLDM checkpoint (cldm's control_sd15_*.pth) in the
+    reference's layout: the UNet under 'model.diffusion_model.', the
+    ControlNet under 'control_model.', the VAE under 'first_stage_model.'
+    and the text encoder under 'cond_stage_model.transformer.text_model.',
+    with the scheduler buffers ('betas', ...) no converter reads."""
+    sd = {}
+    for key_map, tree, prefix in (
+            (unet2d.convert_ldm_unet(KeyMap(), ucfg), unet, "model.diffusion_model."),
+            (controlnet.convert_torch(KeyMap(), ucfg), control, "control_model."),
+            (vae.convert_ldm_vae(KeyMap(), vcfg), vae_params, "first_stage_model."),
+            (clip_text.convert_hf_clip_text(KeyMap(), tcfg), text,
+             "cond_stage_model.transformer.text_model.")):
+        sd.update(reference_state_dict(key_map, tree, prefix, dtype, device))
+    betas = torch.linspace(0.00085 ** 0.5, 0.012 ** 0.5, 1000, device=device) ** 2
+    sd["betas"] = betas
+    sd["alphas_cumprod"] = torch.cumprod(1.0 - betas, 0)
+    return sd
+
+
+ABSENT_MODULE = "vitron_absent_omegaconf"
+
+
+def save_with_absent_config(bundle: Dict[str, Any], path, **fields) -> int:
+    """torch.save(bundle with a 'config' entry, path) -> bytes written. The
+    config is an object of a class that pickles under a module
+    (`ABSENT_MODULE`) that exists only while it is saved, as the released
+    GLIGEN bundle pickles an OmegaConf config that a machine without
+    omegaconf cannot import."""
+    module = types.ModuleType(ABSENT_MODULE)
+    module.DictConfig = type("DictConfig", (), {"__module__": ABSENT_MODULE})
+    config = module.DictConfig()
+    config.__dict__.update(fields)
+    sys.modules[ABSENT_MODULE] = module
+    try:
+        torch.save({**bundle, "config": config}, path)
+    finally:
+        del sys.modules[ABSENT_MODULE]
+    return os.path.getsize(path)

@@ -4,8 +4,8 @@ Port of `vitron_tpu/models/diffusion/unet2d.py`: NHWC activations, the
 same param tree and the same static block plan (`block_plan`), so the
 forward walks the blocks exactly as the JAX one unrolls them. One UNet
 serves GLIGEN generation (4 input channels), inpainting (9) and plain SD
-(no fuser params). `quantize_params` (W8A8) waits for ROADMAP A17 and the
-ldm converter for the loaders (A7).
+(no fuser params). `convert_ldm_unet` (:338) reads an ldm / GLIGEN state
+dict into that tree; `quantize_params` (W8A8) waits for ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -18,8 +18,13 @@ import torch.nn.functional as F
 
 from vitron_tpu_torch.models.diffusion.layers import (
     conv2d,
+    conv_w,
+    convert_position_net,
+    convert_spatial_transformer,
     group_norm,
+    lin_w,
     position_net,
+    reading,
     spatial_transformer,
     timestep_embedding,
     upsample2x_nearest,
@@ -266,3 +271,64 @@ def forward(params: Dict[str, Any], cfg: UNetConfig, x: torch.Tensor, timesteps:
 def grounding_tokens(params, boxes, masks, text_embeddings) -> torch.Tensor:
     """position_net wrapper."""
     return position_net(params["position_net"], boxes, masks, text_embeddings)
+
+
+# ------------------------------------------------------------------ convert
+
+
+def _convert_res(sd, b: str) -> Dict[str, Any]:
+    p = {
+        "norm1_s": sd[b + "in_layers.0.weight"], "norm1_b": sd[b + "in_layers.0.bias"],
+        "conv1_w": conv_w(sd, b + "in_layers.2.weight"), "conv1_b": sd[b + "in_layers.2.bias"],
+        "emb_w": lin_w(sd, b + "emb_layers.1.weight"), "emb_b": sd[b + "emb_layers.1.bias"],
+        "norm2_s": sd[b + "out_layers.0.weight"], "norm2_b": sd[b + "out_layers.0.bias"],
+        "conv2_w": conv_w(sd, b + "out_layers.3.weight"), "conv2_b": sd[b + "out_layers.3.bias"],
+    }
+    if (b + "skip_connection.weight") in sd:
+        p["skip_w"] = conv_w(sd, b + "skip_connection.weight")
+        p["skip_b"] = sd[b + "skip_connection.bias"]
+    return p
+
+
+def _convert_block(sd, entries, base: str, cfg: UNetConfig) -> List[Dict[str, Any]]:
+    """One ldm block (a list of `block_plan` entries) at `base`."""
+    layers = []
+    for j, e in enumerate(entries):
+        b = f"{base}.{j}."
+        if e[0] == "conv_in":
+            layers.append({"w": conv_w(sd, b + "weight"), "b": sd[b + "bias"]})
+        elif e[0] == "res":
+            layers.append(_convert_res(sd, b))
+        elif e[0] == "attn":
+            layers.append(convert_spatial_transformer(sd, b, depth=cfg.transformer_depth))
+        elif e[0] == "down":
+            layers.append({"w": conv_w(sd, b + "op.weight"), "b": sd[b + "op.bias"]})
+        elif e[0] == "up":
+            layers.append({"w": conv_w(sd, b + "conv.weight"), "b": sd[b + "conv.bias"]})
+    return layers
+
+
+def convert_ldm_unet(sd, cfg: UNetConfig, device="cpu") -> Dict[str, Any]:
+    """ldm / GLIGEN UNet state dict (keys input_blocks.N.M....) -> param tree
+    on `device`, walking `cfg`'s block plan (4 or 9 input channels); the
+    GLIGEN fusers and position net where the dict has them. Accepts dicts
+    with or without a leading 'model.diffusion_model.' prefix."""
+    pfx = ""
+    if any(k.startswith("model.diffusion_model.") for k in sd):
+        pfx = "model.diffusion_model."
+    sd = reading(sd, device)
+    input_plan, middle_plan, output_plan = block_plan(cfg)
+    params = {
+        "time_w1": lin_w(sd, pfx + "time_embed.0.weight"), "time_b1": sd[pfx + "time_embed.0.bias"],
+        "time_w2": lin_w(sd, pfx + "time_embed.2.weight"), "time_b2": sd[pfx + "time_embed.2.bias"],
+        "input_blocks": [_convert_block(sd, b, f"{pfx}input_blocks.{i}", cfg)
+                         for i, b in enumerate(input_plan)],
+        "middle_block": _convert_block(sd, middle_plan, f"{pfx}middle_block", cfg),
+        "output_blocks": [_convert_block(sd, b, f"{pfx}output_blocks.{i}", cfg)
+                          for i, b in enumerate(output_plan)],
+        "out_norm_s": sd[pfx + "out.0.weight"], "out_norm_b": sd[pfx + "out.0.bias"],
+        "out_w": conv_w(sd, pfx + "out.2.weight"), "out_b": sd[pfx + "out.2.bias"],
+    }
+    if (pfx + "position_net.null_positive_feature") in sd:
+        params["position_net"] = convert_position_net(sd, pfx + "position_net.")
+    return params

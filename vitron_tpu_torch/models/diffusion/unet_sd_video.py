@@ -24,10 +24,12 @@ added twice as upstream does), 64 local-image context tokens (a conv, an
 adaptive pool to 32x32, two stride-2 convs) and `num_tokens` global
 tokens from the image embedding, for a context of 77 + 64 + 4 tokens.
 
-Waits: `quantize_params` (W8A8, ROADMAP A17), `convert_torch` (the
-checkpoint converter, A7), and the TPU layout experiment
-`_temporal_mha_nmajor` (`VITRON_TATTN=nmajor`), which computes the same
-function as the default path and is not ported.
+`convert_torch` (:730-896) reads a reference UNetSD_T2VBase / UNetSD_I2VGen
+state dict into the param tree (its transformer blocks are the SD UNet's
+without a fuser: `layers.convert_transformer_block`). Waits: `quantize_params` (W8A8, ROADMAP
+A17); the TPU layout experiment `_temporal_mha_nmajor`
+(`VITRON_TATTN=nmajor`), which computes the same function as the default
+path, is not ported.
 """
 from __future__ import annotations
 
@@ -41,8 +43,11 @@ import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized as mmq
 from vitron_tpu_torch.kernels.temporal_attention import frame_attention
-from vitron_tpu_torch.models.diffusion.layers import (basic_transformer_block, conv2d, geglu_ff,
-                                                      group_norm, layer_norm, timestep_embedding,
+from vitron_tpu_torch.models.diffusion import unet2d
+from vitron_tpu_torch.models.diffusion.layers import (basic_transformer_block, conv2d, conv_w,
+                                                      convert_ln, convert_transformer_block,
+                                                      geglu_ff, group_norm, layer_norm, layout,
+                                                      lin_w, reading, timestep_embedding,
                                                       upsample2x_nearest)
 from vitron_tpu_torch.models.diffusion.video_unet import temporal_conv_block
 
@@ -528,4 +533,125 @@ def init_params(gen: torch.Generator, cfg: UNetSDVideoConfig, device) -> Dict[st
             "conv0_w": conv(3, 4, cd * 8), "conv0_b": zeros(cd * 8),
             "conv1_w": conv(3, cd * 8, cd * 16), "conv1_b": zeros(cd * 16),
             "conv2_w": conv(3, cd * 16, cfg.context_dim), "conv2_b": zeros(cfg.context_dim)}
+    return params
+
+
+# ------------------------------------------------------------------ convert
+
+
+def _convert_tconv(sd, pfx):
+    """TemporalConvBlock_v2: conv1 = Seq(GN, SiLU, Conv3d), conv2..4 =
+    Seq(GN, SiLU, Dropout, Conv3d), each Conv3d (3, 1, 1). The caller's key
+    carries upstream's attribute typo 'temopral_conv'."""
+    p = {}
+    for i in range(4):
+        seq = f"conv{i + 1}"
+        conv_idx = 2 if i == 0 else 3
+        p[f"norm{i}_s"] = sd[f"{pfx}{seq}.0.weight"]
+        p[f"norm{i}_b"] = sd[f"{pfx}{seq}.0.bias"]
+        p[f"conv{i}_w"] = layout(sd[f"{pfx}{seq}.{conv_idx}.weight"], "conv3d_t")
+        p[f"conv{i}_b"] = sd[f"{pfx}{seq}.{conv_idx}.bias"]
+    return p
+
+
+def _convert_res(sd, pfx):
+    """The SD UNet's ResBlock keys plus the temporal conv block."""
+    return {**unet2d._convert_res(sd, pfx), "tconv": _convert_tconv(sd, pfx + "temopral_conv.")}
+
+
+def _convert_transformer(sd, pfx, proj: str):
+    """A SpatialTransformer (use_linear=True: proj_in/out Linear, `proj`
+    "linear") or a TemporalTransformer (use_linear=False: k=1 Conv1d,
+    "conv1d"), one block without a fuser."""
+    return {"norm_s": sd[pfx + "norm.weight"],
+            "norm_b": sd[pfx + "norm.bias"],
+            "proj_in_w": layout(sd[pfx + "proj_in.weight"], proj),
+            "proj_in_b": sd[pfx + "proj_in.bias"],
+            "proj_out_w": layout(sd[pfx + "proj_out.weight"], proj),
+            "proj_out_b": sd[pfx + "proj_out.bias"],
+            "blocks": [convert_transformer_block(sd, pfx + "transformer_blocks.0.",
+                                                 with_fuser=False)]}
+
+
+def _convert_mlp2(sd, pfx):
+    return {"w1": lin_w(sd, pfx + "0.weight"), "b1": sd[pfx + "0.bias"],
+            "w2": lin_w(sd, pfx + "2.weight"), "b2": sd[pfx + "2.bias"]}
+
+
+def convert_torch(sd, cfg: UNetSDVideoConfig, device="cpu") -> Dict[str, Any]:
+    """Reference UNetSD_T2VBase / UNetSD_I2VGen state dict -> param tree on
+    `device`, walking `cfg`'s block plan; fps_embedding where the dict has it.
+    Accepts raw state dicts or checkpoint dicts whose keys carry a leading
+    'module.' (DDP) prefix."""
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    sd = reading(sd, device)
+
+    def convert_entry(e, pfx):
+        if e[0] == "conv_in":
+            return {"w": conv_w(sd, pfx + "weight"), "b": sd[pfx + "bias"]}
+        if e[0] == "res":
+            return _convert_res(sd, pfx)
+        if e[0] == "sattn":
+            return _convert_transformer(sd, pfx, "linear")
+        if e[0] == "tattn":
+            return _convert_transformer(sd, pfx, "conv1d")
+        if e[0] == "down":
+            return {"w": conv_w(sd, pfx + "op.weight"), "b": sd[pfx + "op.bias"]}
+        if e[0] == "up":
+            return {"w": conv_w(sd, pfx + "conv.weight"), "b": sd[pfx + "conv.bias"]}
+        raise ValueError(e[0])
+
+    input_plan, middle_plan, output_plan = block_plan(cfg)
+    params: Dict[str, Any] = {
+        "time_embed": _convert_mlp2(sd, "time_embed."),
+        # Downsample blocks are appended bare, not wrapped in a ModuleList,
+        # so they have no inner index in the state dict
+        "input_blocks": [
+            [convert_entry(e, f"input_blocks.{i}." if e[0] == "down"
+                           else f"input_blocks.{i}.{j}.")
+             for j, e in enumerate(blk)]
+            for i, blk in enumerate(input_plan)],
+        "middle_block": [convert_entry(e, f"middle_block.{j}.")
+                         for j, e in enumerate(middle_plan)],
+        "output_blocks": [
+            [convert_entry(e, f"output_blocks.{i}.{j}.") for j, e in enumerate(blk)]
+            for i, blk in enumerate(output_plan)],
+        "out_norm_s": sd["out.0.weight"], "out_norm_b": sd["out.0.bias"],
+        "out_w": conv_w(sd, "out.2.weight"), "out_b": sd["out.2.bias"],
+    }
+    if "fps_embedding.0.weight" in sd:
+        params["fps_embed"] = _convert_mlp2(sd, "fps_embedding.")
+    if cfg.variant == "i2vgen":
+        params["context_embed"] = _convert_mlp2(sd, "context_embedding.")
+        params["local_concat"] = {
+            "conv0_w": conv_w(sd, "local_image_concat.0.weight"),
+            "conv0_b": sd["local_image_concat.0.bias"],
+            "conv1_w": conv_w(sd, "local_image_concat.2.weight"),
+            "conv1_b": sd["local_image_concat.2.bias"],
+            "conv2_w": conv_w(sd, "local_image_concat.4.weight"),
+            "conv2_b": sd["local_image_concat.4.bias"],
+        }
+        params["local_temporal"] = []
+        for i in range(cfg.adapter_transformer_layers):
+            base = f"local_temporal_encoder.layers.{i}."
+            params["local_temporal"].append({
+                "norm": convert_ln(sd, base + "0.norm."),
+                "qkv_w": lin_w(sd, base + "0.fn.to_qkv.weight"),
+                "out_w": lin_w(sd, base + "0.fn.to_out.0.weight"),
+                "out_b": sd[base + "0.fn.to_out.0.bias"],
+                "ff_w1": lin_w(sd, base + "1.net.0.0.weight"),
+                "ff_b1": sd[base + "1.net.0.0.bias"],
+                "ff_w2": lin_w(sd, base + "1.net.2.weight"),
+                "ff_b2": sd[base + "1.net.2.bias"],
+            })
+        # Sequential(conv, SiLU, AdaptiveAvgPool2d, conv, SiLU, conv): 0, 3, 5
+        params["local_embed"] = {
+            "conv0_w": conv_w(sd, "local_image_embedding.0.weight"),
+            "conv0_b": sd["local_image_embedding.0.bias"],
+            "conv1_w": conv_w(sd, "local_image_embedding.3.weight"),
+            "conv1_b": sd["local_image_embedding.3.bias"],
+            "conv2_w": conv_w(sd, "local_image_embedding.5.weight"),
+            "conv2_b": sd["local_image_embedding.5.bias"],
+        }
     return params

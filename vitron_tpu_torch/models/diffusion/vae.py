@@ -3,7 +3,8 @@
 Port of `vitron_tpu/models/diffusion/vae.py`, NHWC throughout. The
 single-head mid attention goes through `layers._mha`, which sends it to the
 flash kernel at D = 512 on CUDA once it has >= 1024 tokens (64x64 latents
-at 512^2). The ldm converter waits for the loaders (ROADMAP A7).
+at 512^2). `convert_ldm_vae` (:212) reads an ldm AutoencoderKL state dict
+into the param tree.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from vitron_tpu_torch.models.diffusion.layers import _mha, conv2d, group_norm, upsample2x_nearest
+from vitron_tpu_torch.models.diffusion.layers import (_mha, conv2d, conv_w, group_norm, reading,
+                                                      upsample2x_nearest)
 
 SD_SCALE_FACTOR = 0.18215
 
@@ -77,6 +79,12 @@ def encode(params: Dict[str, Any], cfg: VAEConfig, x: torch.Tensor):
     moments = conv2d(h, params["quant_w"], params["quant_b"])
     mean, logvar = moments.chunk(2, dim=-1)
     return mean, logvar.clamp(-30.0, 20.0)
+
+
+def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """A draw from the posterior N(mean, exp(logvar)), given the standard
+    normal `noise` of mean's shape (what the JAX package draws from its rng)."""
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 def decode(params: Dict[str, Any], cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
@@ -170,3 +178,81 @@ def init_params(gen: torch.Generator, cfg: VAEConfig, device) -> Dict[str, Any]:
             "quant_w": cw(z2, z2, 1), "quant_b": zeros(z2),
             "post_quant_w": cw(cfg.z_channels, cfg.z_channels, 1),
             "post_quant_b": zeros(cfg.z_channels)}
+
+
+# ---------------------------------------------------------------- convert
+
+
+def convert_ldm_vae(sd, cfg: VAEConfig, prefix: str = "", device="cpu") -> Dict[str, Any]:
+    """ldm AutoencoderKL state dict -> param tree on `device`. Handles
+    'first_stage_model.' or bare prefixes."""
+    if not prefix and any(k.startswith("first_stage_model.") for k in sd):
+        prefix = "first_stage_model."
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def cv(k):
+        return conv_w(sd, prefix + k)
+
+    def resnet(b):
+        p = {
+            "norm1_s": g(b + "norm1.weight"), "norm1_b": g(b + "norm1.bias"),
+            "conv1_w": cv(b + "conv1.weight"), "conv1_b": g(b + "conv1.bias"),
+            "norm2_s": g(b + "norm2.weight"), "norm2_b": g(b + "norm2.bias"),
+            "conv2_w": cv(b + "conv2.weight"), "conv2_b": g(b + "conv2.bias"),
+        }
+        if (prefix + b + "nin_shortcut.weight") in sd:
+            p["nin_w"] = cv(b + "nin_shortcut.weight")
+            p["nin_b"] = g(b + "nin_shortcut.bias")
+        return p
+
+    def attn(b):
+        return {
+            "norm_s": g(b + "norm.weight"), "norm_b": g(b + "norm.bias"),
+            "q_w": cv(b + "q.weight"), "q_b": g(b + "q.bias"),
+            "k_w": cv(b + "k.weight"), "k_b": g(b + "k.bias"),
+            "v_w": cv(b + "v.weight"), "v_b": g(b + "v.bias"),
+            "proj_w": cv(b + "proj_out.weight"), "proj_b": g(b + "proj_out.bias"),
+        }
+
+    n_levels = len(cfg.channel_mult)
+    down = []
+    for li in range(n_levels):
+        level = {"blocks": [resnet(f"encoder.down.{li}.block.{bi}.")
+                            for bi in range(cfg.num_res_blocks)]}
+        if (prefix + f"encoder.down.{li}.downsample.conv.weight") in sd:
+            level["down_w"] = cv(f"encoder.down.{li}.downsample.conv.weight")
+            level["down_b"] = g(f"encoder.down.{li}.downsample.conv.bias")
+        down.append(level)
+    up = []
+    for li in range(n_levels - 1, -1, -1):  # the decoder walks the levels top-down
+        level = {"blocks": [resnet(f"decoder.up.{li}.block.{bi}.")
+                            for bi in range(cfg.num_res_blocks + 1)]}
+        if (prefix + f"decoder.up.{li}.upsample.conv.weight") in sd:
+            level["up_w"] = cv(f"decoder.up.{li}.upsample.conv.weight")
+            level["up_b"] = g(f"decoder.up.{li}.upsample.conv.bias")
+        up.append(level)
+    return {
+        "encoder": {
+            "conv_in_w": cv("encoder.conv_in.weight"), "conv_in_b": g("encoder.conv_in.bias"),
+            "down": down,
+            "mid1": resnet("encoder.mid.block_1."),
+            "mid_attn": attn("encoder.mid.attn_1."),
+            "mid2": resnet("encoder.mid.block_2."),
+            "out_norm_s": g("encoder.norm_out.weight"), "out_norm_b": g("encoder.norm_out.bias"),
+            "conv_out_w": cv("encoder.conv_out.weight"), "conv_out_b": g("encoder.conv_out.bias"),
+        },
+        "decoder": {
+            "conv_in_w": cv("decoder.conv_in.weight"), "conv_in_b": g("decoder.conv_in.bias"),
+            "mid1": resnet("decoder.mid.block_1."),
+            "mid_attn": attn("decoder.mid.attn_1."),
+            "mid2": resnet("decoder.mid.block_2."),
+            "up": up,
+            "out_norm_s": g("decoder.norm_out.weight"), "out_norm_b": g("decoder.norm_out.bias"),
+            "conv_out_w": cv("decoder.conv_out.weight"), "conv_out_b": g("decoder.conv_out.bias"),
+        },
+        "quant_w": cv("quant_conv.weight"), "quant_b": g("quant_conv.bias"),
+        "post_quant_w": cv("post_quant_conv.weight"), "post_quant_b": g("post_quant_conv.bias"),
+    }

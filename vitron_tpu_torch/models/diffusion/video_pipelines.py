@@ -19,8 +19,10 @@ Two faults of the reference are fixed here: `generate` raises `ValueError`
 for a step count that does not divide the schedule's 1000 steps (the
 sampler would run one more step, from alpha 0, and give NaN; ROADMAP C6),
 and I2V resizes a request image of any size to `cfg.size` square on the
-host (the JAX pipeline fails on a non-square one; C7). The W8A8 UNet
-(`VITRON_VUNET_QUANT`, A17) and the checkpoint loaders (A7) wait.
+host (the JAX pipeline fails on a non-square one; C7). The pipelines take
+param trees: `unet_sd_video.convert_torch`, `vae.convert_ldm_vae` and
+`clip_text.convert_hf_clip_text` read them from checkpoint state dicts. The
+W8A8 UNet (`VITRON_VUNET_QUANT`, A17) waits.
 """
 from __future__ import annotations
 

@@ -26,11 +26,14 @@ the param dtype, then quantize), so the bits are JAX's.
 """
 from __future__ import annotations
 
+import collections
 import collections.abc
 import json
 import pathlib
+import pickle
 import re
 import struct
+import types
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -141,6 +144,59 @@ def load_torch_bin(path) -> Dict[str, torch.Tensor]:
     widened to float32."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: widen(v) for k, v in sd.items()}
+
+
+def load_torch_pth(path) -> Dict[str, Any]:
+    """A torch-serialized checkpoint (a .pth state dict), mapped from the file
+    rather than read into memory, its tensors as stored: the converters widen
+    each one on the device they put it on."""
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+
+
+class _Absent:
+    """An object of a class that a checkpoint's pickle names and the loader
+    does not import: it keeps what the pickle gives it and runs nothing."""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+_TENSOR_REBUILDERS = ("_rebuild_tensor", "_rebuild_tensor_v2", "_rebuild_tensor_v3",
+                      "_rebuild_parameter", "_rebuild_parameter_with_state")
+
+
+class _TensorsOnlyUnpickler(pickle.Unpickler):
+    """Imports only what rebuilds tensors and state dicts (torch's tensor
+    rebuilders and dtypes, `collections.OrderedDict`); any other class or
+    function the pickle names becomes an inert `_Absent` subclass, whether
+    or not it could be imported."""
+
+    def find_class(self, module: str, name: str):
+        if module == "torch._utils" and name in _TENSOR_REBUILDERS:
+            return getattr(torch._utils, name)
+        if (module, name) == ("collections", "OrderedDict"):
+            return collections.OrderedDict
+        if module == "torch" and isinstance(getattr(torch, name, None), torch.dtype):
+            return getattr(torch, name)
+        return type(name, (_Absent,), {"__module__": module, "__qualname__": name})
+
+
+_TENSORS_ONLY = types.SimpleNamespace(__name__="vitron_tpu_torch.tensors_only_pickle",
+                                      Unpickler=_TensorsOnlyUnpickler)
+
+
+def load_torch_bundle(path) -> Dict[str, Any]:
+    """A torch-serialized bundle whose pickle also carries objects of other
+    classes beside its state dicts (GLIGEN's .pth pickles an OmegaConf config
+    beside them), mapped from the file. torch's `weights_only` load refuses
+    such a file, so it is read with a pickle module that imports nothing but
+    torch's tensor rebuilders and `OrderedDict`: every other object comes
+    back inert (`_Absent`) and no code of the file's choosing runs."""
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=False,
+                      pickle_module=_TENSORS_ONLY)
 
 
 def as_tensor(x) -> torch.Tensor:
