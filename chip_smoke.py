@@ -248,8 +248,9 @@ Phases (any failure exits non-zero and prints no `ok` line):
    both (TRAIN_CPU_GPU_TOL); the updated tensors and EMA against the CPU's
    optimizer on the card's gradients (UPDATE_TOL).
 25. (run after phase 5d, before 6) checkpoint load at full width: a
-   synthetic HF-layout deployment written to a temporary directory (removed
-   at the end; `write_deployment`: Vicuna-7B v1.5 fp16 safetensors shards
+   synthetic HF-layout deployment written into the deployment's weights
+   directory (`ckpt_root()`, kept until phase 27 ends; `write_deployment`:
+   Vicuna-7B v1.5 fp16 safetensors shards
    with their index, a peft LoRA r 128 on the seven projections with
    non_lora_trainables.bin, CLIP ViT-L/14-336 safetensors and the
    LanguageBind video tower's .bin), loaded by
@@ -272,18 +273,19 @@ Phases (any failure exits non-zero and prints no `ok` line):
    difference of that stream (`check_teacher_forced`).
 26. diffusion checkpoints, at full width, each part just before the phase
    that runs on what it loads: (a) before phase 10, `build_gligen`'s trees
-   written as GLIGEN's generation and inpainting .pth bundles under
-   `ckpt_root()`, one at a time (float32, a pickled config of a class no
-   process can import, keys no converter reads), each loaded on the card by
-   `gligen_pipeline.load_gligen_checkpoint` and removed; the GligenPipeline
+   written as GLIGEN's generation and inpainting .pth bundles under the
+   weights directory's gligen/, one at a time (fp16, a pickled config of
+   a class no process can import, keys no converter reads), each loaded on
+   the card by `gligen_pipeline.load_gligen_checkpoint` and kept for phase
+   27; the GligenPipeline
    of phases 10, 11 and 11b is the loaded one; (b) before phase 15, the
-   UNetSD_T2V written as an fp16 .pth and loaded by
+   UNetSD_T2V written as an fp16 .pth under t2v/ and loaded by
    `unet_sd_video.convert_torch` on the card (task D runs on it); each with
    the seconds to write and to load, the bytes, the host's RSS before and at
    its peak (`RssPeak`; the mapped file's pages count in it) and its
    anonymous part, held within HOST_COPY_GIB of its value before the load
    (no host copy of the file), the device peak and every leaf bit-equal to
-   the tree written (after the fp16 rounding for (b)); (c) before 15b, the
+   the tree written (after the fp16 rounding); (c) before 15b, the
    i2vgen UNet, (d) before 15c, task F's ControlLDM canny bundle (UNet,
    ControlNet, VAE and text under their four prefixes in one dict), the
    depth ControlNet, DPT-hybrid and the four IMLP atlas nets (task F's atlas
@@ -291,6 +293,30 @@ Phases (any failure exits non-zero and prints no `ok` line):
    downsampler nets: each written as an in-memory reference-layout state
    dict on the card and converted back, bit-equal, seconds printed; the
    phase then runs on the converted trees.
+27. (run after phase 17b, before 18) the whole A-G deployment from one
+   weights directory, at full width: phases 25 and 26 (a)/(b) wrote its
+   chat, GLIGEN and t2v files; this phase adds, in fp16, seem_focall_v1.pt
+   (FocalNet-L, `synthetic.seem_state_dict`), i2vgen/ (the UNetSD_I2VGen
+   .pth), the HF CLIPTextModel dir (1024 wide, safetensors) of t2v/ that
+   i2vgen/ links to, stablevideo/ (the ControlLDM canny bundle, the depth
+   ControlNet, DPT-hybrid; one float32 NLA checkpoint), each file's bytes
+   and write seconds printed (the card machine's disk takes 45 GiB of
+   writes a call: the whole directory is ~41 GiB; each file of phases
+   25-27 goes through `disk_write`, which fails a write that would take
+   the process past WRITE_BUDGET_BYTES, 42 GiB, and this phase prints the
+   count). `runtime/assembly.
+   build_system_from_weights(dir, quantize="int4", device="cuda")` (the
+   crc32 tokenizer, the stub CLIP tokenizer and image embedder: the card
+   has no transformers) loads it: its report rows, load seconds, the
+   host's anonymous RSS growth (held within HOST_COPY_GIB), the device
+   peak and the memory plan's rows; SEEM's converted leaves bit-equal to a
+   CPU conversion of the same file. Then one greedy chat turn, tasks B
+   and E routed on the loaded SEEM at full depth (B4 and B8 launches exact,
+   as phases 7 and 8), and A, C, D, G and F once each through the
+   assembled system, at WEIGHTS_STEPS sampler steps, D at WEIGHTS_D_FRAMES
+   frames, G at WEIGHTS_G_FRAMES, F on a one-frame video (one keyframe)
+   (cuts: their full-depth runs are phases 10, 11, 15, 15b and 15c); A, C,
+   D and G with launches exact. The directory is then removed.
 Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
 and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
@@ -299,12 +325,15 @@ line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import collections.abc
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -3688,30 +3717,17 @@ def phase_task_f_kernels(torch, card: str, plan) -> dict:
     return rows
 
 
-def task_f_geoms(sv) -> dict:
-    """The released NLA IMLP geometries (fg 6, bg 4, alpha 8 layers with 5
-    frequencies, atlas 8 layers with 10 frequencies and skips at 4 and 7;
-    256 wide), by net."""
-    return {"fg": sv.IMLPConfig(input_dim=3, output_dim=2, num_layers=6, positional_dim=0,
-                                skip_layers=()),
-            "bg": sv.IMLPConfig(input_dim=3, output_dim=2, num_layers=4, positional_dim=0,
-                                skip_layers=()),
-            "alpha": sv.IMLPConfig(input_dim=3, output_dim=1, num_layers=8, positional_dim=5,
-                                   skip_layers=()),
-            "atlas": sv.IMLPConfig(input_dim=2, output_dim=3, num_layers=8, positional_dim=10,
-                                   skip_layers=(4, 7))}
-
-
 def build_task_f(torch, device, seed: int):
     """Task F's editor at full width, float32, random weights with every zero
     leaf filled: the SD v1.5 UNet (no grounding), a canny and a depth
     ControlNet (lllyasviel/ControlNet control_sd15_canny / control_sd15_depth
     geometry), DPT-hybrid (MiDaS v3), the SD VAE and CLIP-L text; and random
-    IMLP nets at the released NLA geometries (`task_f_geoms`). -> (the
+    IMLP nets at the released NLA geometries (`assembly.nla_imlp_cfgs`). -> (the
     editor, the IMLP nets)."""
     from vitron_tpu_torch.models.diffusion import clip_text, controlnet, depth, unet2d, vae
     from vitron_tpu_torch.models.diffusion import stablevideo as sv
     from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, fill_zero_leaves
+    from vitron_tpu_torch.runtime.assembly import nla_imlp_cfgs
 
     g = torch.Generator(device=device).manual_seed(seed)
     ucfg, vcfg = unet2d.UNetConfig.sd_v1(), vae.VAEConfig.sd()
@@ -3725,7 +3741,7 @@ def build_task_f(torch, device, seed: int):
     editor = sv.StableVideoEditor(ucfg, unet, canny, vcfg, vae_p, tcfg, text,
                                   tokenizer=StubClipTokenizer(tcfg.vocab_size),
                                   depth_control_params=depth_ctrl, depth_annotator=(dpt, dcfg))
-    nets = {k: sv.imlp_init(g, c, device) for k, c in task_f_geoms(sv).items()}
+    nets = {k: sv.imlp_init(g, c, device) for k, c in nla_imlp_cfgs().items()}
     return editor, nets
 
 
@@ -3734,8 +3750,9 @@ def atlas_bundle(torch, nets: dict) -> dict:
     on the card) evaluated for TASK_F_FRAMES frames at TASK_F_HW, the
     atlases on a TASK_F_ATLAS grid."""
     from vitron_tpu_torch.models.diffusion import stablevideo as sv
+    from vitron_tpu_torch.runtime.assembly import nla_imlp_cfgs
 
-    geoms = task_f_geoms(sv)
+    geoms = nla_imlp_cfgs()
     fg_uv, bg_uv, alpha = sv.atlas_uvs(nets["fg"], nets["bg"], nets["alpha"], geoms,
                                        TASK_F_FRAMES, *TASK_F_HW)
     r = torch.linspace(-1, 1, TASK_F_ATLAS, device=nets["atlas"]["layers"][0]["w"].device)
@@ -5066,7 +5083,15 @@ CKPT_LORA = {"peft_type": "LORA", "task_type": "CAUSAL_LM", "r": 128, "lora_alph
              "lora_dropout": 0.05, "bias": "none",  # the reference's finetune_lora.sh
              "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                                 "up_proj", "down_proj"]}
-CKPT_FREE_BYTES = 20 * 1024 ** 3  # room the deployment (~16 GB) needs on its disk
+CKPT_FREE_BYTES = 44 * 1024 ** 3  # room the whole deployment (~41 GiB, phase 27) needs
+# A card machine's disk takes at most 45 GiB of writes in one call, deleted
+# files included: phases 25-27 write ~41 GiB, each file once (the weights
+# that phase 26 (a) and 27 write are fp16, as phase 25's Vicuna shards and
+# 26 (b)'s UNet are). Every file they write goes through `disk_write`,
+# which fails a write that would take the count past WRITE_BUDGET_BYTES
+# (the rest of the 45 GiB is the kernels' build and the logs).
+WRITE_BUDGET_BYTES = 42 * 1024 ** 3
+disk_written = 0  # bytes of the files `disk_write` has written in this process
 SAFETENSORS_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16",
                       "torch.int8": "I8", "torch.uint8": "U8", "torch.int32": "I32",
                       "torch.int64": "I64"}
@@ -5087,19 +5112,44 @@ def write_safetensors(path, entries) -> int:
         offset += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<Q", len(head)) + head)
-        for name, (dtype, shape, make) in entries.items():
-            t = make().to("cpu", dtype).contiguous()
-            check(tuple(t.shape) == tuple(shape), f"{name}: {tuple(t.shape)}, header {shape}")
-            fh.write(t.reshape(-1).view(torch.uint8).numpy().data)
-    return 8 + len(head) + offset
+
+    def write(path):
+        with open(path, "wb") as fh:
+            fh.write(struct.pack("<Q", len(head)) + head)
+            for name, (dtype, shape, make) in entries.items():
+                t = make().to("cpu", dtype).contiguous()
+                check(tuple(t.shape) == tuple(shape), f"{name}: {tuple(t.shape)}, header {shape}")
+                fh.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+    return disk_write(path, 8 + len(head) + offset, write)
+
+
+def disk_write(path, nbytes: int, write) -> int:
+    """write(path), once `nbytes` more are seen to keep this process's
+    writes within WRITE_BUDGET_BYTES; the file's bytes are added to
+    `disk_written`. -> them."""
+    global disk_written
+    check(disk_written + nbytes <= WRITE_BUDGET_BYTES,
+          f"disk write budget: {path} ({nbytes} bytes) would take the files written from "
+          f"{disk_written} bytes past WRITE_BUDGET_BYTES ({WRITE_BUDGET_BYTES}); a card "
+          f"machine stops a call at 45 GiB written")
+    write(path)
+    n = os.path.getsize(path)
+    disk_written += n
+    return n
+
+
+def save_state(torch, obj, path) -> int:
+    """torch.save(obj, path) through `disk_write`, `obj`'s tensor bytes its
+    size beforehand. -> the file's bytes."""
+    leaves = tree_leaves(obj)
+    return disk_write(path, nbytes(*(t for t in leaves if isinstance(t, torch.Tensor))),
+                      lambda p: torch.save(obj, p))
 
 
 def ckpt_root():
     """A directory with CKPT_FREE_BYTES free: the temp dir, else the
     checkout's `build/` (ignored by git)."""
-    import shutil
     import tempfile
 
     for d in (tempfile.gettempdir(), os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5192,8 +5242,7 @@ def write_deployment(torch, root, seed: int) -> int:
     for j in (1, 2):
         nl[f"model.region_extractor.region_linear.layers.{j}.weight"] = (h, h)
     nl = {k: rand(shape, bf16)[2]().cpu() for k, shape in nl.items()}
-    torch.save(nl, lora / "non_lora_trainables.bin")
-    written += (lora / "non_lora_trainables.bin").stat().st_size
+    written += save_state(torch, nl, lora / "non_lora_trainables.bin")
 
     cc = CLIP_CONFIG
     p, ffv, grid = cc["patch_size"], cc["intermediate_size"], cc["image_size"] // cc["patch_size"]
@@ -5236,9 +5285,8 @@ def write_deployment(torch, root, seed: int) -> int:
     lbv = root / "languagebind_video"
     lbv.mkdir()
     (lbv / "config.json").write_text(json.dumps(cc))
-    torch.save({k: make().cpu() for k, (_, _, make) in tower(f16, True).items()},
-               lbv / "pytorch_model.bin")
-    written += (lbv / "pytorch_model.bin").stat().st_size
+    written += save_state(torch, {k: make().cpu() for k, (_, _, make) in tower(f16, True).items()},
+                          lbv / "pytorch_model.bin")
     return written
 
 
@@ -5370,8 +5418,9 @@ def check_loaded_leaves(torch, system, root) -> list:
     return held
 
 
-def phase_checkpoint(torch, card: str):
-    """Phase 25: write the synthetic full-width deployment, load it with
+def phase_checkpoint(torch, card: str, root):
+    """Phase 25: write the synthetic full-width chat deployment under `root`
+    (the weights directory phase 27 loads whole), load it with
     `build_mllm_system(..., quantize="int4")` on the card, hold its leaves
     against the CPU conversion, chat twice (128 greedy tokens, exact B1
     launches), hold B1 against its plain version at the loaded prefill's M,
@@ -5380,7 +5429,6 @@ def phase_checkpoint(torch, card: str):
     import io
     import pathlib
     import resource
-    import shutil
     import urllib.request
 
     from PIL import Image
@@ -5390,121 +5438,118 @@ def phase_checkpoint(torch, card: str):
     from vitron_tpu_torch.runtime import assembly
     from vitron_tpu_torch.runtime.generation import DEFAULT_DECODE_CHUNK, SamplingConfig
 
-    root = pathlib.Path(ckpt_root())
+    root = pathlib.Path(root)
+    t0 = time.perf_counter()
+    written = write_deployment(torch, root, seed=25)
+    t_write = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        system, report = assembly.build_mllm_system(
+            str(root / "vicuna-7b"), lora=str(root / "vitron_lora"),
+            clip_tower=str(root / "clip_vit_l14"),
+            video_tower=str(root / "languagebind_video"),
+            quantize="int4", mesh="auto", tokenizer=DemoTokenizer(), device="cuda")
+        torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated()
+    max_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print("checkpoint: report\n" + report.summary(), flush=True)
+    print(f"checkpoint: wrote {written} bytes in {t_write:.1f} s under {root}; "
+          f"build_mllm_system(quantize='int4') {t_load:.1f} s, host RSS "
+          f"{rss.before / 2**30:.2f} GiB before the load and {rss.peak / 2**30:.2f} GiB at "
+          f"its peak (sampled every 20 ms; the process's ru_maxrss so far "
+          f"{max_rss / 2**30:.2f} GiB), device peak {dev_peak / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    check(report.loaded() == ["llm", "image_tower", "video_tower", "projector",
+                              "region_extractor"]
+          and report.rows["mesh"]["status"] == "skipped", f"checkpoint: report {report.rows}")
+    t0 = time.perf_counter()
+    held = check_loaded_leaves(torch, system, root)
+    print(f"checkpoint: {len(held)} leaves bit-equal to the CPU conversion "
+          f"({time.perf_counter() - t0:.1f} s): {', '.join(held[:6])}, ... [{card}]",
+          flush=True)
+
+    cfg = system.engine.generator.cfg
+    image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+    sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
+    timed_chat(torch, system, image, sampling)  # warm-up: captures the decode chunk
+    reset_launches()
+    out1, t_req = timed_chat(torch, system, image, sampling)
+    per_forward = 7 * cfg.llm.num_layers + 1
+    steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
+    launches = expect_launches({"int4_matmul": per_forward * (1 + steps),
+                                "flash_attention": 0}, "checkpoint chat")
+    tokens = out1["reply"]["tokens"]
+    out2, _ = timed_chat(torch, system, image, sampling)
+    _, t_prefill = timed_chat(torch, system, image,
+                              SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
+    logits = system.engine.generator.last_prefill_logits
+    check(len(tokens) == NEW_TOKENS and out2["reply"]["tokens"] == tokens
+          and bool(torch.isfinite(logits).all()),
+          f"checkpoint chat: {len(tokens)} tokens, the same twice "
+          f"{out2['reply']['tokens'] == tokens}, finite logits")
+    decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
+    print(f"checkpoint chat: {len(tokens)} tokens, the same twice; request {t_req:.3f} s, "
+          f"prefill request {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s [{card}]",
+          flush=True)
+
+    # B1 at the M this chat's prefill gives every projection and lm_head
+    prepared = system.prepare(PROMPT, image=image, region_box=BBOX)
+    m = int(system.engine.plan_turn(prepared["msg"], prepared["media"])[0]
+            .token_ids.shape[-1])
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(25)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=torch.device("cuda"))
+    int4_rows = [int4_row(torch, card, g, m, k, n, flush=flush) for k, n in INT4_SHAPES]
+    del flush
+    print_sums(f"B1 at the loaded prefill's M {m}", int4_rows, card)
+
+    # 4. one POST /chat: the server's batched, staged path. Its reply
+    # against `system.chat` through the same pipeline (the same tokens),
+    # the first divergence from the single stream at a near-tie (as
+    # phase 6b holds it), and every served token against the single
+    # stream fed the served tokens before it
+    greedy = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS)
+    alone = system.chat(PROMPT, image=image, sampling=greedy)["reply"]["tokens"]
+    gen_ = system.engine.generator
+    slots = gen_.last_chunk.cache.k.shape[2]
+    srv = serve(system, host="127.0.0.1", port=0, background=True)
     try:
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, format="PNG")
+        body = json.dumps({"prompt": PROMPT, "image": base64.b64encode(buf.getvalue()).decode(),
+                           "greedy": True, "max_new_tokens": NEW_TOKENS}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/chat",
+                                     data=body, headers={"Content-Type": "application/json"})
         t0 = time.perf_counter()
-        written = write_deployment(torch, root, seed=25)
-        t_write = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with RssPeak() as rss:
-            system, report = assembly.build_mllm_system(
-                str(root / "vicuna-7b"), lora=str(root / "vitron_lora"),
-                clip_tower=str(root / "clip_vit_l14"),
-                video_tower=str(root / "languagebind_video"),
-                quantize="int4", mesh="auto", tokenizer=DemoTokenizer(), device="cuda")
-            torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        dev_peak = torch.cuda.max_memory_allocated()
-        max_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-        print("checkpoint: report\n" + report.summary(), flush=True)
-        print(f"checkpoint: wrote {written} bytes in {t_write:.1f} s under {root}; "
-              f"build_mllm_system(quantize='int4') {t_load:.1f} s, host RSS "
-              f"{rss.before / 2**30:.2f} GiB before the load and {rss.peak / 2**30:.2f} GiB at "
-              f"its peak (sampled every 20 ms; the process's ru_maxrss so far "
-              f"{max_rss / 2**30:.2f} GiB), device peak {dev_peak / 2**30:.2f} GiB [{card}]",
-              flush=True)
-        check(report.loaded() == ["llm", "image_tower", "video_tower", "projector",
-                                  "region_extractor"]
-              and report.rows["mesh"]["status"] == "skipped", f"checkpoint: report {report.rows}")
-        t0 = time.perf_counter()
-        held = check_loaded_leaves(torch, system, root)
-        print(f"checkpoint: {len(held)} leaves bit-equal to the CPU conversion "
-              f"({time.perf_counter() - t0:.1f} s): {', '.join(held[:6])}, ... [{card}]",
-              flush=True)
-
-        cfg = system.engine.generator.cfg
-        image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
-        sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
-        timed_chat(torch, system, image, sampling)  # warm-up: captures the decode chunk
-        reset_launches()
-        out1, t_req = timed_chat(torch, system, image, sampling)
-        per_forward = 7 * cfg.llm.num_layers + 1
-        steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
-        launches = expect_launches({"int4_matmul": per_forward * (1 + steps),
-                                    "flash_attention": 0}, "checkpoint chat")
-        tokens = out1["reply"]["tokens"]
-        out2, _ = timed_chat(torch, system, image, sampling)
-        _, t_prefill = timed_chat(torch, system, image,
-                                  SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
-        logits = system.engine.generator.last_prefill_logits
-        check(len(tokens) == NEW_TOKENS and out2["reply"]["tokens"] == tokens
-              and bool(torch.isfinite(logits).all()),
-              f"checkpoint chat: {len(tokens)} tokens, the same twice "
-              f"{out2['reply']['tokens'] == tokens}, finite logits")
-        decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
-        print(f"checkpoint chat: {len(tokens)} tokens, the same twice; request {t_req:.3f} s, "
-              f"prefill request {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s [{card}]",
-              flush=True)
-
-        # B1 at the M this chat's prefill gives every projection and lm_head
-        prepared = system.prepare(PROMPT, image=image, region_box=BBOX)
-        m = int(system.engine.plan_turn(prepared["msg"], prepared["media"])[0]
-                .token_ids.shape[-1])
-        g = torch.Generator(device=torch.device("cuda")).manual_seed(25)
-        flush = torch.empty(256 << 20, dtype=torch.uint8, device=torch.device("cuda"))
-        int4_rows = [int4_row(torch, card, g, m, k, n, flush=flush) for k, n in INT4_SHAPES]
-        del flush
-        print_sums(f"B1 at the loaded prefill's M {m}", int4_rows, card)
-
-        # 4. one POST /chat: the server's batched, staged path. Its reply
-        # against `system.chat` through the same pipeline (the same tokens),
-        # the first divergence from the single stream at a near-tie (as
-        # phase 6b holds it), and every served token against the single
-        # stream fed the served tokens before it
-        greedy = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS)
-        alone = system.chat(PROMPT, image=image, sampling=greedy)["reply"]["tokens"]
-        gen_ = system.engine.generator
-        slots = gen_.last_chunk.cache.k.shape[2]
-        srv = serve(system, host="127.0.0.1", port=0, background=True)
-        try:
-            buf = io.BytesIO()
-            Image.fromarray(image).save(buf, format="PNG")
-            body = json.dumps({"prompt": PROMPT, "image": base64.b64encode(buf.getvalue()).decode(),
-                               "greedy": True, "max_new_tokens": NEW_TOKENS}).encode()
-            req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/chat",
-                                         data=body, headers={"Content-Type": "application/json"})
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=600) as resp:
-                reply = json.loads(resp.read())
-            t_http = time.perf_counter() - t0
-            direct = system.chat(PROMPT, image=image, sampling=greedy)["reply"]
-        finally:
-            srv.shutdown()
-            srv.server_close()
-            srv.pipeline.close()
-        got = [int(w[3:]) for w in reply.get("raw", "").split()]
-        check(reply.get("status") == "chat" and reply.get("raw") == direct["raw"]
-              and got == direct["tokens"],
-              f"checkpoint http: {reply.get('status')}, {reply.get('raw', '')[:80]!r} against "
-              f"the direct chat's {direct['raw'][:80]!r}")
-        prepared = system.prepare(PROMPT, image=image)
-        pl, im, _, _, _ = system.engine.plan_turn(prepared["msg"], prepared["media"])
-        first = check_divergence(
-            "checkpoint http", got, alone,
-            lambda j: stream_logits(torch, gen_, plan_arrays(pl), im.to(gen_.device), alone, j,
-                                    slots), card)
-        held = check_teacher_forced(torch, "checkpoint http", got, gen_, plan_arrays(pl),
-                                    im.to(gen_.device), slots, card)
-        print(f"checkpoint http: POST /chat status {reply.get('status')}, {len(got)} tokens in "
-              f"{t_http:.3f} s, the same as system.chat through the server's pipeline; against "
-              f"the single stream: {first}; {held} [{card}]", flush=True)
-        del system
-        torch.cuda.empty_cache()
-        return launches, int4_rows
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            reply = json.loads(resp.read())
+        t_http = time.perf_counter() - t0
+        direct = system.chat(PROMPT, image=image, sampling=greedy)["reply"]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        srv.shutdown()
+        srv.server_close()
+        srv.pipeline.close()
+    got = [int(w[3:]) for w in reply.get("raw", "").split()]
+    check(reply.get("status") == "chat" and reply.get("raw") == direct["raw"]
+          and got == direct["tokens"],
+          f"checkpoint http: {reply.get('status')}, {reply.get('raw', '')[:80]!r} against "
+          f"the direct chat's {direct['raw'][:80]!r}")
+    prepared = system.prepare(PROMPT, image=image)
+    pl, im, _, _, _ = system.engine.plan_turn(prepared["msg"], prepared["media"])
+    first = check_divergence(
+        "checkpoint http", got, alone,
+        lambda j: stream_logits(torch, gen_, plan_arrays(pl), im.to(gen_.device), alone, j,
+                                slots), card)
+    held = check_teacher_forced(torch, "checkpoint http", got, gen_, plan_arrays(pl),
+                                im.to(gen_.device), slots, card)
+    print(f"checkpoint http: POST /chat status {reply.get('status')}, {len(got)} tokens in "
+          f"{t_http:.3f} s, the same as system.chat through the server's pipeline; against "
+          f"the single stream: {first}; {held} [{card}]", flush=True)
+    del system
+    torch.cuda.empty_cache()
+    return launches, int4_rows
 
 
 # ------------------------------------------------------- diffusion checkpoints (phase 26)
@@ -5572,84 +5617,100 @@ def load_line(what: str, t_load: float, rss, dev_peak: int, base: int) -> str:
             f"({(dev_peak - base) / 2**30:.2f} above the {base / 2**30:.2f} resident before it)")
 
 
-def phase_gligen_checkpoints(torch, card: str, pipe):
-    """Phase 26 (a): `pipe`'s trees (task A's UNet, the 9-channel UNet, the
-    SD VAE and CLIP-L text, float32) written as GLIGEN's two .pth bundles,
-    one at a time (each with a pickled config of a class no process can
-    import and keys no converter reads), loaded on the card by
-    `load_gligen_checkpoint`, every leaf held bit-equal, the file removed.
-    -> the GligenPipeline on the loaded trees, which phases 10, 11 and 11b
-    route through."""
-    import shutil
+GLIGEN_BUNDLES = (("generation", False), ("inpainting", True))  # (name, 9-channel UNet)
 
+
+def write_gligen_bundle(torch, pipe, root, name: str, inpaint: bool):
+    """`pipe`'s trees (the 9-channel UNet with `inpaint`, the SD VAE, CLIP-L
+    text) as GLIGEN's `name` .pth bundle in fp16 at
+    `root`/gligen/gligen_<name>.pth, with a pickled config of a class no
+    process can import and keys no converter reads. -> (path, bytes)."""
+    from vitron_tpu_torch.models.diffusion import synthetic
+
+    gdir = os.path.join(root, "gligen")
+    os.makedirs(gdir, exist_ok=True)
+    path = os.path.join(gdir, f"gligen_{name}.pth")
+    bundle = synthetic.gligen_bundle(pipe.inpaint_unet_params if inpaint else pipe.unet_params,
+                                     pipe.vae_params, pipe.text_params, pipe.cfg, inpaint,
+                                     dtype=torch.float16)
+    leaves = [t for t in tree_leaves(bundle) if isinstance(t, torch.Tensor)]
+    return path, disk_write(path, nbytes(*leaves), lambda p: synthetic.save_with_absent_config(
+        bundle, p, **GLIGEN_CONFIG))
+
+
+def write_t2v_pth(torch, pipe, root):
+    """`pipe`'s UNetSD_T2V as an fp16 .pth state dict in the reference's
+    layout at `root`/t2v/text2video_pytorch_model.pth. -> (path, bytes)."""
+    from vitron_tpu_torch.models.diffusion import unet_sd_video
+    from vitron_tpu_torch.models.diffusion.layers import KeyMap
+    from vitron_tpu_torch.models.diffusion.synthetic import reference_state_dict
+
+    os.makedirs(os.path.join(root, "t2v"))
+    path = os.path.join(root, "t2v", "text2video_pytorch_model.pth")
+    return path, save_state(torch, reference_state_dict(
+        unet_sd_video.convert_torch(KeyMap(), pipe.cfg.unet), pipe.unet_params,
+        dtype=torch.float16), path)
+
+
+def phase_gligen_checkpoints(torch, card: str, pipe, root):
+    """Phase 26 (a): `pipe`'s trees (task A's UNet, the 9-channel UNet, the
+    SD VAE and CLIP-L text) written as GLIGEN's two .pth bundles in fp16
+    under `root`/gligen/ (kept for phase 27), one at a time (each with a
+    pickled config of a class no process can import and keys no converter
+    reads), loaded on the card by `load_gligen_checkpoint`, every leaf held
+    bit-equal to the tree rounded to fp16. -> the GligenPipeline on the
+    loaded (float32) trees, which phases 10, 11 and 11b route through."""
     from vitron_tpu_torch.models.diffusion import synthetic
     from vitron_tpu_torch.models.diffusion.gligen_pipeline import (GligenPipeline,
                                                                    load_gligen_checkpoint)
 
     dev = torch.device("cuda")
     cfg = pipe.cfg
-    root = ckpt_root()
     loaded = {}
-    try:
-        for name, unet, inpaint in (("generation", pipe.unet_params, False),
-                                    ("inpainting", pipe.inpaint_unet_params, True)):
-            path = os.path.join(root, f"gligen_{name}.pth")
-            t0 = time.perf_counter()
-            written = synthetic.save_with_absent_config(
-                synthetic.gligen_bundle(unet, pipe.vae_params, pipe.text_params, cfg, inpaint),
-                path, **GLIGEN_CONFIG)
-            t_write = time.perf_counter() - t0
-            trees, t_load, rss, dev_peak, base = loaded_on_card(
-                torch, lambda: load_gligen_checkpoint(path, cfg, inpaint=inpaint, device=dev))
-            os.remove(path)
-            check(synthetic.ABSENT_MODULE not in sys.modules,
-                  "GLIGEN bundle: the load imported the config's module")
-            n = sum(held_leaves(torch, f"GLIGEN {name} bundle: {part}", got, want)
-                    for part, got, want in zip(("UNet", "VAE", "text"), trees,
-                                               (unet, pipe.vae_params, pipe.text_params)))
-            print(f"phase 26 (a) GLIGEN {name} bundle ({9 if inpaint else 4}-channel UNet, SD "
-                  f"VAE, CLIP-L text, float32; a pickled config of a class not importable, "
-                  f"keys no converter reads): wrote {written} bytes in {t_write:.1f} s; "
-                  f"load_gligen_checkpoint on the card "
-                  f"{load_line(f'GLIGEN {name} bundle', t_load, rss, dev_peak, base)}; "
-                  f"{n} leaves bit-equal to the trees written [{card}]", flush=True)
-            loaded[name] = trees
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    for name, inpaint in GLIGEN_BUNDLES:
+        unet = pipe.inpaint_unet_params if inpaint else pipe.unet_params
+        t0 = time.perf_counter()
+        path, written = write_gligen_bundle(torch, pipe, root, name, inpaint)
+        t_write = time.perf_counter() - t0
+        trees, t_load, rss, dev_peak, base = loaded_on_card(
+            torch, lambda: load_gligen_checkpoint(path, cfg, inpaint=inpaint, device=dev))
+        check(synthetic.ABSENT_MODULE not in sys.modules,
+              "GLIGEN bundle: the load imported the config's module")
+        n = sum(held_leaves(torch, f"GLIGEN {name} bundle: {part}", got, want,
+                            cast=lambda t: t.to(torch.float16).float())
+                for part, got, want in zip(("UNet", "VAE", "text"), trees,
+                                           (unet, pipe.vae_params, pipe.text_params)))
+        print(f"phase 26 (a) GLIGEN {name} bundle ({9 if inpaint else 4}-channel UNet, SD "
+              f"VAE, CLIP-L text, fp16; a pickled config of a class not importable, "
+              f"keys no converter reads): wrote {written} bytes in {t_write:.1f} s; "
+              f"load_gligen_checkpoint on the card "
+              f"{load_line(f'GLIGEN {name} bundle', t_load, rss, dev_peak, base)}; "
+              f"{n} leaves bit-equal to the trees written, rounded to fp16 [{card}]",
+              flush=True)
+        loaded[name] = trees
     unet, vae_p, text = loaded["generation"]
     return GligenPipeline(cfg, unet, vae_p, text, inpaint_unet_params=loaded["inpainting"][0],
                           tokenizer=pipe.tokenizer)
 
 
-def phase_t2v_checkpoint(torch, card: str, pipe):
+def phase_t2v_checkpoint(torch, card: str, pipe, root):
     """Phase 26 (b): `pipe`'s UNetSD_T2V written as an fp16 .pth state dict
-    (the reference's layout), loaded on the card by
-    `unet_sd_video.convert_torch` (mapped, each tensor widened there), every
-    leaf held bit-equal to the tree written rounded to fp16; `pipe` then runs
-    on the loaded UNet (phase 15)."""
-    import shutil
-
+    (the reference's layout) under `root`/t2v/ (kept for phase 27), loaded
+    on the card by `unet_sd_video.convert_torch` (mapped, each tensor
+    widened there), every leaf held bit-equal to the tree written rounded to
+    fp16; `pipe` then runs on the loaded UNet (phase 15)."""
     from vitron_tpu_torch.models.diffusion import unet_sd_video
-    from vitron_tpu_torch.models.diffusion.layers import KeyMap
-    from vitron_tpu_torch.models.diffusion.synthetic import reference_state_dict
     from vitron_tpu_torch.models.llm.loader import load_torch_pth
 
     dev = torch.device("cuda")
     ucfg = pipe.cfg.unet
-    root = ckpt_root()
-    try:
-        path = os.path.join(root, "text2video_pytorch_model.pth")
-        t0 = time.perf_counter()
-        torch.save(reference_state_dict(unet_sd_video.convert_torch(KeyMap(), ucfg),
-                                        pipe.unet_params, dtype=torch.float16), path)
-        t_write = time.perf_counter() - t0
-        written = os.path.getsize(path)
-        unet, t_load, rss, dev_peak, base = loaded_on_card(
-            torch, lambda: unet_sd_video.convert_torch(load_torch_pth(path), ucfg, device=dev))
-        n = held_leaves(torch, "t2v .pth", unet, pipe.unet_params,
-                        cast=lambda t: t.to(torch.float16).float())
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    path, written = write_t2v_pth(torch, pipe, root)
+    t_write = time.perf_counter() - t0
+    unet, t_load, rss, dev_peak, base = loaded_on_card(
+        torch, lambda: unet_sd_video.convert_torch(load_torch_pth(path), ucfg, device=dev))
+    n = held_leaves(torch, "t2v .pth", unet, pipe.unet_params,
+                    cast=lambda t: t.to(torch.float16).float())
     print(f"phase 26 (b) UNetSD_T2V .pth ({nbytes(*tree_leaves(unet)) / 4e9:.3f}B params, fp16): wrote "
           f"{written} bytes in {t_write:.1f} s; convert_torch on the card "
           f"{load_line('t2v .pth', t_load, rss, dev_peak, base)}; {n} leaves bit-equal to the "
@@ -5765,6 +5826,304 @@ def grounding_conversions(torch, card: str, nets: dict) -> dict:
         for name, tree in nets.items()}
 
 
+# --------------------------------------------------- the deployment from one directory (27)
+
+WEIGHTS_STEPS = 2          # phase 27's sampler steps for A, C, D, G (cut: their depth is 10-50)
+WEIGHTS_D_FRAMES = 8       # task D's frames in phase 27 (cut from 24: all backends are resident)
+WEIGHTS_G_FRAMES = 4       # task G's (cut from 16)
+WEIGHTS_CHAT_TOKENS = 32   # the greedy chat turn's new tokens
+WEIGHTS_VIDEO = "bear"     # the NLA checkpoint's video name
+NLA_FRAMES = 70            # its config.json's maximum_number_of_frames (a DAVIS clip's)
+
+
+def saved(what: str, card: str, root, rel: str, write) -> int:
+    """write(`root`/`rel`) (a `disk_write` that returns the file's bytes),
+    its bytes and seconds printed. -> bytes."""
+    path = os.path.join(root, rel)
+    t0 = time.perf_counter()
+    n = write(path)
+    dt = time.perf_counter() - t0
+    print(f"phase 27 wrote {what}: {rel}, {n} bytes in {dt:.1f} s [{card}]", flush=True)
+    return n
+
+
+def write_text_encoder(torch, card: str, root, rel: str, tree, tcfg) -> int:
+    """An HF CLIPTextModel dir: config.json and model.safetensors (fp16,
+    'text_model.' keys, `write_safetensors`: the card has no safetensors)."""
+    from vitron_tpu_torch.models.diffusion import clip_text
+    from vitron_tpu_torch.models.diffusion.layers import KeyMap
+    from vitron_tpu_torch.models.diffusion.synthetic import reference_state_dict
+
+    os.makedirs(os.path.join(root, rel))
+    with open(os.path.join(root, rel, "config.json"), "w") as fh:
+        json.dump({"architectures": ["CLIPTextModel"], "vocab_size": tcfg.vocab_size,
+                   "hidden_size": tcfg.hidden_size, "num_hidden_layers": tcfg.num_layers,
+                   "num_attention_heads": tcfg.num_heads,
+                   "intermediate_size": tcfg.intermediate_size,
+                   "max_position_embeddings": tcfg.max_length, "hidden_act": "gelu"}, fh)
+    sd = reference_state_dict(clip_text.convert_hf_clip_text(KeyMap(), tcfg), tree, "text_model.",
+                              dtype=torch.float16)
+    return saved("an HF CLIPTextModel (fp16)", card, root, rel + "/model.safetensors",
+                 lambda path: write_safetensors(path, {k: (t.dtype, tuple(t.shape),
+                                                           lambda t=t: t)
+                                                       for k, t in sd.items()}))
+
+
+def write_backends(torch, card: str, root, seed: int) -> int:
+    """Phase 27's files beside phases 25 and 26's, from random trees made
+    on the card at `seed`, fp16 (the IMLP nets float32): seem_focall_v1.pt,
+    i2vgen/ (the UNet .pth), t2v/text_encoder/ (i2vgen/text_encoder links
+    to it), stablevideo/ (ControlLDM canny bundle, depth ControlNet,
+    DPT-hybrid, one NLA checkpoint). -> bytes written."""
+    from vitron_tpu_torch.models.diffusion import clip_text, controlnet, depth, unet_sd_video
+    from vitron_tpu_torch.models.diffusion import synthetic
+    from vitron_tpu_torch.models.diffusion.layers import KeyMap
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+    from vitron_tpu_torch.models.seem.model import SeemConfig
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    written = 0
+    f16 = torch.float16
+    cfg = SeemConfig()
+    sd = synthetic.seem_state_dict(build_seem_params(torch, cfg, dev, seed), cfg, dtype=f16)
+    written += saved("SEEM FocalNet-L (fp16)", card, root, "seem_focall_v1.pt",
+                     lambda path: save_state(torch, sd, path))
+    del sd
+    ucfg = unet_sd_video.UNetSDVideoConfig.i2vgen_xl()
+    unet = synthetic.fill_zero_leaves(unet_sd_video.init_params(g, ucfg, dev), g)
+    sd = synthetic.reference_state_dict(unet_sd_video.convert_torch(KeyMap(), ucfg), unet,
+                                        dtype=f16)
+    del unet
+    os.makedirs(os.path.join(root, "i2vgen"))
+    written += saved("UNetSD_I2VGen (fp16)", card, root, "i2vgen/i2vgen_xl_pytorch_model.pth",
+                     lambda path: save_state(torch, sd, path))
+    del sd
+    # one OpenCLIP ViT-H text encoder, as upstream's t2v and i2vgen share it:
+    # i2vgen/text_encoder links to t2v's
+    tcfg = Text2VideoConfig().text
+    text = synthetic.fill_zero_leaves(clip_text.init_params(g, tcfg, dev), g)
+    written += write_text_encoder(torch, card, root, "t2v/text_encoder", text, tcfg)
+    os.symlink(os.path.join("..", "t2v", "text_encoder"),
+               os.path.join(root, "i2vgen", "text_encoder"))
+    torch.cuda.empty_cache()
+    editor, nets = build_task_f(torch, dev, seed)
+    sv_dir = os.path.join(root, "stablevideo")
+    os.makedirs(os.path.join(sv_dir, WEIGHTS_VIDEO))
+    sd = synthetic.controlldm_state_dict(editor.unet_params, editor.control_params,
+                                         editor.vae_params, editor.text_params, editor.unet_cfg,
+                                         editor.vae_cfg, editor.text_cfg, dtype=f16)
+    written += saved("ControlLDM canny bundle (fp16)", card, root,
+                     "stablevideo/control_sd15_canny.pth",
+                     lambda path: save_state(torch, sd, path))
+    sd = synthetic.reference_state_dict(controlnet.convert_torch(KeyMap(), editor.unet_cfg),
+                                        editor.depth_control_params, "control_model.", dtype=f16)
+    written += saved("depth ControlNet (fp16)", card, root,
+                     "stablevideo/control_sd15_depth.pth",
+                     lambda path: save_state(torch, sd, path))
+    dpt, dcfg = editor.depth_annotator
+    sd = synthetic.reference_state_dict(depth.convert_midas_torch(KeyMap(), dcfg), dpt, "model.",
+                                        dtype=f16)
+    written += saved("DPT-hybrid (fp16)", card, root,
+                     "stablevideo/dpt_hybrid-midas-501f0c75.pt",
+                     lambda path: save_state(torch, sd, path))
+    sd = {"model_F_mapping1_state_dict": synthetic.imlp_state_dict(nets["fg"]),
+          "model_F_mapping2_state_dict": synthetic.imlp_state_dict(nets["bg"]),
+          "model_F_alpha_state_dict": synthetic.imlp_state_dict(nets["alpha"]),
+          "F_atlas_state_dict": synthetic.imlp_state_dict(nets["atlas"])}
+    with open(os.path.join(sv_dir, WEIGHTS_VIDEO, "config.json"), "w") as fh:
+        json.dump({"maximum_number_of_frames": NLA_FRAMES}, fh)
+    written += saved("NLA atlas checkpoint (float32)", card, root,
+                     f"stablevideo/{WEIGHTS_VIDEO}/checkpoint",
+                     lambda path: save_state(torch, sd, path))
+    del sd, editor, nets
+    torch.cuda.empty_cache()
+    return written
+
+
+def backend_of(system, task: str, cls):
+    """The `cls` object that `system`'s task handler closes over (the
+    registered pipeline or editor)."""
+    for cell in system.registry._handlers[task].__closure__ or ():
+        if isinstance(cell.cell_contents, cls):
+            return cell.cell_contents
+    raise AssertionError(f"task {task}: no {cls.__name__} in its handler")
+
+
+def phase_weights(torch, card: str, root):
+    """Phase 27 (see the module docstring). -> every kernel's launches
+    summed over the phase's runs."""
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.models.diffusion import gligen_pipeline as gp
+    from vitron_tpu_torch.models.diffusion import stablevideo as sv
+    from vitron_tpu_torch.models.diffusion import video_pipelines as vp
+    from vitron_tpu_torch.models.diffusion.synthetic import StubClipTokenizer, StubImageEmbedder
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import UNetSDVideoConfig
+    from vitron_tpu_torch.models.llm.loader import load_torch_pth
+    from vitron_tpu_torch.models.seem import model as seem_model
+    from vitron_tpu_torch.runtime import assembly
+    from vitron_tpu_torch.runtime.generation import SamplingConfig
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    written = write_backends(torch, card, root, seed=27)
+    print(f"phase 27: wrote {written} bytes in {time.perf_counter() - t0:.1f} s; the directory "
+          f"holds {sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)} "
+          f"bytes with phases 25 and 26's files; this process has written {disk_written} bytes "
+          f"of files, of its budget of {WRITE_BUDGET_BYTES} [{card}]", flush=True)
+
+    seem_trees = []
+    convert = seem_model.convert_torch
+
+    def recording(sd, cfg, device):
+        seem_trees.append(convert(sd, cfg, device=device))
+        return seem_trees[-1]
+
+    torch.cuda.empty_cache()
+    with mock.patch.object(seem_model, "convert_torch", recording):
+        (system, report), t_load, rss, dev_peak, base = loaded_on_card(
+            torch, lambda: assembly.build_system_from_weights(
+                str(root), quantize="int4", device="cuda", tokenizer=DemoTokenizer(),
+                clip_tokenizer=StubClipTokenizer(49408),
+                image_embedder=StubImageEmbedder(UNetSDVideoConfig.i2vgen_xl().y_dim, 27)))
+    print("phase 27: report\n" + report.summary(), flush=True)
+    print(f"phase 27: build_system_from_weights(quantize='int4') on the card "
+          f"{load_line('phase 27 deployment', t_load, rss, dev_peak, base)} [{card}]", flush=True)
+    print(f"phase 27: memory plan ({'fits' if system.memory_plan.fits else 'OVER budget'}), "
+          f"device resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]\n"
+          + system.memory_plan.report(), flush=True)
+    check(set(report.loaded()) == {"llm", "image_tower", "video_tower", "projector",
+                                   "region_extractor", "clip_tokenizer", "seem", "gligen", "t2v",
+                                   "i2vgen", "stablevideo"},
+          f"phase 27: not every component loaded:\n{report.summary()}")
+    check(set(system.registry.available()) == set("ABCDEFG"),
+          f"phase 27: tasks {sorted(system.registry.available())}")
+    scfg = seem_model.SeemConfig()
+    t0 = time.perf_counter()
+    n = held_leaves(torch, "phase 27 SEEM", seem_trees[0],
+                    seem_model.convert_torch(load_torch_pth(os.path.join(root,
+                                                                         "seem_focall_v1.pt")),
+                                             scfg, device="cpu"), cast=lambda t: t.to(dev))
+    del seem_trees[:]
+    torch.cuda.empty_cache()
+    print(f"phase 27: SEEM's {n} converted leaves on the card bit-equal to the CPU's conversion "
+          f"of the same file ({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+
+    total = collections.Counter()
+    torch.cuda.reset_peak_memory_stats()
+    image = np.random.RandomState(0).randint(0, 256, (480, 640, 3), np.uint8)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = system.chat(PROMPT, image=image, sampling=SamplingConfig(
+        greedy=True, max_new_tokens=WEIGHTS_CHAT_TOKENS, eos_ids=()))
+    torch.cuda.synchronize()
+    t_chat = time.perf_counter() - t0
+    launches = read_launches()
+    total.update(launches)
+    check(out["status"] == "chat" and len(out["reply"]["tokens"]) == WEIGHTS_CHAT_TOKENS
+          and launches["int4_matmul"] > 0,
+          f"phase 27 chat: {out['status']}, {len(out['reply']['tokens'])} tokens, {launches}")
+    print(f"phase 27 chat: {WEIGHTS_CHAT_TOKENS} greedy tokens in {t_chat:.3f} s (the first "
+          f"request: its decode graph is captured here), B1 launches {launches['int4_matmul']}; "
+          f"the random model's reply routes no task, so the protocol replies below are routed "
+          f"through VitronSystem.route [{card}]", flush=True)
+
+    def routed(name: str, reply: str, want, check_out, **media):
+        reset_launches()
+        out, t_req = timed_route(torch, system, reply, **media)
+        got = read_launches()
+        if isinstance(want, dict):
+            expect_launches(want, f"phase 27 task {name}")
+        else:
+            check(all(got[k] > 0 for k in want), f"phase 27 task {name}: no launch of one of "
+                                                 f"{want}: {got}")
+            print(f"phase 27 task {name}: launches {got} (each of {list(want)} > 0)", flush=True)
+        total.update(got)
+        check(out["status"] == "ok", f"phase 27 task {name}: {out['status']}, {out.get('error')}")
+        what = check_out(out)
+        print(f"phase 27 task {name}: request {t_req:.3f} s, {what} [{card}]", flush=True)
+
+    def mask_out(out):
+        m = out["mask"]
+        check(m.shape == (480, 640) and bool(m.any()) and not bool(m.all()),
+              "phase 27 task B: the mask is constant")
+        return f"mask {m.shape} covers {m.mean():.3f}"
+
+    def media_out(key, shape):
+        def out_ok(out):
+            x = out[key]
+            check(x.shape == shape and x.dtype == np.uint8 and int(x.max()) != int(x.min()),
+                  f"phase 27: {key} {x.shape} {x.dtype}, constant {int(x.max()) == int(x.min())}")
+            return f"{key} {x.shape} mean {x.mean():.2f} std {x.std():.2f}"
+        return out_ok
+
+    per = seem_counts(scfg)
+    routed("B (text, full depth)", TASK_B_REPLY, per, mask_out, image=image)
+    frames = 8
+    video = np.random.RandomState(4).randint(0, 256, (frames, 480, 640, 3), np.uint8)
+
+    def tracks(out):
+        m = out["masks"]
+        check(m.shape == (frames, scfg.input_size // 4, scfg.input_size // 4)
+              and bool(m.any()) and not bool(m.all()), f"phase 27 task E: masks {m.shape}")
+        return f"{frames} frames, masks {m.shape} cover {m.mean():.3f}"
+
+    routed("E (8 frames, full depth)", TASK_E_REPLY, {k: (frames + 1) * v for k, v in per.items()},
+           tracks, video=video, sketch_mask=stroke_mask(480, 640))
+
+    gpipe = backend_of(system, "A", gp.GligenPipeline)
+    gpipe.cfg = gcfg = dataclasses.replace(gpipe.cfg, steps=WEIGHTS_STEPS)
+    unet = unet_counts(gcfg.unet, gcfg.latent_size, gcfg.max_objs, gcfg.text.max_length)
+    enc, dec = vae_counts(gcfg.vae, gcfg.latent_size ** 2)
+    routed(f"A ({WEIGHTS_STEPS} PLMS steps: cut)", TASK_A_REPLY,
+           {k: (gcfg.steps + 1) * unet[k] + dec[k] for k in unet},
+           media_out("image", (gcfg.image_size, gcfg.image_size, 3)))
+    unet9 = unet_counts(dataclasses.replace(gcfg.unet, in_channels=9), gcfg.latent_size,
+                        gcfg.max_objs, gcfg.text.max_length)
+    routed(f"C ({WEIGHTS_STEPS} PLMS steps: cut, region branch)", TASK_C_REPLY,
+           {k: (gcfg.steps + 1) * unet9[k] + enc[k] + dec[k] for k in unet9},
+           media_out("image", (gcfg.image_size, gcfg.image_size, 3)), image=image)
+
+    tpipe = backend_of(system, "D", vp.Text2VideoPipeline)
+    tpipe.cfg = tcfg = dataclasses.replace(tpipe.cfg, steps=WEIGHTS_STEPS,
+                                           num_frames=WEIGHTS_D_FRAMES)
+    lh, lw = tcfg.latent_hw
+    per_call = video_counts(tcfg.unet, lh, lw, tcfg.text.max_length)
+    _, dec = vae_counts(tcfg.vae, lh * lw)
+    routed(f"D ({WEIGHTS_STEPS} DDIM-v steps, {WEIGHTS_D_FRAMES} frames: cut)", TASK_D_REPLY,
+           {k: tcfg.steps * per_call[k] + dec.get(k, 0) for k in per_call},
+           media_out("video", (tcfg.num_frames, tcfg.height, tcfg.width, 3)))
+
+    ipipe = backend_of(system, "G", vp.Image2VideoPipeline)
+    ipipe.cfg = icfg = dataclasses.replace(ipipe.cfg, steps=WEIGHTS_STEPS,
+                                           num_frames=WEIGHTS_G_FRAMES)
+    ls = icfg.latent_size
+    per_call = video_counts(icfg.unet, ls, ls, i2v_context(icfg.unet, icfg.text.max_length))
+    enc, dec = vae_counts(icfg.vae, ls * ls)
+    routed(f"G ({WEIGHTS_STEPS} DDIM-v steps, {WEIGHTS_G_FRAMES} frames: cut)", TASK_G_REPLY,
+           {k: icfg.steps * per_call[k] + enc.get(k, 0) + dec.get(k, 0) for k in per_call},
+           media_out("video", (icfg.num_frames, icfg.size, icfg.size, 3)), image=image)
+
+    backend_of(system, "F", sv.StableVideoEditor)
+    routed("F (a one-frame 448x768 video, one keyframe: cut)", TASK_F_REPLY,
+           ("flash_attention", "geglu_ff", "group_norm_sums"),
+           media_out("video", (1,) + TASK_F_HW + (3,)),
+           video=np.zeros((1,) + TASK_F_HW + (3,), np.uint8))
+    print(f"phase 27: device peak during the requests {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, the deployment resident; launches summed over the phase {dict(total)} [{card}]",
+          flush=True)
+    # the system and its handlers hold each other (a cycle): collect it
+    # before the card's memory is handed back
+    del system, gpipe, tpipe, ipipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    check(left <= base + 2 ** 30, f"phase 27: {left / 2**30:.2f} GiB allocated after the "
+                                  f"deployment was dropped, {base / 2**30:.2f} before its load")
+    return dict(total)
+
+
 def timed_phase(card: str, what: str, fn, *args):
     """fn(*args) with its seconds printed."""
     t0 = time.perf_counter()
@@ -5804,9 +6163,13 @@ def main() -> int:
         rows.update(phase_video_kernels(torch, card))
         rows.update(phase_conv3x3(torch, card))
         rows.update(phase_i2v_kernels(torch, card))
+        # the deployment's weights directory: phases 25, 26 (a) and (b) write
+        # into it, phase 27 adds the rest and loads it whole, then removes it
+        root = ckpt_root()
+        atexit.register(shutil.rmtree, root, True)
         with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # the plain decode
             ckpt, ckpt_int4 = timed_phase(card, "25 checkpoint load", phase_checkpoint, torch,
-                                          card)
+                                          card, root)
         rows["int4"] += ckpt_int4
         chat_system = build_chat_system(torch)
         with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # 6 and 6b: the plain decode
@@ -5840,7 +6203,7 @@ def main() -> int:
         print(f"gligen: SD v1.4 GLIGEN UNet (4 and 9 channels), SD VAE, CLIP-L text, float32 "
               f"random weights built on the card in {time.perf_counter() - t0:.1f} s", flush=True)
         pipe = timed_phase(card, "26 (a) GLIGEN bundles", phase_gligen_checkpoints, torch, card,
-                           pipe)
+                           pipe, root)
         task_a = phase_task_a(torch, card, pipe)
         task_c = phase_task_c(torch, card, pipe)
         task_c_seem = phase_task_c_seem(torch, card, pipe, seem_params, seem_cfg)
@@ -5868,7 +6231,7 @@ def main() -> int:
         print(f"t2v: UNetSD_T2V ({n_unet / 1e9:.3f}B params), SD VAE, CLIP text (1024 wide), "
               f"float32 random weights built on the card in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        timed_phase(card, "26 (b) t2v .pth", phase_t2v_checkpoint, torch, card, pipe)
+        timed_phase(card, "26 (b) t2v .pth", phase_t2v_checkpoint, torch, card, pipe, root)
         torch.cuda.empty_cache()
         task_d = phase_task_d(torch, card, pipe)
         del pipe
@@ -5911,6 +6274,10 @@ def main() -> int:
         phase_video_unet_bf16(torch, card, dev)
         phase_video_cpu_vs_card(torch, card)
         phase_i2v_cpu_vs_card(torch, card)
+        torch.cuda.empty_cache()
+        weights = timed_phase(card, "27 the deployment from one weights directory",
+                              phase_weights, torch, card, root)
+        shutil.rmtree(root)
     train_rows = phase_train_kernels(torch, card)
     rows["flash"] += train_rows.pop("flash_lse")
     rows["int4"] += train_rows.pop("int4_train")
@@ -5957,7 +6324,8 @@ def main() -> int:
                 "task_d": task_d[name], "task_g": task_g[name], "train": train[name],
                 "style": style[name], "samplers": sampler[name], "grounding": grounding[name],
                 "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
-                "train_video": train_video[name], "train_i2vgen": train_i2vgen[name]}
+                "train_video": train_video[name], "train_i2vgen": train_i2vgen[name],
+                "weights": weights[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)

@@ -7,7 +7,8 @@ geometry="tiny")`: the report's rows, every loaded leaf bit for bit, the
 same greedy tokens; the missing-tower refusal and `allow_random_towers`;
 the tokenizer and device seams; `cli.main(["--base-model", ...])` against
 JAX's CLI on the same pixels; `serve --base-model` answering POST /chat on
-127.0.0.1; `--weights` exiting 2 and naming A14.
+127.0.0.1; `--weights` on a missing dir exiting 2 with the reason (the
+assembly itself: `test_torch_assembly_weights.py`).
 
 Greedy streams are compared with both LLMs at float32 compute
 (`llama_cfg_from_hf` patched on both sides): at the default bf16, XLA and
@@ -242,12 +243,14 @@ def test_cli_base_model_matches_jax_cli(weights, float32_llms, tmp_path, capsys,
 
 
 def test_cli_and_serve_refuse_what_is_not_ported(weights, tmp_path, capsys):
-    """`--weights` (the full A-G assembly) exits 2 naming A14; a missing
-    component is exit 2 with the reason."""
+    """`--weights` now builds the A-G assembly (ported: it no longer names
+    A14); a weights dir that does not exist, and a missing component, are
+    exit 2 with the reason."""
     for main in (tcli.main, tserve.main):
-        args = ["--weights", str(weights), "--device", "cpu"]
+        args = ["--weights", str(tmp_path / "absent"), "--device", "cpu"]
         assert main(args + (["--prompt", "hi"] if main is tcli.main else [])) == 2
-        assert "A14" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "does not exist" in err and "A14" not in err
     assert tcli.main(["--base-model", str(weights / "vicuna-7b"), "--device", "cpu",
                       "--prompt", "hi"]) == 2
     assert "HF CLIP vision tower" in capsys.readouterr().err

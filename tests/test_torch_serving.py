@@ -765,12 +765,12 @@ def test_serve_stats_reports_batching(servers):
 
 def test_main_runs_on_the_card_unless_asked_for_the_cpu(capsys):
     """`--device` defaults to cuda, which is an error without a card, never
-    the CPU; `--weights` names the item that ports it, a `--base-model`
-    that is not a checkpoint dir is refused with the reason."""
+    the CPU; a `--weights` dir that does not exist and a `--base-model`
+    that is not a checkpoint dir are refused with the reason."""
     from vitron_tpu_torch.apps import serve as tserve
 
-    assert tserve.main(["--weights", "w"]) == 2
-    assert "A14" in capsys.readouterr().err
+    assert tserve.main(["--weights", "w", "--device", "cpu"]) == 2
+    assert "weights dir w does not exist" in capsys.readouterr().err
     assert tserve.main(["--base-model", "m", "--device", "cpu"]) == 2
     assert "HF llama dir" in capsys.readouterr().err
     if not torch.cuda.is_available():

@@ -6,11 +6,13 @@
 
   python -m vitron_tpu_torch.apps.cli --base-model vicuna-7b --lora vitron_lora \
       --clip-tower clip_vit_l14 --quantize int4 --image img.npy --prompt "..."
+  python -m vitron_tpu_torch.apps.cli --weights weights/ --quantize int4 --prompt "..."
 
 `--demo` runs the tiny random-weight model with a whitespace tokenizer;
-`--base-model` the chat system loaded from checkpoint files
-(`runtime/assembly.build_mllm_system`, the serve app's flags; a missing
-component it needs is exit 2 with the reason). The image is a uint8
+`--weights` the whole A-G deployment from a weights directory
+(`runtime/assembly.build_system_from_weights`), `--base-model` the chat
+system from checkpoint paths (`build_mllm_system`); both take the serve
+app's flags, and a missing component they need is exit 2 with the reason. The image is a uint8
 [H, W, 3] array saved with numpy (`--image x.npy`) or, if none is given,
 random pixels from `--seed`. It runs on the card unless `--device cpu` asks
 for the CPU: `cuda` (the default) on a machine without a CUDA device is an
@@ -96,7 +98,7 @@ def main(argv=None) -> int:
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
         return 2
     if not args.demo and not args.base_model and not args.weights:
-        print("error: provide --base-model or --demo", file=sys.stderr)
+        print("error: provide --weights DIR, --base-model or --demo", file=sys.stderr)
         return 2
     from vitron_tpu_torch.runtime.generation import SamplingConfig
 

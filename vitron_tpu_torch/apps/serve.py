@@ -18,14 +18,17 @@ concurrent requests co-batch their decode chunks.
 
     python -m vitron_tpu_torch.apps.serve --demo               # on the card
     python -m vitron_tpu_torch.apps.serve --demo --device cpu  # on the host
+    python -m vitron_tpu_torch.apps.serve --weights weights/ --quantize int4
     python -m vitron_tpu_torch.apps.serve --base-model vicuna-7b --lora vitron_lora \
         --clip-tower clip_vit_l14 --video-tower languagebind_video --quantize int4
 
-`--base-model` serves the chat system that `runtime/assembly.build_mllm_system`
-loads from checkpoint files (the model's tokenizer through `transformers`);
-`--weights`, the full A-G assembly, is not ported yet (ROADMAP A14) and exits
-with code 2. The device defaults to `cuda`; without a CUDA device that is an
-error (exit 2), never a switch to the CPU.
+`--weights` serves the whole A-G deployment that
+`runtime/assembly.build_system_from_weights` loads from a weights directory,
+`--base-model` the chat system `build_mllm_system` loads from checkpoint
+paths (the tokenizers through `transformers`); a component they need that is
+missing, or the package, exits with code 2 and the reason. The device
+defaults to `cuda`; without a CUDA device that is an error (exit 2), never a
+switch to the CPU.
 """
 from __future__ import annotations
 
@@ -330,32 +333,34 @@ def host_memory_bytes() -> int:
 
 
 def build_serving_system(args):
-    """The checkpoint flags -> (system, report) through
-    `assembly.build_mllm_system` (`--base-model`, chat only), on
-    `args.device`; off the card the memory plan's budget is the host's
-    memory. `--weights` (the full A-G assembly) is not ported yet."""
-    import torch
-
+    """The checkpoint flags -> (system, report) on `args.device`: `--weights`
+    the whole A-G deployment (`assembly.build_system_from_weights`, the
+    reference app.py:59-63 start-up), `--base-model` chat only
+    (`assembly.build_mllm_system`). Off the card the memory plan's budget
+    is the host's memory."""
     from vitron_tpu_torch.runtime import assembly
     from vitron_tpu_torch.runtime.memory_plan import MemoryPlan
 
-    if args.weights:
-        raise NotImplementedError("--weights (the full A-G assembly) is not ported yet "
-                                  "(ROADMAP A14); use --base-model")
     device = assembly.resolve_device(args.device)
-    plan = None if device.type == "cuda" else MemoryPlan(budget_bytes=host_memory_bytes())
-    return assembly.build_mllm_system(
-        args.base_model, lora=args.lora, clip_tower=args.clip_tower,
-        video_tower=args.video_tower, geometry=args.geometry, quantize=args.quantize,
-        mesh={"auto": "auto", "none": None}[args.mesh],
-        allow_random_towers=args.allow_random_towers, device=device, memory_plan=plan)
+    kw = dict(geometry=args.geometry, quantize=args.quantize,
+              mesh={"auto": "auto", "none": None}[args.mesh],
+              allow_random_towers=args.allow_random_towers, device=device,
+              memory_plan=None if device.type == "cuda" else MemoryPlan(
+                  budget_bytes=host_memory_bytes()))
+    if args.weights:
+        return assembly.build_system_from_weights(args.weights, **kw)
+    return assembly.build_mllm_system(args.base_model, lora=args.lora,
+                                      clip_tower=args.clip_tower,
+                                      video_tower=args.video_tower, **kw)
 
 
 def add_checkpoint_args(p) -> None:
     """The serve / CLI checkpoint flags."""
     p.add_argument("--weights", metavar="DIR",
-                   help="weights dir of the full A-G deployment: not ported yet (ROADMAP A14)")
-    p.add_argument("--base-model", help="HF Llama/Vicuna checkpoint dir (chat only)")
+                   help="weights dir (the reference layout, runtime/assembly.py): loads "
+                        "every component present and registers tasks A-G")
+    p.add_argument("--base-model", help="HF Llama/Vicuna checkpoint dir (chat only, the "
+                                        "alternative to --weights)")
     p.add_argument("--lora", help="LoRA adapter dir (merged at load), with "
                                   "non_lora_trainables.bin")
     p.add_argument("--clip-tower", help="HF CLIP vision tower dir (with --base-model)")
@@ -387,10 +392,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     import torch
 
-    if args.weights:
-        print("error: --weights (the full A-G assembly) is not ported yet (ROADMAP A14); "
-              "use --base-model or --demo", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
@@ -400,8 +401,9 @@ def main(argv=None) -> int:
 
         serve(build_demo_system(device, args.seed), args.host, args.port)
         return 0
-    if not args.base_model:
-        print("error: provide --base-model (chat only) or --demo", file=sys.stderr)
+    if not args.weights and not args.base_model:
+        print("error: provide --weights DIR (the A-G deployment), --base-model (chat only) "
+              "or --demo", file=sys.stderr)
         return 2
     from vitron_tpu_torch.runtime.assembly import MissingWeightsError
 

@@ -1,14 +1,20 @@
-"""Audio decode for audio-referred segmentation (host side).
+"""Speech to text for audio-referred segmentation.
 
-Port of the decode half of `vitron_tpu/media/asr.py` (:24-76): a PCM WAV
-through the stdlib `wave` module (8-bit unsigned, 16- and 32-bit signed,
-any channel count, averaged to mono), then soundfile, then ffmpeg for other
-containers, and a linear resample to the recognizer's rate. The audio never
-reaches the device: only a transcript enters SEEM. The Whisper recognizer
-(`WhisperASR`, `default_asr`) needs weights that the repository lacks and
-stays out; `VitronSystem.asr` is the hook a recognizer is installed on.
+Port of `vitron_tpu/media/asr.py`. The decode (:24-76): a PCM WAV through
+the stdlib `wave` module (8-bit unsigned, 16- and 32-bit signed, any
+channel count, averaged to mono), then soundfile, then ffmpeg for other
+containers, and a linear resample to the recognizer's rate. The recognizer
+(:79-132): `WhisperASR`, a Whisper checkpoint through `transformers`,
+imported and loaded on the first `transcribe` and run on `device` (default
+`cuda`); a hub id resolves only from files already on the machine
+(`local_files_only=True`: nothing is fetched). `default_asr` gives one when
+`VITRON_WHISPER` names a checkpoint, else None, and `VitronSystem` installs
+it as its `asr` hook, as the JAX system does. Only a transcript enters SEEM.
 """
 from __future__ import annotations
+
+import os
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -60,3 +66,49 @@ def load_audio(path: str, sr: int = WHISPER_SR) -> np.ndarray:
         wav = np.interp(np.linspace(0.0, len(wav) - 1.0, n), np.arange(len(wav)),
                         wav).astype(np.float32)
     return wav
+
+
+class WhisperASR:
+    """A Whisper recognizer whose `transcribe` gives the reference's
+    whisper result surface ({"text": str}). `model` is a local checkpoint
+    dir or a hub id already in the local cache. Construction loads nothing,
+    so a server can always install the hook and fail with the loader's
+    message only when audio arrives."""
+
+    def __init__(self, model: str = "openai/whisper-base", device="cuda"):
+        self.model_id = model
+        self.device = device
+        self._pipe = None
+
+    def _load(self):
+        if self._pipe is None:
+            from transformers import WhisperForConditionalGeneration, WhisperProcessor
+
+            proc = WhisperProcessor.from_pretrained(self.model_id, local_files_only=True)
+            mdl = WhisperForConditionalGeneration.from_pretrained(
+                self.model_id, local_files_only=True).to(self.device).eval()
+            self._pipe = (proc, mdl)
+        return self._pipe
+
+    def transcribe(self, audio) -> dict:
+        """audio: a file path or a float32 waveform at 16 kHz -> {"text": str}."""
+        import torch
+
+        if isinstance(audio, (str, os.PathLike)):
+            audio = load_audio(str(audio))
+        proc, mdl = self._load()
+        feats = proc(audio, sampling_rate=WHISPER_SR, return_tensors="pt").input_features
+        with torch.no_grad():
+            ids = mdl.generate(feats.to(self.device), max_new_tokens=128)
+        return {"text": proc.batch_decode(ids, skip_special_tokens=True)[0].strip()}
+
+
+def default_asr(device="cuda") -> Optional[WhisperASR]:
+    """The serving layer's hook: a WhisperASR on `device` when
+    `VITRON_WHISPER` names a checkpoint, else None (upstream ships its
+    whisper load disabled, demo_code/app.py:76-77)."""
+    model = os.environ.get("VITRON_WHISPER")
+    return WhisperASR(model, device=device) if model else None
+
+
+Transcriber = Callable[[object], dict]

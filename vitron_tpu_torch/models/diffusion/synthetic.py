@@ -7,8 +7,8 @@ stub image embedding, and make their checkpoints here: a converter's key map
 (the converter run on `layers.KeyMap()`) read the other way writes a port
 tree out as a state dict in the reference's key layout
 (`reference_state_dict`), and `gligen_bundle` / `controlldm_state_dict` /
-`imlp_state_dict` assemble the reference's files from such dicts. Nothing
-on a main path uses them.
+`imlp_state_dict` / `seem_state_dict` assemble the reference's files from
+such dicts. Nothing on a main path uses them.
 
 `init_params` of the UNet (like the JAX one) zero-initialises each ResNet's
 conv2, proj_out, the final out conv, the GLIGEN gates alpha_attn/alpha_dense
@@ -145,22 +145,36 @@ def imlp_state_dict(tree, prefix: str = "", stem: str = "hidden", dtype=None,
     return out
 
 
-def gligen_bundle(unet, vae_params, text, cfg, inpaint: bool = False) -> Dict[str, Any]:
+def seem_state_dict(params, cfg, dtype=None, device="cpu") -> Dict[str, torch.Tensor]:
+    """A SEEM param tree as seem_focall_v1.pt holds it: the backbone under
+    'backbone.', the pixel decoder, decoder and language encoder under
+    'sem_seg_head.', in the reference's layouts (the inverse of
+    `seem.model.convert_torch`)."""
+    from vitron_tpu_torch.models.seem import model as seem_model
+
+    return reference_state_dict(seem_model.convert_torch(KeyMap(), cfg), params, dtype=dtype,
+                                device=device)
+
+
+def gligen_bundle(unet, vae_params, text, cfg, inpaint: bool = False,
+                  dtype=None) -> Dict[str, Any]:
     """A GLIGEN .pth bundle's entries in the reference's layout: 'model' (the
     UNet with its fusers and position net; 9 input channels with
     `inpaint`), 'autoencoder' and 'text_encoder' (ldm's FrozenCLIPEmbedder
     keys, 'transformer.text_model.'), each with a key no converter reads,
     as released state dicts carry them (the scheduler's `betas`, the VAE
     loss's `loss.logvar`, CLIP's `position_ids` buffer); and a 'diffusion'
-    entry of scheduler constants beside them."""
+    entry of scheduler constants beside them. The weights are cast to
+    `dtype` (their own when None)."""
     ucfg = dataclasses.replace(cfg.unet, in_channels=9) if inpaint else cfg.unet
     text_sd = reference_state_dict(clip_text.convert_hf_clip_text(KeyMap(), cfg.text), text,
-                                   "transformer.text_model.")
+                                   "transformer.text_model.", dtype=dtype)
     text_sd["transformer.text_model.embeddings.position_ids"] = torch.arange(
         cfg.text.max_length)[None]
-    model = reference_state_dict(unet2d.convert_ldm_unet(KeyMap(), ucfg), unet)
+    model = reference_state_dict(unet2d.convert_ldm_unet(KeyMap(), ucfg), unet, dtype=dtype)
     model["betas"] = torch.linspace(0.00085, 0.012, 1000)
-    autoencoder = reference_state_dict(vae.convert_ldm_vae(KeyMap(), cfg.vae), vae_params)
+    autoencoder = reference_state_dict(vae.convert_ldm_vae(KeyMap(), cfg.vae), vae_params,
+                                       dtype=dtype)
     autoencoder["loss.logvar"] = torch.zeros(())
     return {"model": model, "autoencoder": autoencoder, "text_encoder": text_sd,
             "diffusion": {"linear_start": 0.00085, "linear_end": 0.012, "timesteps": 1000}}

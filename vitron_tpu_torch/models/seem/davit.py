@@ -17,8 +17,8 @@ are `layers.conv2d`.
 ECCV 2022, Table 1): depths 1/1/3/1, widths 96/192/384/768, 3/6/12/24 heads
 and groups, a 7x7 stride-4 stem and 2x2 stride-2 patch embeds. The JAX
 default pairs those heads with widths 64/128/192/256, which 3 heads do not
-divide, so it cannot run (ROADMAP C13). The checkpoint converter waits for
-the loaders (ROADMAP A7).
+divide, so it cannot run (ROADMAP C13). `convert_torch` reads the vendored
+DaViT's `backbone.` keys.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.depthwise_conv import depthwise_conv2d
-from vitron_tpu_torch.models.diffusion.layers import conv2d
+from vitron_tpu_torch.models.diffusion.layers import conv2d, conv_w, lin_w, reading
 from vitron_tpu_torch.models.seem.pixel_decoder import _ln
 from vitron_tpu_torch.models.seem.swin import window_partition, window_reverse
 
@@ -175,4 +175,48 @@ def init_params(gen: torch.Generator, cfg: DaViTConfig, device) -> Dict[str, Any
         ffn = int(c * cfg.mlp_ratio)
         blocks.append([{"spatial": block(c, ffn), "channel": block(c, ffn)}
                        for _ in range(cfg.depths[si])])
+    return {"convs": convs, "blocks": blocks}
+
+
+def convert_torch(sd, cfg: DaViTConfig, prefix: str = "backbone.", device="cpu") -> Dict[str, Any]:
+    """Vendored DaViT state dict (convs.{i}.*, blocks.{i}.{j}.{spatial_block,
+    channel_block}.*) -> param tree on `device` (the JAX `convert_torch`,
+    :201)."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def lw(k):
+        return lin_w(sd, prefix + k)
+
+    def ln(stem):
+        return {"scale": g(stem + ".weight"), "bias": g(stem + ".bias")}
+
+    def dw(stem):
+        return {"w": conv_w(sd, prefix + stem + ".dw.weight"), "b": g(stem + ".dw.bias")}
+
+    def half(stem, attn):
+        return {
+            "conv1": dw(stem + ".conv1.fn"),
+            "attn_norm": ln(f"{stem}.{attn}.norm"),
+            "attn": {"qkv_w": lw(f"{stem}.{attn}.fn.qkv.weight"),
+                     "qkv_b": g(f"{stem}.{attn}.fn.qkv.bias"),
+                     "proj_w": lw(f"{stem}.{attn}.fn.proj.weight"),
+                     "proj_b": g(f"{stem}.{attn}.fn.proj.bias")},
+            "conv2": dw(stem + ".conv2.fn"),
+            "mlp_norm": ln(stem + ".ffn.norm"),
+            "mlp": {"fc1_w": lw(stem + ".ffn.fn.net.fc1.weight"),
+                    "fc1_b": g(stem + ".ffn.fn.net.fc1.bias"),
+                    "fc2_w": lw(stem + ".ffn.fn.net.fc2.weight"),
+                    "fc2_b": g(stem + ".ffn.fn.net.fc2.bias")},
+        }
+
+    convs, blocks = [], []
+    for si in range(len(cfg.depths)):
+        convs.append({"w": conv_w(sd, prefix + f"convs.{si}.proj.weight"),
+                      "b": g(f"convs.{si}.proj.bias"), "norm": ln(f"convs.{si}.norm")})
+        blocks.append([{"spatial": half(f"blocks.{si}.{bi}.spatial_block", "window_attn"),
+                        "channel": half(f"blocks.{si}.{bi}.channel_block", "channel_attn")}
+                       for bi in range(cfg.depths[si])])
     return {"convs": convs, "blocks": blocks}

@@ -15,8 +15,8 @@ features.
 
 Every GroupNorm is `pixel_decoder._gn`, whose sums are the hand CUDA
 group-norm kernel on the card: one launch for each input projection and two
-for each FPN level (5 on Swin-L's four maps). The checkpoint converter
-waits for the loaders (ROADMAP A7).
+for each FPN level (5 on Swin-L's four maps). The JAX package has no
+converter for this decoder, and the port has none.
 """
 from __future__ import annotations
 

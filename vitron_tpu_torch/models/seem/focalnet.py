@@ -9,8 +9,10 @@ Emits the res2..res5 pyramid (strides 4/8/16/32).
 In `_conv`, 1x1 convs are matmuls and the focal levels' full depthwise convs
 (k = 3/5/7/9) go to `kernels.depthwise_conv.depthwise_conv2d`, the hand CUDA
 kernel on the card; the k7/s4 stem and the k3/s2 downsamples are
-`layers.conv2d` (cuDNN), as XLA lowered them without a kernel. The
-checkpoint converter (`convert_torch`) waits for the SEEM weights.
+`layers.conv2d` (cuDNN), as XLA lowered them without a kernel.
+`convert_torch` reads the reference's state dict (seem_focall_v1.pt's
+`backbone.` keys) tensor by tensor onto its device, as the diffusion
+converters do (`layers.reading`).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.depthwise_conv import depthwise_conv2d
-from vitron_tpu_torch.models.diffusion.layers import conv2d
+from vitron_tpu_torch.models.diffusion.layers import conv2d, conv_w, lin_w, reading
 from vitron_tpu_torch.models.vision.vit import layer_norm
 
 
@@ -188,4 +190,64 @@ def init_params(gen: torch.Generator, cfg: FocalNetConfig, device) -> Dict[str, 
         "stem_norm": ln(cfg.embed_dim),
         "stages": stages,
         "out_norms": [ln(cfg.dims[i]) for i in range(cfg.num_stages)],
+    }
+
+
+def convert_torch(sd, cfg: FocalNetConfig, prefix: str = "backbone.", device="cpu"
+                  ) -> Dict[str, Any]:
+    """Reference FocalNet state dict -> param tree on `device` (the JAX
+    `convert_torch`, :199). Keys: patch_embed.proj/norm,
+    layers.{i}.blocks.{j}.{norm1, modulation.f, modulation.h,
+    modulation.focal_layers.{l}.0, modulation.proj, norm2, mlp.fc1, mlp.fc2,
+    gamma_1, gamma_2}, layers.{i}.downsample.{proj, norm}, norm{i}
+    (focal.py:340-470). Convs OIHW -> HWIO (the depthwise focal layers'
+    [C, 1, k, k] -> [k, k, 1, C], B4's layout), Linears transposed; the
+    layerscale gammas are read only where the dict has them."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def cw(k):
+        return conv_w(sd, prefix + k)
+
+    def lw(k):
+        return lin_w(sd, prefix + k)
+
+    def lnp(k):
+        return {"scale": g(k + ".weight"), "bias": g(k + ".bias")}
+
+    stages = []
+    for si in range(cfg.num_stages):
+        blocks = []
+        for bi in range(cfg.depths[si]):
+            b = f"layers.{si}.blocks.{bi}."
+            blk = {
+                "norm1": lnp(b + "norm1"), "norm2": lnp(b + "norm2"),
+                "mod": {
+                    "f_w": lw(b + "modulation.f.weight"), "f_b": g(b + "modulation.f.bias"),
+                    "focal_w": [cw(b + f"modulation.focal_layers.{l}.0.weight")
+                                for l in range(cfg.focal_levels[si])],
+                    "h_w": cw(b + "modulation.h.weight"), "h_b": g(b + "modulation.h.bias"),
+                    "proj_w": lw(b + "modulation.proj.weight"),
+                    "proj_b": g(b + "modulation.proj.bias"),
+                },
+                "fc1_w": lw(b + "mlp.fc1.weight"), "fc1_b": g(b + "mlp.fc1.bias"),
+                "fc2_w": lw(b + "mlp.fc2.weight"), "fc2_b": g(b + "mlp.fc2.bias"),
+            }
+            if (prefix + b + "gamma_1") in sd:
+                blk["gamma_1"] = g(b + "gamma_1")
+                blk["gamma_2"] = g(b + "gamma_2")
+            blocks.append(blk)
+        stage = {"blocks": blocks}
+        if si < cfg.num_stages - 1:
+            stage["down_w"] = cw(f"layers.{si}.downsample.proj.weight")
+            stage["down_b"] = g(f"layers.{si}.downsample.proj.bias")
+            stage["down_norm"] = lnp(f"layers.{si}.downsample.norm")
+        stages.append(stage)
+    return {
+        "stem_w": cw("patch_embed.proj.weight"), "stem_b": g("patch_embed.proj.bias"),
+        "stem_norm": lnp("patch_embed.norm"),
+        "stages": stages,
+        "out_norms": [lnp(f"norm{i}") for i in range(cfg.num_stages)],
     }

@@ -6,7 +6,9 @@ LanguageEncoder (modules/SEEM/demo_code/xdecoder/language/vlpencoder.py:
 context 77, causal): pre-LN residual blocks with QuickGELU and LayerNorm eps
 1e-12; the pooled feature is the final-LN hidden state at argmax(token id)
 (the EOT), projected by lang_proj. The JAX `lax.scan` over the stacked
-layers is a loop here. The checkpoint converter waits for the SEEM weights.
+layers is a loop here. `convert_torch` reads the reference's
+`sem_seg_head.predictor.lang_encoder.` keys, each layer's weights stacked on
+a leading axis.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from vitron_tpu_torch.models.diffusion.layers import layout, reading, stack
 from vitron_tpu_torch.models.vision.vit import layer_norm, quick_gelu
 
 
@@ -183,3 +186,41 @@ def vl_similarity(image_feat: torch.Tensor, text_feat: torch.Tensor,
                   logit_scale: torch.Tensor) -> torch.Tensor:
     """exp(logit_scale) * t @ v^T (tasks/interactive.py:162-175)."""
     return torch.exp(logit_scale) * text_feat @ image_feat.T
+
+
+def convert_torch(sd, cfg: LangConfig, prefix: str = "sem_seg_head.predictor.lang_encoder.",
+                  device="cpu") -> Dict[str, Any]:
+    """Reference state dict -> param tree on `device` (the JAX
+    `convert_torch`, :187): the resblocks' weights stacked along a leading
+    layer axis (Linears transposed), the token and position embeddings,
+    the final LayerNorm, `lang_proj` and `logit_scale` as stored."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def stack_t(fmt):
+        return stack([layout(g(fmt.format(i)), "linear") for i in range(cfg.num_layers)])
+
+    def stack_(fmt):
+        return stack([g(fmt.format(i)) for i in range(cfg.num_layers)])
+
+    blk = "lang_encoder.resblocks.{}."
+    return {
+        "token_emb": g("lang_encoder.token_embedding.weight"),
+        "pos_emb": g("lang_encoder.positional_embedding"),
+        "layers": {
+            "ln1": {"scale": stack_(blk + "ln_1.weight"), "bias": stack_(blk + "ln_1.bias")},
+            "attn": {"in_w": stack_t(blk + "attn.in_proj_weight"),
+                     "in_b": stack_(blk + "attn.in_proj_bias"),
+                     "out_w": stack_t(blk + "attn.out_proj.weight"),
+                     "out_b": stack_(blk + "attn.out_proj.bias")},
+            "ln2": {"scale": stack_(blk + "ln_2.weight"), "bias": stack_(blk + "ln_2.bias")},
+            "fc1": stack_t(blk + "mlp.c_fc.weight"), "b1": stack_(blk + "mlp.c_fc.bias"),
+            "fc2": stack_t(blk + "mlp.c_proj.weight"), "b2": stack_(blk + "mlp.c_proj.bias"),
+        },
+        "ln_final": {"scale": g("lang_encoder.ln_final.weight"),
+                     "bias": g("lang_encoder.ln_final.bias")},
+        "lang_proj": g("lang_proj"),
+        "logit_scale": g("logit_scale"),
+    }

@@ -15,7 +15,8 @@ seem_model.py:34-927, tasks/interactive.py:36-316):
 Inputs are 512x512 uint8 images. With `compute_dtype="bfloat16"` the
 backbone and pixel decoder run in bf16 and their outputs are cast back to
 float32 at `encode_image`'s boundary; the decoder and language encoder stay
-float32, as in the JAX package.
+float32, as in the JAX package. `convert_torch` reads a whole
+seem_focall_v1.pt state dict through the four parts' converters.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vitron_tpu_torch.media.preprocess import _resize_hw
+from vitron_tpu_torch.models.diffusion.layers import lin_w, reading
 from vitron_tpu_torch.models.seem import decoder as dec
 from vitron_tpu_torch.models.seem import focalnet, language, pixel_decoder
 
@@ -202,3 +204,67 @@ def track_video(params, cfg: SeemConfig, frames: torch.Tensor, ref_image: torch.
     vq, v_pos, v_valid = reference_visual_queries(params, cfg, ref_image, points, points_valid)
     masks = [segment_visual(params, cfg, frame, vq, v_pos, v_valid)[0] for frame in frames]
     return torch.stack(masks) > 0.0
+
+
+def convert_torch(sd, cfg: SeemConfig, device="cpu") -> Dict[str, Any]:
+    """Reference seem_focall_v1.pt state dict -> the full param tree on
+    `device` (the JAX `convert_torch`, :266)."""
+    sd = reading(sd, device)
+    return {"backbone": focalnet.convert_torch(sd, cfg.backbone, device=device),
+            "pixel": pixel_decoder.convert_torch(sd, cfg.pixel, device=device),
+            "decoder": convert_decoder_torch(sd, cfg.decoder, device=device),
+            "lang": language.convert_torch(sd, cfg.lang, device=device)}
+
+
+def convert_decoder_torch(sd, cfg: dec.SeemDecoderConfig, prefix: str = "sem_seg_head.predictor.",
+                          device="cpu") -> Dict[str, Any]:
+    """The decoder's part of the state dict -> its param tree on `device`
+    (the JAX `convert_decoder_torch`, :276). `mask_sptial_embed.{i}` (the
+    reference's spelling) exists only in a checkpoint built with the
+    spatial task on (seem.py:339-346); where it is absent the leaf is
+    zeros, as in the JAX converter."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def lw(k):
+        return lin_w(sd, prefix + k)
+
+    def attn(stem):
+        return {"in_w": lw(stem + ".in_proj_weight"), "in_b": g(stem + ".in_proj_bias"),
+                "out_w": lw(stem + ".out_proj.weight"), "out_b": g(stem + ".out_proj.bias")}
+
+    def lnp(stem):
+        return {"scale": g(stem + ".weight"), "bias": g(stem + ".bias")}
+
+    layers = []
+    for i in range(cfg.dec_layers):
+        ffn = f"transformer_ffn_layers.{i}."
+        layers.append({
+            "cross": {"attn": attn(f"transformer_cross_attention_layers.{i}.multihead_attn"),
+                      "norm": lnp(f"transformer_cross_attention_layers.{i}.norm")},
+            "self": {"attn": attn(f"transformer_self_attention_layers.{i}.self_attn"),
+                     "norm": lnp(f"transformer_self_attention_layers.{i}.norm")},
+            "ffn": {"fc1_w": lw(ffn + "linear1.weight"), "fc1_b": g(ffn + "linear1.bias"),
+                    "fc2_w": lw(ffn + "linear2.weight"), "fc2_b": g(ffn + "linear2.bias"),
+                    "norm": lnp(ffn + "norm")},
+        })
+    mask_embed = {}
+    for j in range(3):
+        mask_embed[f"w{j}"] = lw(f"mask_embed.layers.{j}.weight")
+        mask_embed[f"b{j}"] = g(f"mask_embed.layers.{j}.bias")
+    return {
+        "query_feat": g("query_feat.weight"),
+        "query_embed": g("query_embed.weight"),
+        "pn_indicator": g("pn_indicator.weight"),
+        "level_embed": g("level_embed.weight"),
+        "layers": layers,
+        "decoder_norm": lnp("decoder_norm"),
+        "class_embed": g("class_embed"),
+        "mask_embed": mask_embed,
+        "mask_spatial_embed": [
+            g(f"mask_sptial_embed.{i}") if (prefix + f"mask_sptial_embed.{i}") in sd
+            else torch.zeros((cfg.hidden_dim, cfg.hidden_dim), device=device)
+            for i in range(cfg.num_feature_levels)],
+    }

@@ -10,6 +10,7 @@ Every GroupNorm goes through `models/diffusion/layers.group_norm` (eps
 1e-5), whose statistics are the hand CUDA group-norm kernel on the card:
 one launch for res5's output norm and two (lateral, output) for each lower
 level. Returns (mask_features, multi_scale [res5_y, res4_y, res3_y]).
+`convert_torch` reads the reference's `sem_seg_head.pixel_decoder.` keys.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from vitron_tpu_torch.models.diffusion.layers import conv2d, group_norm, upsample2x_nearest
+from vitron_tpu_torch.models.diffusion.layers import (conv2d, conv_w, group_norm, lin_w, reading,
+                                                     upsample2x_nearest)
 from vitron_tpu_torch.models.vision.vit import layer_norm
 
 
@@ -171,3 +173,52 @@ def init_params(gen: torch.Generator, cfg: PixelDecoderConfig, device) -> Dict[s
         })
     return {"levels": levels, "encoder": encoder,
             "mask_w": conv(3, 3, cd, cfg.mask_dim), "mask_b": zeros(cfg.mask_dim)}
+
+
+def convert_torch(sd, cfg: PixelDecoderConfig, prefix: str = "sem_seg_head.pixel_decoder.",
+                  device="cpu") -> Dict[str, Any]:
+    """Reference state dict -> param tree on `device` (the JAX
+    `convert_torch`, :189; transformer_encoder_fpn.py): adapter_{i} /
+    layer_{i} are 1-indexed from res2, the last level has its own
+    input_proj, and each detectron2 Conv2d keeps its GroupNorm as a `.norm`
+    submodule (the norms `group_norm` serves);
+    transformer.encoder.layers.{i}.*, mask_features."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def cw(k):
+        return conv_w(sd, prefix + k)
+
+    def lw(k):
+        return lin_w(sd, prefix + k)
+
+    def gn(k):
+        return {"scale": g(k + ".weight"), "bias": g(k + ".bias")}
+
+    n = len(cfg.in_channels)
+    levels = []
+    for idx in range(n):
+        level = {"out_w": cw(f"layer_{idx + 1}.weight"), "out_norm": gn(f"layer_{idx + 1}.norm")}
+        if idx == n - 1:
+            level = {"input_proj_w": cw("input_proj.weight"), "input_proj_b": g("input_proj.bias"),
+                     **level}
+        else:
+            level = {"lat_w": cw(f"adapter_{idx + 1}.weight"),
+                     "lat_norm": gn(f"adapter_{idx + 1}.norm"), **level}
+        levels.append(level)
+    encoder = []
+    for i in range(cfg.num_enc_layers):
+        e = f"transformer.encoder.layers.{i}."
+        encoder.append({
+            "attn": {"in_w": lw(e + "self_attn.in_proj_weight"),
+                     "in_b": g(e + "self_attn.in_proj_bias"),
+                     "out_w": lw(e + "self_attn.out_proj.weight"),
+                     "out_b": g(e + "self_attn.out_proj.bias")},
+            "norm1": gn(e + "norm1"), "norm2": gn(e + "norm2"),
+            "fc1_w": lw(e + "linear1.weight"), "fc1_b": g(e + "linear1.bias"),
+            "fc2_w": lw(e + "linear2.weight"), "fc2_b": g(e + "linear2.bias"),
+        })
+    return {"levels": levels, "encoder": encoder,
+            "mask_w": cw("mask_features.weight"), "mask_b": g("mask_features.bias")}

@@ -4,8 +4,8 @@ Port of `vitron_tpu/models/seem/resnet.py` (:20-119; the detectron2-style
 ResNet the reference vendors): bottleneck blocks with frozen BatchNorm (an
 affine from the stored statistics), a 7x7 stride-2 stem and a 3x3 stride-2
 max pool, res2..res5 at strides 4/8/16/32. NHWC; 1x1 convs are matmuls and
-the rest `layers.conv2d`, as XLA lowered them: no kernel runs here. The
-checkpoint converter waits for the loaders (ROADMAP A7).
+the rest `layers.conv2d`, as XLA lowered them: no kernel runs here.
+`convert_torch` reads torchvision's naming (conv1 / bn1 / layer{i}.{j}.*).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from vitron_tpu_torch.models.diffusion.layers import conv2d
+from vitron_tpu_torch.models.diffusion.layers import conv2d, conv_w, reading
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +102,36 @@ def init_params(gen: torch.Generator, cfg: ResNetConfig, device) -> Dict[str, An
         stages.append(blocks)
     return {"stem_w": conv(7, 7, 3, cfg.stem_channels), "stem_bn": bn(cfg.stem_channels),
             "stages": stages}
+
+
+def convert_torch(sd, cfg: ResNetConfig, prefix: str = "backbone.", device="cpu") -> Dict[str, Any]:
+    """torchvision / detectron2 ResNet state dict ('conv1 / bn1 /
+    layer{i}.{j}.conv{k}') -> param tree on `device` (the JAX
+    `convert_torch`, :126): each BatchNorm with its running statistics,
+    the shortcut (downsample.0 / .1) only where the dict has it."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def cw(k):
+        return conv_w(sd, prefix + k)
+
+    def bn(stem):
+        return {"gamma": g(stem + ".weight"), "beta": g(stem + ".bias"),
+                "mean": g(stem + ".running_mean"), "var": g(stem + ".running_var")}
+
+    stages = []
+    for si, n_blocks in enumerate(cfg.stage_blocks):
+        blocks = []
+        for bi in range(n_blocks):
+            b = f"layer{si + 1}.{bi}."
+            blk = {"w1": cw(b + "conv1.weight"), "bn1": bn(b + "bn1"),
+                   "w2": cw(b + "conv2.weight"), "bn2": bn(b + "bn2"),
+                   "w3": cw(b + "conv3.weight"), "bn3": bn(b + "bn3")}
+            if (prefix + b + "downsample.0.weight") in sd:
+                blk["w_sc"] = cw(b + "downsample.0.weight")
+                blk["bn_sc"] = bn(b + "downsample.1")
+            blocks.append(blk)
+        stages.append(blocks)
+    return {"stem_w": cw("conv1.weight"), "stem_bn": bn("bn1"), "stages": stages}

@@ -9,7 +9,7 @@ that is not a multiple of it is zero-padded before the partition and
 cropped after. Windows fold into the batch for one attention product a
 block; logits and softmax are float32. No kernel runs here: the JAX package
 computes Swin with XLA ops. `window_partition` / `window_reverse` also serve
-DaViT. The checkpoint converter waits for the loaders (ROADMAP A7).
+DaViT. `convert_torch` reads the vendored Swin's `backbone.` keys.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vitron_tpu_torch.models.diffusion.layers import layout, lin_w, reading
 from vitron_tpu_torch.models.seem.pixel_decoder import _ln
 
 
@@ -183,3 +184,43 @@ def init_params(gen: torch.Generator, cfg: SwinConfig, device) -> Dict[str, Any]
     return {"patch_w": dense(cfg.patch_size ** 2 * 3, cfg.embed_dim),
             "patch_b": zeros(cfg.embed_dim), "patch_norm": ln(cfg.embed_dim),
             "stages": stages, "out_norms": [ln(c) for c in cfg.dims]}
+
+
+def convert_torch(sd, cfg: SwinConfig, prefix: str = "backbone.", device="cpu") -> Dict[str, Any]:
+    """Vendored Swin state dict -> param tree on `device` (the JAX
+    `convert_torch`, :209; swin.py naming: patch_embed.proj/norm,
+    layers.{i}.blocks.{j}.*, layers.{i}.downsample.*, norm{i}). The p x p
+    patch conv becomes a dense on flattened patches, [p p 3, C]; each
+    block's relative-position bias table stays a table."""
+    sd = reading(sd, device)
+
+    def g(k):
+        return sd[prefix + k]
+
+    def lw(k):
+        return lin_w(sd, prefix + k)
+
+    def lnp(k):
+        return {"scale": g(k + ".weight"), "bias": g(k + ".bias")}
+
+    stages = []
+    for si, depth in enumerate(cfg.depths):
+        blocks = []
+        for bi in range(depth):
+            b = f"layers.{si}.blocks.{bi}."
+            blocks.append({
+                "norm1": lnp(b + "norm1"), "norm2": lnp(b + "norm2"),
+                "attn": {"qkv_w": lw(b + "attn.qkv.weight"), "qkv_b": g(b + "attn.qkv.bias"),
+                         "rel_bias": g(b + "attn.relative_position_bias_table"),
+                         "proj_w": lw(b + "attn.proj.weight"), "proj_b": g(b + "attn.proj.bias")},
+                "fc1_w": lw(b + "mlp.fc1.weight"), "fc1_b": g(b + "mlp.fc1.bias"),
+                "fc2_w": lw(b + "mlp.fc2.weight"), "fc2_b": g(b + "mlp.fc2.bias"),
+            })
+        stage = {"blocks": blocks}
+        if si < len(cfg.depths) - 1:
+            stage["merge_norm"] = lnp(f"layers.{si}.downsample.norm")
+            stage["merge_w"] = lw(f"layers.{si}.downsample.reduction.weight")
+        stages.append(stage)
+    return {"patch_w": layout(g("patch_embed.proj.weight"), "patch"),
+            "patch_b": g("patch_embed.proj.bias"), "patch_norm": lnp("patch_embed.norm"),
+            "stages": stages, "out_norms": [lnp(f"norm{i}") for i in range(len(cfg.depths))]}

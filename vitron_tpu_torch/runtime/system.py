@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from vitron_tpu_torch.media import visualize as vz
+from vitron_tpu_torch.media.asr import default_asr
 from vitron_tpu_torch.media.preprocess import _resize_hw, preprocess_image, preprocess_video
 from vitron_tpu_torch.mm.sketch import mask_to_bbox
 from vitron_tpu_torch.mm.tokenization import preprocess_region
@@ -39,22 +40,31 @@ def _resize_linear(x, h: int, w: int) -> torch.Tensor:
 
 
 class VitronSystem:
-    def __init__(self, engine: VitronEngine, memory_plan: Optional[MemoryPlan] = None):
+    def __init__(self, engine: Optional[VitronEngine], memory_plan: Optional[MemoryPlan] = None,
+                 device=None):
+        """`device`: where the system's backends live; with an engine, its
+        device (another one is an error), without one `cuda` unless given.
+        The memory plan is that device's (`MemoryPlan.for_device`, which
+        knows no budget off the card: a CPU system passes `memory_plan`)."""
         self.engine = engine
         self.registry = BackendRegistry()
+        gen = getattr(engine, "generator", None)
+        if gen is not None:
+            asked = None if device is None else torch.device(device)
+            if asked is not None and (asked.type != gen.device.type or (
+                    None not in (asked.index, gen.device.index)
+                    and asked.index != gen.device.index)):
+                raise ValueError(f"device {asked}: the engine's is {gen.device}")
+            device = gen.device
+        self.device = torch.device("cuda" if device is None else device)
         # speech-to-text hook for audio-referred segmentation: any object
-        # with .transcribe(audio) -> {"text": str}; none is ported yet
-        self.asr = None
+        # with .transcribe(audio) -> {"text": str}; a Whisper checkpoint
+        # when VITRON_WHISPER names one, else None
+        self.asr = default_asr(self.device)
         self._seem_text_mask = None
         # resident-weights placement ledger against the device's memory
-        # (the reference reloads backends from disk per request instead):
-        # by default the card's; off the card the caller passes a plan with
-        # its budget. A system without an engine (backends only) plans
-        # against the card when there is one.
-        gen = getattr(engine, "generator", None)
-        device = gen.device if gen is not None else torch.device(
-            "cuda" if torch.cuda.is_available() else "cpu")
-        self.memory_plan = memory_plan or MemoryPlan.for_device(device)
+        # (the reference reloads backends from disk per request instead)
+        self.memory_plan = memory_plan or MemoryPlan.for_device(self.device)
         self.memory_plan.add("llm+towers", tree_bytes(gen.params) if gen is not None else 0)
 
     def _track(self, name: str, params) -> None:
