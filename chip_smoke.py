@@ -317,6 +317,31 @@ Phases (any failure exits non-zero and prints no `ok` line):
    frames, G at WEIGHTS_G_FRAMES, F on a one-frame video (one keyframe)
    (cuts: their full-depth runs are phases 10, 11, 15, 15b and 15c); A, C,
    D and G with launches exact. The directory is then removed.
+28. (run after 29 (b), before 8) MPT-7B at mosaicml/mpt-7b's published widths
+   (`MPT_7B`), bf16 random weights from a seed on the card: a 512-token
+   cached prefill and 64 greedy cached tokens (`mpt_prefill_s`,
+   `mpt_decode_tok_s`, the peak), a prefix-LM prefill, no kernel launched;
+   then 2 layers of the same widths in float32 on the CPU and the card: the
+   prefill's logits within CPU_GPU_TOL, the same 8 greedy tokens.
+29. (run after 6c, on phase 6's system) VITRON_W4A8=1: a new engine on the
+   same packed weights, whose decode chunks run Q1 (`w4a8_matmul`) and its
+   prefill B1, as JAX's: the 128-token chat twice, graphed, launches exact
+   (`w4a8_decode_tok_s` beside phase 6's rate), the same steps eager
+   against the graphed scan (identical tokens); Q1's rows at the chat's
+   four (K, N) shapes, M 1/4/5/8/384, beside B1 on the same inputs. (b)
+   after 7: a 2-layer full-width float32 Vicuna's W4A8 scan on the CPU and
+   the card (W4A8_CPU_GPU_TOL, the same tokens or a near-tie).
+30. W8A8: (a) after 11, VITRON_UNET_QUANT=w8a8 through GligenPipeline on
+   the resident GLIGEN trees: task A at W8A8_TASK_A_STEPS PLMS steps twice
+   (`taskA_w8a8_request_s`, Q2 at every `sd_w8a8_sites` conv), a quantized
+   CFG call's ms beside the float32 call's, Q2's rows at every site beside
+   cuDNN's float32 and bf16 convs (the path it replaces, not a port); (b)
+   after 15, VITRON_VUNET_QUANT=w8a8 through Text2VideoPipeline on the
+   resident t2v trees: task D at W8A8_TASK_D_STEPS steps twice
+   (`video_unet_w8a8_cfg_steps_per_s`), Q2's rows at every
+   `video_w8a8_sites` conv, the opt-in q8 dot and q8t taps bit-equal to
+   their exact sums; (c) after 17b, tiny quantized SD and t2v UNets on the
+   CPU and the card (W8A8_CPU_GPU_TOL, Q2's launches at every site).
 Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
 and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
@@ -328,6 +353,7 @@ from __future__ import annotations
 import atexit
 import collections
 import collections.abc
+import contextlib
 import dataclasses
 import gc
 import json
@@ -344,6 +370,7 @@ from unittest import mock
 import numpy as np
 
 INT4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+MEASURED = {}  # numbers a later phase prints beside its own (phase 6's decode rate)
 INT4_TOL = 1e-2   # max |kernel - plain| / max |plain|: bf16 output rounding
 # B1's bf16 rows are also held at each output row's scale: max |kernel -
 # plain| over a row over that row's largest |plain|. Both sides round the
@@ -392,9 +419,10 @@ TASK_E_REPLY = "<module>E</module><instruction>track the red car</instruction>"
 TASK_C_SEEM_REPLY = "<module>C</module><instruction>the red car; a dog</instruction>"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # peak rates of the bound (H100 SXM data sheet, dense, at 700 W): bf16 on the
-# tensor cores for the bf16 matrix products, float32 on the CUDA cores for
-# everything else (float32 products run in full float32: TF32 is off)
-PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+# tensor cores for the bf16 matrix products, int8 on the tensor cores for
+# Q1 and Q2, float32 on the CUDA cores for everything else (float32
+# products run in full float32: TF32 is off)
+PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12, "int8_tensor": 1979e12}
 DW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 # B4 and B9 are also held at each output pixel's scale (`flash_row_rel` over
 # the pixel's C or D values): max |kernel - plain| over the pixel over its
@@ -1310,8 +1338,10 @@ def read_launches() -> dict:
 
 def expect_launches(want: dict, what: str) -> dict:
     """Every kernel's launch count since `reset_launches`; those named in
-    `want` must equal it, and B9, which no path calls, must be 0."""
-    want = {"conv3x3_same": 0, **want}
+    `want` must equal it, and B9, which no path calls, must be 0, as must
+    Q1 and Q2 where `want` does not name them (they run only under the
+    W4A8 / W8A8 knobs)."""
+    want = {"conv3x3_same": 0, "w4a8_matmul": 0, "conv2d_w8a8": 0, **want}
     got = read_launches()
     print(f"{what}: launches {got} (expected {want})", flush=True)
     check(all(got[k] == v for k, v in want.items()), f"{what}: kernel launches {got} != {want}")
@@ -1471,18 +1501,19 @@ VIDEO_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 B7_LONG_FRAMES = (40, 64)  # frame counts past B7's 32-frame kernel (ROADMAP C14)
 TASK_D_REPLY = ("<module>D</module><instruction>a red car driving along a coastal road at "
                 "sunset</instruction>")
-# DDIM-v steps of the smoke's task-D request (the reference runs 50): at ~2.5 s
-# per float32 CFG UNet call, two requests of 10 steps take ~50 s; a divisor of
-# 1000, so the sampler runs exactly this many steps
-TASK_D_STEPS = 10
+# DDIM-v steps of the smoke's task-D request (the reference runs 50): at ~2.4 s
+# per float32 CFG UNet call, two requests of 5 steps take ~25 s (10 until
+# phases 28-30 needed the time); a divisor of 1000, so the sampler runs
+# exactly this many steps
+TASK_D_STEPS = 5
 VIDEO_BF16_STEPS = 5
 I2V_LATENT = 64   # 512^2 frames over the SD VAE's factor 8
 I2V_FRAMES = 16
 TASK_G_REPLY = ("<module>G</module><instruction>the waves roll in and the boat drifts slowly"
                 "</instruction>")
 # DDIM-v steps of the smoke's task-G request (the reference runs 50), a
-# divisor of 1000 (ROADMAP C6); 5 if the whole smoke passes ~450 s
-TASK_G_STEPS = 10
+# divisor of 1000 (ROADMAP C6); 5 since phases 28-30 (10 before)
+TASK_G_STEPS = 5
 
 
 def i2v_context(ucfg, text_len: int) -> int:
@@ -2354,6 +2385,7 @@ def phase_slice(torch, card: str, system, params, cfg):
     _, t_prefill = timed_chat(torch, system, image,
                               SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
     decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
+    MEASURED["decode_tok_s"] = decode_tok_s
     weight_bytes = int4_weight_bytes(params)
     print(f"slice: request {t_req:.3f} s (128 tokens, same tokens twice), prefill request "
           f"(1 token) {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s "
@@ -6124,6 +6156,657 @@ def phase_weights(torch, card: str, root):
     return dict(total)
 
 
+# --------------------------------------------- MPT and the W4A8 / W8A8 variants
+
+# mosaicml/mpt-7b's published widths (its config.json): d_model 4096, 32
+# heads, 32 layers, expansion 4, vocab 50432, ALiBi, no bias, bf16
+MPT_7B = dict(vocab_size=50432, d_model=4096, n_heads=32, n_layers=32, expansion_ratio=4,
+              max_seq_len=2048)
+MPT_PREFILL = 512
+MPT_NEW = 64
+MPT_PREFIX = 256  # prompt positions of the prefix-LM prefill
+MPT_CPU_LAYERS = 2
+MPT_CPU_PROMPT = 32
+MPT_CPU_NEW = 8
+W4A8_CPU_NEW = 16
+W4A8_EAGER_NEW = 33  # the eager steps (~15 tok/s) against the graphed scan: 32 of them
+# the 2-layer W4A8 prefill's logits on the CPU and the card: float32 on both
+# and exact int32 sums, but each activation row is rounded to int8 from
+# float layers summed in other orders, and a flipped level moves its row's
+# product by ~5e-4 (one of ~30 levels over sqrt(K) = 64 terms)
+W4A8_CPU_GPU_TOL = 1e-2
+W8A8_TASK_A_STEPS = 5   # phase 30's PLMS steps for the quantized task A (phase 10 runs 50)
+W8A8_TASK_D_STEPS = 2   # and DDIM-v steps for the quantized task D (phase 15 runs 5)
+# Q1 and Q2 against their plain versions at each output row / pixel's
+# scale: the int32 sums are exact on both sides, so float32 outputs are
+# bit-equal and a bf16 output may flip one rounding, 2^-7 of the value
+Q_ROW_REL = {"float32": 0.0, "bfloat16": 2 ** -7}
+# A tiny quantized UNet's whole forward on the CPU and the card. Each
+# quantized product is held bit-equal from the same inputs; the whole nets
+# differ by flips: an ulp of the float layers' other summation order moves
+# an activation across a rounding boundary, one int8 level, and the later
+# layers compound it (measured 5.6e-3 and 2.1e-2 for the tiny SD net in two
+# card runs, 3.7e-2 between JAX and the port for the t2v net). 2^-3 still
+# fails a dropped tap (0.5) or a wrong scale's sign.
+W8A8_CPU_GPU_TOL = 2 ** -3
+
+
+def sd_w8a8_sites(ucfg, latent: int, batch: int, min_channels: int = 64) -> collections.Counter:
+    """((B, H, W, C), Co, stride, padding) of every conv of one SD UNet call
+    that `unet2d.quantize_params(min_channels)` sends to Q2, with its count,
+    from the block plan: the res blocks' two 3x3 convs, the stride-2
+    downsamples at their input size, the upsamples' convs at the doubled
+    size (conv_in and the out conv, 4 or 9 channels wide, stay float)."""
+    from vitron_tpu_torch.models.diffusion.unet2d import block_plan
+
+    sites = collections.Counter()
+
+    def add(h, w, c, co, stride=1):
+        if c >= min_channels and co >= min_channels:
+            sites[((batch, h, w, c), co, stride, 1)] += 1
+
+    h = w = latent
+    input_plan, middle_plan, output_plan = block_plan(ucfg)
+    for entries in input_plan + [middle_plan] + output_plan:
+        for e in entries:
+            if e[0] == "conv_in":
+                add(h, w, e[1], e[2])
+            elif e[0] == "res":
+                add(h, w, e[1], e[2])
+                add(h, w, e[2], e[2])
+            elif e[0] == "down":
+                add(h, w, e[1], e[1], 2)
+                h, w = (h + 1) // 2, (w + 1) // 2
+            elif e[0] == "up":
+                h, w = 2 * h, 2 * w
+                add(h, w, e[1], e[1])
+    add(latent, latent, ucfg.model_channels, ucfg.out_channels)
+    return sites
+
+
+def video_w8a8_sites(ucfg, lh: int, lw: int, batch: int,
+                     min_channels: int = 64) -> collections.Counter:
+    """The same for one video UNet call on `batch` folded frames at an
+    lh x lw latent (`unet_sd_video.quantize_params(min_channels)`)."""
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import block_plan_hw
+
+    sites = collections.Counter()
+
+    def add(h, w, c, co, stride=1):
+        if c >= min_channels and co >= min_channels:
+            sites[((batch, h, w, c), co, stride, 1)] += 1
+
+    cur = (lh, lw)
+    for e, h, w in block_plan_hw(ucfg, lh, lw):
+        if e[0] == "conv_in":
+            add(h, w, e[1], e[2])
+        elif e[0] == "res":
+            add(h, w, e[1], e[2])
+            add(h, w, e[2], e[2])
+        elif e[0] == "down":
+            add(*cur, e[1], e[1], 2)
+        elif e[0] == "up":
+            add(2 * h, 2 * w, e[1], e[1])
+        cur = (2 * h, 2 * w) if e[0] == "up" else (h, w)
+    add(lh, lw, ucfg.dim, ucfg.out_dim)
+    return sites
+
+
+def w8a8_sites() -> collections.Counter:
+    """Every Q2 site of phase 30's two quantized UNets: task A's SD v1.4
+    GLIGEN UNet (CFG batch 2 at 64x64) and task D's t2v UNet (2 x 24 frames
+    at 40x72), with the count of one CFG call each."""
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoConfig
+
+    a, d = GligenConfig(), Text2VideoConfig()
+    return (sd_w8a8_sites(a.unet, a.latent_size, 2)
+            + video_w8a8_sites(d.unet, *VIDEO_LATENT, 2 * VIDEO_FRAMES))
+
+
+def phase_mpt(torch, card: str):
+    """Phase 28: MPT-7B's published widths, bf16, random weights from a seed
+    on the card: a 512-token cached prefill and 64 greedy cached tokens
+    (prefill s, tok/s, peak GiB), a prefix-LM prefill, and no kernel
+    launched (MPT has none). Then the CPU against the card at 2 layers of
+    the same widths in float32: the prefill's logits within CPU_GPU_TOL
+    and the same greedy tokens."""
+    from vitron_tpu_torch.models.llm import mpt
+
+    dev = torch.device("cuda")
+    cfg = mpt.MPTConfig(**MPT_7B)
+    g = torch.Generator(device=dev).manual_seed(28)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = mpt.init_params(g, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"mpt: MPT-7B ({n_params / 1e9:.3f}B params, bf16) random weights built on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    ids = torch.randint(0, cfg.vocab_size, (1, MPT_PREFILL), generator=g, device=dev)
+    mpt.forward(params, cfg, ids[:, :16])  # warm-up (library handles, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cache = mpt.kv_cache(cfg, 1, MPT_PREFILL + MPT_NEW, dev)
+    t0 = time.perf_counter()
+    logits, cache = mpt.forward(params, cfg, ids, cache=cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "mpt: prefill logits are not finite")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(MPT_NEW):
+        toks.append(tok)
+        logits, cache = mpt.forward(params, cfg, tok, cache=cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(toks, 1)[0].tolist()
+    check(bool(torch.isfinite(logits).all()) and cache.index == MPT_PREFILL + MPT_NEW
+          and all(0 <= t < cfg.vocab_size for t in tokens),
+          f"mpt: decode logits finite, cache at {cache.index}, tokens in the vocabulary")
+    launches = expect_launches({name: 0 for name, _, _ in _counters()}, "mpt")
+    print(f"mpt_prefill_s={t_prefill:.4f} ({MPT_PREFILL} tokens, cached) "
+          f"mpt_decode_tok_s={MPT_NEW / t_decode:.2f} ({MPT_NEW} greedy cached tokens, eager, "
+          f"einsum attention with the ALiBi bias) peak {peak / 2**30:.2f} GiB, "
+          f"{(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} resident before the "
+          f"weights; tokens {tokens[:8]}... [{card}]", flush=True)
+
+    causal = mpt.forward(params, cfg, ids)
+    prefix = torch.zeros_like(ids, dtype=torch.bool)
+    prefix[:, :MPT_PREFIX] = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plm = mpt.forward(params, cfg, ids, prefix_mask=prefix)
+    torch.cuda.synchronize()
+    t_plm = time.perf_counter() - t0
+    moved = (plm[0, 0] - causal[0, 0]).abs().max().item()
+    check(bool(torch.isfinite(plm).all()) and moved > 0,
+          f"mpt: prefix-LM logits finite and the first row moved ({moved})")
+    print(f"mpt: prefix-LM prefill ({MPT_PREFILL} tokens, the first {MPT_PREFIX} "
+          f"bidirectional) {t_plm:.4f} s, finite; the first position's logits move by "
+          f"{moved:.4f} from the causal prefill's [{card}]", flush=True)
+    del params, cache, logits, causal, plm
+    torch.cuda.empty_cache()
+
+    f32 = torch.float32
+    small = dataclasses.replace(cfg, n_layers=MPT_CPU_LAYERS, param_dtype=f32, compute_dtype=f32)
+    cpu = torch.device("cpu")
+    p_cpu = mpt.init_params(torch.Generator().manual_seed(29), small, cpu)
+    p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+    prompt = torch.randint(0, small.vocab_size, (1, MPT_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(30))
+    out = {}
+    for name, device, p in (("cuda", dev, p_dev), ("cpu", cpu, p_cpu)):
+        t0 = time.perf_counter()
+        c = mpt.kv_cache(small, 1, MPT_CPU_PROMPT + MPT_CPU_NEW, device)
+        lg, c = mpt.forward(p, small, prompt.to(device), cache=c)
+        first = lg[0, -1].float().cpu()
+        toks = []
+        for _ in range(MPT_CPU_NEW):
+            t = int(lg[0, -1].argmax())
+            toks.append(t)
+            lg, c = mpt.forward(p, small, torch.tensor([[t]], device=device), cache=c)
+        out[name] = (first, toks)
+        print(f"mpt cpu-vs-card: {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    rel = ((out["cuda"][0] - out["cpu"][0]).abs().max() / out["cpu"][0].abs().max()).item()
+    same = out["cuda"][1] == out["cpu"][1]
+    print(f"mpt cpu-vs-card: {MPT_CPU_LAYERS}-layer MPT-7B-width float32 prefill logits "
+          f"rel_err={rel:.3e} (limit {CPU_GPU_TOL}), {MPT_CPU_NEW} greedy tokens identical="
+          f"{same} [{card}]", flush=True)
+    check(rel <= CPU_GPU_TOL and same, f"mpt: CPU and card disagree: rel {rel}, tokens "
+          f"{out['cuda'][1]} vs {out['cpu'][1]}")
+    del p_dev
+    torch.cuda.empty_cache()
+    return launches
+
+
+def w4a8_row(torch, card: str, g, m: int, k: int, n: int, flush=None) -> dict:
+    """Q1 against its plain version on x [m, k] bf16 and a random packed
+    [k/2, n] weight: each output row within Q_ROW_REL, the same bits twice,
+    CUDA-event times (the weights flushed from L2 by a read) beside the
+    bound (bytes at 3.35 TB/s, or 2 m k n operations at the int8 peak) and,
+    as the comparison arm, B1 (the int4 product it replaces on the decode
+    path) on the same x and weight. No PyTorch call takes the packing."""
+    from vitron_tpu_torch.kernels import int4_matmul as i4
+    from vitron_tpu_torch.kernels import w4a8_matmul as q1
+
+    dev = torch.device("cuda")
+    q4 = torch.randint(-128, 128, (k // 2, n), generator=g, dtype=torch.int8, device=dev)
+    s = torch.rand((1, n), generator=g, device=dev) * 0.02 + 0.01
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    got, again = q1.w4a8_matmul(x, q4, s), q1.w4a8_matmul(x, q4, s)
+    want = q1.w4a8_matmul_plain(x, q4, s)
+    err, rel = rel_err(got, want)
+    row_rel = flash_row_rel(got, want)
+    same = bool(torch.equal(got, again))
+    del again, want
+    ms = cuda_ms(torch, lambda: q1.w4a8_matmul(x, q4, s), flush=flush)
+    plain_ms = cuda_ms(torch, lambda: q1.w4a8_matmul_plain(x, q4, s), iters=3, warmup=1,
+                       flush=flush)
+    b1_ms = cuda_ms(torch, lambda: i4.int4_matmul(x, q4, s), flush=flush)
+    ops = 2 * m * k * n
+    r = dict(row(err, rel, ms, plain_ms, nbytes(x, q4, s, got), ops, "int8_tensor"),
+             ref_ms=b1_ms, row_rel=row_rel)
+    rate = (f"{q4.numel() / (ms * 1e-3) / 1e9:.0f} GB/s packed" if m <= q1.GEMV_MAX_M
+            else f"{ops / (ms * 1e-3) / 1e12:.1f} TOP/s")
+    print(f"w4a8_matmul M={m} K={k} N={n} bf16: rel_err={rel:.3e} row_rel_err={row_rel:.3e} "
+          f"(limit {Q_ROW_REL['bfloat16']:.3e}), same bits twice={same}; kernel {ms:.4f} ms "
+          f"({rate}) plain {plain_ms:.4f} ms {bound_text(r)}; comparison arm, B1 (int4_matmul) "
+          f"on the same x and weight {b1_ms:.4f} ms [{card}]", flush=True)
+    check(row_rel <= Q_ROW_REL["bfloat16"] and same,
+          f"w4a8_matmul M={m} K={k} N={n}: row rel err {row_rel}, same bits twice {same}")
+    return r
+
+
+def eager_scan(torch, gen_, arrays, n_new: int):
+    """`Generator.scan` with the decode chunk's steps run eagerly (its body,
+    not its graph): the prefill on the W4A8 tree, then n_new - 1 greedy
+    steps -> (tokens, seconds of the steps)."""
+    from vitron_tpu_torch.runtime.generation import cache_slots
+
+    pad_len = arrays[0].shape[1]
+    chunk = gen_._chunk(n_new - 1, 1, cache_slots(pad_len + n_new), False)
+    logits = gen_._prefill(chunk.cache, *arrays, params=gen_.decode_params)
+    token = logits.argmax(-1)[:, None]
+    chunk.start(token, gen_._t(arrays[5], torch.int64)[:, None], pad_len, 0.0, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk._body()
+    torch.cuda.synchronize()
+    return torch.cat([token, chunk.emits], 1)[0].tolist(), time.perf_counter() - t0
+
+
+def text_plan(cfg_llm, n: int, seed: int, pad: int = 64):
+    """A text-only splice plan of n random ids (BOS first)."""
+    from vitron_tpu_torch.mm.splice import plan_splice
+
+    ids = [1] + np.random.RandomState(seed).randint(3, cfg_llm.vocab_size, n - 1).tolist()
+    return plan_arrays(plan_splice([ids], [], pad))
+
+
+def phase_w4a8(torch, card: str, system, params, cfg, plain_tok_s: float):
+    """Phase 29: the chat system of phase 6 served under VITRON_W4A8=1 (a new
+    engine on the same packed weights: its decode chunks run Q1, its
+    prefill B1, as JAX's do): a 128-token greedy request twice, graphed,
+    with Q1's launches exact, beside phase 6's plain rate; the same decode
+    steps eager (`eager_scan`) against the graphed `scan`, identical tokens.
+    Then Q1's rows at the chat's four (K, N) shapes, M 1/4/5/8/384."""
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.runtime.engine import VitronEngine
+    from vitron_tpu_torch.runtime.generation import DEFAULT_DECODE_CHUNK, SamplingConfig
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    dev = torch.device("cuda")
+    image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+    sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
+    n_layers = cfg.llm.num_layers
+    per_forward = 7 * n_layers + 1
+    steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
+    with mock.patch.dict(os.environ, {"VITRON_W4A8": "1", "VITRON_SPEC": "0"}):
+        engine = VitronEngine(params, cfg, DemoTokenizer(), device=dev)
+        w_system = VitronSystem(engine)
+        timed_chat(torch, w_system, image, sampling)  # warm-up: captures the decode graph
+        reset_launches()
+        out1, t_req = timed_chat(torch, w_system, image, sampling)
+        launches = expect_launches({"int4_matmul": per_forward, "w4a8_matmul": per_forward * steps,
+                                    "flash_attention": n_layers}, "w4a8 chat")
+        tokens = out1["reply"]["tokens"]
+        check(len(tokens) == NEW_TOKENS, f"w4a8 chat: {len(tokens)} tokens")
+        out2, _ = timed_chat(torch, w_system, image, sampling)
+        check(out2["reply"]["tokens"] == tokens, "w4a8 chat: a second request gave other tokens")
+        _, t_prefill = timed_chat(torch, w_system, image,
+                                  SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
+        tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
+
+        gen_ = engine.generator
+        arrays = text_plan(cfg.llm, 40, seed=29)
+        graphed = gen_.scan(arrays, W4A8_EAGER_NEW)[0].tolist()  # captures the scan's chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed = gen_.scan(arrays, W4A8_EAGER_NEW)[0].tolist()
+        torch.cuda.synchronize()
+        t_graphed = time.perf_counter() - t0
+        eager, t_eager = eager_scan(torch, gen_, arrays, W4A8_EAGER_NEW)
+        check(eager == graphed, "w4a8: the eager steps gave other tokens than the graph")
+    print(f"w4a8_decode_tok_s={tok_s:.1f} (VITRON_W4A8=1 chat, {NEW_TOKENS} greedy tokens, "
+          f"graphed decode chunk on Q1; request {t_req:.3f} s, 1-token request {t_prefill:.3f} "
+          f"s) beside phase 6's plain int4 decode {plain_tok_s:.1f} tok/s; eager steps "
+          f"{(W4A8_EAGER_NEW - 1) / t_eager:.1f} tok/s ({W4A8_EAGER_NEW - 1} steps of a text "
+          f"prompt, the same tokens as the graphed scan's {t_graphed:.3f} s with its prefill) "
+          f"[{card}]",
+          flush=True)
+    del engine, w_system, gen_
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(291)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for m in (1, 4, 5, 8, 384):
+        for k, n in INT4_SHAPES:
+            rows.append(w4a8_row(torch, card, g, m, k, n, flush=flush))
+        print_sums(f"Q1 at M {m}", rows[-len(INT4_SHAPES):], card)
+    del flush
+    return launches, rows
+
+
+def phase_w4a8_cpu_vs_card(torch, card: str):
+    """Phase 29 (b): a 2-layer full-width float32 Vicuna (int4 at the init's
+    scale) under VITRON_W4A8=1 on the CPU and the card: `Generator.scan`'s
+    W4A8 prefill logits within W4A8_CPU_GPU_TOL and its 16 greedy tokens
+    the same, or first different at a near-tie of the CPU's logits."""
+    from vitron_tpu_torch.models.llm import llama
+    from vitron_tpu_torch.models.llm.llama import LlamaConfig
+    from vitron_tpu_torch.models.vision.vit import ViTConfig
+    from vitron_tpu_torch.models.vitron_model import VitronConfig
+    from vitron_tpu_torch.runtime.generation import Generator
+
+    f32 = torch.float32
+    cfg = VitronConfig(
+        llm=LlamaConfig.vicuna_7b(num_layers=2, max_seq_len=1024, param_dtype=f32,
+                                  compute_dtype=f32),
+        image_tower=ViTConfig.clip_vit_l14(), video_tower=ViTConfig.video_vit_l14())
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    _, params = build_system(torch, cfg, dev, seed=5)
+    arrays = text_plan(cfg.llm, 24, seed=30)
+    out = {}
+    with mock.patch.dict(os.environ, {"VITRON_W4A8": "1"}):
+        for name, device, p in (("cuda", dev, params),
+                                ("cpu", cpu, tree_map(lambda a: a.cpu(), params))):
+            t0 = time.perf_counter()
+            gen_ = Generator(p, cfg, device)
+            toks = gen_.scan(arrays, W4A8_CPU_NEW)[0].tolist()
+            out[name] = (gen_.last_prefill_logits.float().cpu(), toks, gen_)
+            print(f"w4a8 cpu-vs-card: {name} {time.perf_counter() - t0:.1f} s", flush=True)
+        err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+        rel = err / out["cpu"][0].abs().max().item()
+        got, want = out["cuda"][1], out["cpu"][1]
+        how = "identical"
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if j is not None:  # the CPU's logits before token j, fed the CPU's tokens
+            cgen = out["cpu"][2]
+            llm = cgen.decode_params["llm"]
+            seq = int(arrays[5][0])
+            ids = torch.tensor([arrays[0][0][:seq].tolist() + want[:j]])
+            lg, _ = llama.forward_tokens(llm, cfg.llm, ids, positions=torch.arange(
+                ids.shape[1])[None])
+            top = lg[0, -1].topk(2).values.tolist()
+            how = (f"first divergence at token {j}: the CPU's top-2 logits {top[0]:.5f} / "
+                   f"{top[1]:.5f}, gap {top[0] - top[1]:.5f} (limit {4 * err:.5f}, four times "
+                   f"the prefill's largest logit difference)")
+            check(top[0] - top[1] <= 4 * err, f"w4a8 cpu-vs-card: {how}")
+    print(f"w4a8 cpu-vs-card: 2-layer full-width float32 Vicuna, VITRON_W4A8=1 scan: prefill "
+          f"logits rel_err={rel:.3e} (limit {W4A8_CPU_GPU_TOL}), {W4A8_CPU_NEW} greedy tokens "
+          f"{how} [{card}]", flush=True)
+    check(rel <= W4A8_CPU_GPU_TOL, f"w4a8: CPU and card prefill logits disagree: {rel}")
+    del out, params
+    torch.cuda.empty_cache()
+
+
+def q2_row(torch, card: str, g, xs: tuple, co: int, stride: int, pad: int, count: int,
+           dtype) -> dict:
+    """Q2 against its plain version (the exact float64 conv of the integers)
+    at one site: each output pixel within Q_ROW_REL of its largest, the same
+    bits twice, CUDA-event times beside the bound (bytes at 3.35 TB/s, or
+    2 M 9C Co operations at the int8 peak) and, labelled as the path it
+    replaces (not a port), cuDNN's float32 and bf16 convs at the same shape
+    (channels-last, TF32 off)."""
+    import torch.nn.functional as F
+
+    from vitron_tpu_torch.kernels import conv2d_w8a8 as q2
+
+    dev = torch.device("cuda")
+    c = xs[-1]
+    xq = torch.randint(-127, 128, xs, generator=g, dtype=torch.int8, device=dev)
+    qc = torch.randint(-127, 128, (3, 3, c, co), generator=g, dtype=torch.int8, device=dev)
+    ssx = torch.rand((co,), generator=g, device=dev) * 1e-5
+    got = q2.conv_s8(xq, qc, ssx, stride, pad, dtype)
+    again = q2.conv_s8(xq, qc, ssx, stride, pad, dtype)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = q2.conv_s8_plain(xq, qc, ssx, stride, pad, dtype)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err, rel = rel_err(got, want)
+    px_rel = flash_row_rel(got, want)
+    same = bool(torch.equal(got, again))
+    del again, want
+    ms = cuda_ms(torch, lambda: q2.conv_s8(xq, qc, ssx, stride, pad, dtype), iters=10)
+    lib = {}
+    for name, t in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        xt = xq.to(t).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        wt = qc.to(t).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib[name] = cuda_ms(torch, lambda: F.conv2d(xt, wt, stride=stride, padding=pad),
+                            iters=5, warmup=1)
+        del xt, wt
+    m = got.numel() // co
+    ops = 2 * m * 9 * c * co
+    r = dict(row(err, rel, ms, plain_ms, nbytes(xq, qc, ssx, got), ops, "int8_tensor"),
+             replaces_ms=lib, count=count, site=(xs, co, stride, pad))
+    print(f"conv2d_w8a8 x={xs} Co={co} stride={stride} pad={pad} ({count} a call) "
+          f"{str(dtype).split('.')[-1]}: pixel_rel_err={px_rel:.3e} (limit "
+          f"{Q_ROW_REL[str(dtype).split('.')[-1]]:.3e}), same bits twice={same}; kernel "
+          f"{ms:.4f} ms ({ops / (ms * 1e-3) / 1e12:.1f} TOP/s) plain (float64 conv) "
+          f"{plain_ms:.4f} ms {bound_text(r)}; the path it replaces, not a port: cuDNN float32 "
+          f"{lib['float32']:.4f} ms, bf16 {lib['bf16']:.4f} ms [{card}]", flush=True)
+    check(px_rel <= Q_ROW_REL[str(dtype).split(".")[-1]] and same,
+          f"conv2d_w8a8 {xs} Co {co} stride {stride}: pixel rel err {px_rel}, same bits {same}")
+    return r
+
+
+def q2_rows(torch, card: str, sites: collections.Counter, what: str) -> list:
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(30)
+    rows = [q2_row(torch, card, g, xs, co, st, pad, n, torch.float32)
+            for (xs, co, st, pad), n in sorted(sites.items())]
+    ms = sum(r["ms"] * r["count"] for r in rows)
+    f32 = sum(r["replaces_ms"]["float32"] * r["count"] for r in rows)
+    bf = sum(r["replaces_ms"]["bf16"] * r["count"] for r in rows)
+    bound = sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"] for r in rows)
+    print(f"Q2 at {what}'s {len(rows)} sites ({sum(sites.values())} convs a CFG call): "
+          f"{ms:.3f} ms a call, bound {bound:.3f} ms; cuDNN float32 {f32:.3f} ms, bf16 "
+          f"{bf:.3f} ms [{card}]", flush=True)
+    return rows
+
+
+def phase_w8a8_task_a(torch, card: str, pipe):
+    """Phase 30 (a): the resident GLIGEN pipeline's trees through
+    GligenPipeline under VITRON_UNET_QUANT=w8a8 (both UNets' eligible convs
+    to Q2): task A at W8A8_TASK_A_STEPS PLMS steps, twice, launches exact
+    (Q2 at every `sd_w8a8_sites` conv of every call), identical images; one
+    quantized CFG UNet call's ms beside the float32 call's, and the
+    quantized eps against the float one; Q2's rows at every site."""
+    from vitron_tpu_torch.models.diffusion import clip_text
+    from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenPipeline
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    cfg = dataclasses.replace(pipe.cfg, steps=W8A8_TASK_A_STEPS)
+    with mock.patch.dict(os.environ, {"VITRON_UNET_QUANT": "w8a8"}):
+        qpipe = GligenPipeline(cfg, pipe.unet_params, pipe.vae_params, pipe.text_params,
+                               inpaint_unet_params=pipe.inpaint_unet_params,
+                               tokenizer=pipe.tokenizer)
+    sites = sd_w8a8_sites(cfg.unet, cfg.latent_size, 2)
+    system = VitronSystem(None)
+    system.register_gligen(qpipe)
+    unet = unet_counts(cfg.unet, cfg.latent_size, cfg.max_objs, cfg.text.max_length)
+    _, dec = vae_counts(cfg.vae, cfg.latent_size ** 2)
+    calls = cfg.steps + 1
+    want = {k: calls * unet[k] + dec[k] for k in unet}
+    want["conv2d_w8a8"] = calls * sum(sites.values())
+    runs = []
+    for i in range(2):
+        reset_launches()
+        out, t_req = timed_route(torch, system, TASK_A_REPLY)
+        launches = expect_launches(want, f"w8a8 task A run {i + 1}")
+        img = out["image"]
+        check(out["status"] == "ok" and img.shape == (cfg.image_size, cfg.image_size, 3)
+              and img.dtype == np.uint8 and int(img.max()) != int(img.min()),
+              f"w8a8 task A: status {out['status']}, image {img.shape}")
+        runs.append(img)
+    check(np.array_equal(runs[0], runs[1]), "w8a8 task A: two requests gave other images")
+
+    inputs = pipe.prepare("a red car on a street", [[0.1, 0.2, 0.6, 0.8]],
+                          ["a red car on a street"])
+    ctx = clip_text.encode(pipe.text_params, cfg.text, inputs["ids_ctx"])
+    uc = clip_text.encode(pipe.text_params, cfg.text, inputs["ids_uc"])
+    text_emb = torch.zeros((1, cfg.max_objs, cfg.unet.context_dim), device=pipe.device)
+    args = (ctx, uc, inputs["gb"], inputs["gm"], text_emb, 7.5)
+    q_params = qpipe.prepare("a red car on a street", [[0.1, 0.2, 0.6, 0.8]],
+                             ["a red car on a street"])["params"]  # the quantized UNet's
+    eps_f, eps_q = pipe._eps_fn(inputs["params"], *args), qpipe._eps_fn(q_params, *args)
+    x = torch.randn((1, cfg.latent_size, cfg.latent_size, 4), device=pipe.device,
+                    generator=torch.Generator(device=pipe.device).manual_seed(31))
+    f_out, q_out = eps_f(x, 501, 1.0), eps_q(x, 501, 1.0)
+    dev_rel = ((q_out - f_out).abs().max() / f_out.abs().max()).item()
+    check(bool(torch.isfinite(q_out).all()), "w8a8 task A: non-finite quantized eps")
+    ms = {}
+    for name, fn in (("float32", eps_f), ("w8a8", eps_q), ("float32 again", eps_f),
+                     ("w8a8 again", eps_q)):
+        ms[name] = cuda_ms(torch, lambda: fn(x, 501, 1.0), iters=5, warmup=1)
+    print(f"taskA_w8a8_request_s={t_req:.3f} ({cfg.steps} PLMS steps, {calls} CFG calls, "
+          f"{sum(sites.values())} Q2 convs a call); a CFG UNet call: w8a8 {ms['w8a8']:.2f} / "
+          f"{ms['w8a8 again']:.2f} ms beside float32 {ms['float32']:.2f} / "
+          f"{ms['float32 again']:.2f} ms (in turns); the quantized eps differs from the float "
+          f"one by {dev_rel:.3e} of its largest [{card}]", flush=True)
+    del qpipe, system, eps_q
+    torch.cuda.empty_cache()
+    return launches, q2_rows(torch, card, sites, "task A's SD UNet")
+
+
+def phase_w8a8_task_d(torch, card: str, pipe):
+    """Phase 30 (b): the resident t2v pipeline's trees through
+    Text2VideoPipeline under VITRON_VUNET_QUANT=w8a8: task D at
+    W8A8_TASK_D_STEPS DDIM-v steps (24 frames at 320x576), twice, launches
+    exact (Q2 at every `video_w8a8_sites` conv); one quantized CFG call's
+    ms beside the float32 call's, in turns; Q2's rows at every site; the
+    opt-in q8 dot and q8t tap forms once each against their plain versions
+    (the exact float64 sums in place of `torch._int_mm`), bit-equal."""
+    from vitron_tpu_torch.kernels import quantization as tq
+    from vitron_tpu_torch.kernels import temporal_conv as tc
+    from vitron_tpu_torch.kernels import w4a8_matmul as q1
+    from vitron_tpu_torch.models.diffusion import clip_text
+    from vitron_tpu_torch.models.diffusion.video_pipelines import Text2VideoPipeline
+    from vitron_tpu_torch.runtime.system import VitronSystem
+
+    cfg = dataclasses.replace(pipe.cfg, steps=W8A8_TASK_D_STEPS)
+    with mock.patch.dict(os.environ, {"VITRON_VUNET_QUANT": "w8a8"}):
+        qpipe = Text2VideoPipeline(cfg, pipe.unet_params, pipe.vae_params, pipe.text_params,
+                                   tokenizer=pipe.tokenizer)
+    lh, lw = cfg.latent_hw
+    sites = video_w8a8_sites(cfg.unet, lh, lw, 2 * cfg.num_frames)
+    system = VitronSystem(None)
+    system.register_text2video(qpipe)
+    per_call = video_counts(cfg.unet, lh, lw, cfg.text.max_length)
+    per_call["conv2d_w8a8"] = sum(sites.values())
+    _, dec = vae_counts(cfg.vae, lh * lw)
+    want = {k: cfg.steps * per_call[k] + dec.get(k, 0) for k in per_call}
+    launches, t_req = video_requests(
+        torch, card, system, TASK_D_REPLY, "video_generation", want,
+        (cfg.num_frames, cfg.height, cfg.width, 3), f"w8a8, {cfg.steps} DDIM-v steps")
+    ids = pipe.tokenize(["a red car", ""])
+    ctx = clip_text.encode(pipe.text_params, cfg.text, ids)
+    v_f, v_q = pipe.v_fn(ctx), qpipe.v_fn(ctx)
+    x = torch.randn((1, cfg.num_frames, lh, lw, cfg.unet.in_dim), device=pipe.device,
+                    generator=torch.Generator(device=pipe.device).manual_seed(32))
+    ms = {}
+    for name, fn in (("float32", v_f), ("w8a8", v_q), ("float32 again", v_f),
+                     ("w8a8 again", v_q)):
+        ms[name] = cuda_ms(torch, lambda: fn(x, 501), iters=1, warmup=0)  # both warm
+    print(f"video_unet_w8a8_cfg_steps_per_s={1e3 / ms['w8a8 again']:.4f} (a CFG call "
+          f"{ms['w8a8']:.2f} / {ms['w8a8 again']:.2f} ms, {sum(sites.values())} Q2 convs) "
+          f"beside float32 {ms['float32']:.2f} / {ms['float32 again']:.2f} ms (in turns); "
+          f"taskD_w8a8_request_s={t_req:.3f} ({cfg.steps} steps, 24 frames) [{card}]",
+          flush=True)
+    del qpipe, system, v_q
+    torch.cuda.empty_cache()
+    rows = q2_rows(torch, card, sites, "task D's t2v UNet")
+
+    # the opt-in forms, once each, on the widest level's temporal-transformer shapes
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(33)
+    n, c = lh * lw, cfg.unet.dim
+    x = torch.randn((2, cfg.num_frames, n, c), generator=g, device=dev)
+    w8 = tq.quantize_int8_a8(torch.randn((c, c), generator=g, device=dev) * c ** -0.5)
+    wt = tq.quantize_tconv(torch.randn((3, 1, c, c), generator=g, device=dev) * c ** -0.5)
+    got_dot, got_tap = tq.matmul_maybe_quantized(x, w8), tc.temporal_conv_k3(x, wt)
+    with mock.patch.object(tq, "int_dot", q1.exact_int_dot):
+        want_dot, want_tap = tq.matmul_maybe_quantized(x, w8), tc.temporal_conv_k3(x, wt)
+    same = torch.equal(got_dot, want_dot) and torch.equal(got_tap, want_tap)
+    print(f"w8a8 opt-in forms at [2, {cfg.num_frames}, {n}, {c}]: the q8 dot and the q8t taps "
+          f"(torch._int_mm on the card) bit-equal to the exact float64 sums: {same} [{card}]",
+          flush=True)
+    check(same, "w8a8: the q8 dot or the q8t taps differ from their exact sums")
+    return launches, rows
+
+
+def phase_w8a8_cpu_vs_card(torch, card: str):
+    """Phase 30 (c): tiny quantized UNets, float32, on the CPU and the card:
+    the SD UNet with every conv of 32 channels or more on Q2, and the t2v
+    UNet with every class quantized (convs on Q2, the transformer products
+    and the temporal taps on `torch._int_mm`). Every quantized product of
+    the CPU's forward (each `conv2d_w8a8`, q8 dot and q8t call, its inputs
+    and output recorded) runs again on the card from the same inputs and
+    must give the same bits. The two whole forwards then agree within
+    W8A8_CPU_GPU_TOL, and Q2's launches on the card equal the site
+    enumeration's."""
+    from vitron_tpu_torch.kernels import quantization as tq
+    from vitron_tpu_torch.kernels import temporal_conv as tc
+    from vitron_tpu_torch.models.diffusion import layers, unet2d, unet_sd_video
+    from vitron_tpu_torch.models.diffusion.synthetic import fill_zero_leaves
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    g = torch.Generator().manual_seed(34)
+    scfg = unet2d.UNetConfig.tiny(model_channels=64)
+    vcfg = unet_sd_video.UNetSDVideoConfig.tiny("t2v", dim=64, head_dim=32)  # B7 takes D 32
+    sd = unet2d.quantize_params(fill_zero_leaves(unet2d.init_params(g, scfg, cpu), g),
+                                min_channels=32)
+    vd = unet_sd_video.quantize_params(
+        fill_zero_leaves(unet_sd_video.init_params(g, vcfg, cpu), g), min_channels=32,
+        min_dot_dim=32, min_tconv_dim=32)
+    cases = (
+        ("convs", lambda p, *a: unet2d.forward(p, scfg, *a, gate_scale=0.7), sd,
+         (torch.randn((2, 16, 16, 4), generator=g), torch.tensor([981, 21]),
+          torch.randn((2, 16, 16), generator=g), torch.randn((2, 4, 16), generator=g)),
+         sd_w8a8_sites(scfg, 16, 2, 32)),
+        ("all classes", lambda p, x, t, y: unet_sd_video.forward(p, vcfg, x, t, y=y), vd,
+         (torch.randn((2, 3, 16, 16, 4), generator=g), torch.tensor([501.0, 17.0]),
+          torch.randn((2, 5, vcfg.context_dim), generator=g)),
+         video_w8a8_sites(vcfg, 16, 16, 6, 32)))
+    products = ((layers, "conv2d_w8a8"), (tq, "_w8a8_matmul"), (tc, "_tconv_w8a8"))
+    for name, fwd, p, args, sites in cases:
+        calls = []
+
+        def recorded(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                calls.append((fn, a, kw, out))
+                return out
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for mod, attr in products:
+                stack.enter_context(mock.patch.object(mod, attr, recorded(getattr(mod, attr))))
+            want = fwd(p, *args)
+        on_card = lambda t: t.to(dev) if torch.is_tensor(t) else t  # noqa: E731
+        same = sum(bool(torch.equal(fn(*tree_map(on_card, list(a)), **kw).cpu(), out))
+                   for fn, a, kw, out in calls)
+        reset_launches()
+        got = fwd(tree_map(lambda a: a.to(dev), p), *(a.to(dev) for a in args)).cpu()
+        n = read_launches()["conv2d_w8a8"]
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"w8a8 cpu-vs-card: tiny {'SD' if name == 'convs' else 't2v'} UNet, {name} "
+              f"quantized: {same} of the CPU forward's {len(calls)} quantized products "
+              f"bit-equal on the card from the same inputs; whole forward rel_err={rel:.3e} "
+              f"(limit {W8A8_CPU_GPU_TOL:.3e}); {n} Q2 launches (the sites: "
+              f"{sum(sites.values())}) [{card}]", flush=True)
+        check(same == len(calls) > 0 and rel <= W8A8_CPU_GPU_TOL and n == sum(sites.values()),
+              f"w8a8 cpu-vs-card ({name}): {same} of {len(calls)} products bit-equal, rel "
+              f"{rel}, Q2 launches {n}")
+
+
 def timed_phase(card: str, what: str, fn, *args):
     """fn(*args) with its seconds printed."""
     t0 = time.perf_counter()
@@ -6176,9 +6859,13 @@ def main() -> int:
             chat = phase_slice(torch, card, *chat_system)
             serve = phase_serve(torch, card, *chat_system)
         spec = phase_spec(torch, card, *chat_system)
+        w4a8, rows["q1"] = timed_phase(card, "29 W4A8 decode", phase_w4a8, torch, card,
+                                       *chat_system, MEASURED["decode_tok_s"])
         del chat_system
         torch.cuda.empty_cache()
         phase_cpu_vs_card(torch, card)
+        timed_phase(card, "29 (b) W4A8 cpu-vs-card", phase_w4a8_cpu_vs_card, torch, card)
+        mpt = timed_phase(card, "28 MPT-7B", phase_mpt, torch, card)
         from vitron_tpu_torch.models.diffusion.gligen_pipeline import GligenConfig
         from vitron_tpu_torch.models.diffusion.unet2d import UNetConfig
         from vitron_tpu_torch.models.seem.model import SeemConfig
@@ -6206,6 +6893,8 @@ def main() -> int:
                            pipe, root)
         task_a = phase_task_a(torch, card, pipe)
         task_c = phase_task_c(torch, card, pipe)
+        w8a8_a, rows["q2"] = timed_phase(card, "30 (a) W8A8 task A", phase_w8a8_task_a, torch,
+                                         card, pipe)
         task_c_seem = phase_task_c_seem(torch, card, pipe, seem_params, seem_cfg)
         del seem_params
         style = timed_phase(card, "(a) style request", phase_style, torch, card, pipe)
@@ -6234,6 +6923,9 @@ def main() -> int:
         timed_phase(card, "26 (b) t2v .pth", phase_t2v_checkpoint, torch, card, pipe, root)
         torch.cuda.empty_cache()
         task_d = phase_task_d(torch, card, pipe)
+        w8a8_d, q2_video = timed_phase(card, "30 (b) W8A8 task D", phase_w8a8_task_d, torch,
+                                       card, pipe)
+        rows["q2"] += q2_video
         del pipe
         torch.cuda.empty_cache()
         from vitron_tpu_torch.models.diffusion.video_pipelines import Image2VideoConfig
@@ -6274,6 +6966,7 @@ def main() -> int:
         phase_video_unet_bf16(torch, card, dev)
         phase_video_cpu_vs_card(torch, card)
         phase_i2v_cpu_vs_card(torch, card)
+        timed_phase(card, "30 (c) W8A8 cpu-vs-card", phase_w8a8_cpu_vs_card, torch, card)
         torch.cuda.empty_cache()
         weights = timed_phase(card, "27 the deployment from one weights directory",
                               phase_weights, torch, card, root)
@@ -6325,7 +7018,8 @@ def main() -> int:
                 "style": style[name], "samplers": sampler[name], "grounding": grounding[name],
                 "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
                 "train_video": train_video[name], "train_i2vgen": train_i2vgen[name],
-                "weights": weights[name]}
+                "weights": weights[name], "mpt": mpt[name], "w4a8": w4a8[name],
+                "w8a8": w8a8_a[name] + w8a8_d[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")
     print_b2_rows(rows["flash"], card)
@@ -6380,6 +7074,27 @@ def main() -> int:
                         "shapes",
              ms_is="sum over phase 5c's 32 rows (task G's 16 eligible 3x3 shapes x float32 "
                    "and bf16); library_ms is cuDNN's bf16 conv on both rows of a shape"),
+        dict(entry("w4a8_matmul", "vitron_tpu_torch/csrc/w4a8_matmul.cu",
+                   "vitron_tpu/kernels/quantization.py:130", "q1", w4a8["w4a8_matmul"],
+                   paths("w4a8_matmul")),
+             replaces_is="no pallas_call: JAX's _w4a8_matmul is an XLA dot_general (s8 x s4, "
+                         "int32 sums)",
+             reference_ms=sum(r["ref_ms"] for r in rows["q1"]),
+             reference_is="B1 (int4_matmul) on the same x and weight, summed over the same "
+                          "rows: the product Q1 replaces on the W4A8 decode path, not a library "
+                          "call (no PyTorch call takes the int4 packing)"),
+        dict(entry("conv2d_w8a8", "vitron_tpu_torch/csrc/conv2d_w8a8.cu",
+                   "vitron_tpu/kernels/quantization.py:277", "q2", w8a8_a["conv2d_w8a8"]
+                   + w8a8_d["conv2d_w8a8"], paths("conv2d_w8a8")),
+             replaces_is="no pallas_call: JAX's conv2d_w8a8 is an XLA conv_general_dilated "
+                         "(s8 x s8, int32 sums)",
+             replaced_path_ms={t: sum(r["replaces_ms"][t] for r in rows["q2"])
+                               for t in ("float32", "bf16")},
+             replaced_path_is="cuDNN F.conv2d in float32 and bf16 at the same sites, the path "
+                              "the quantized UNets replace, not a port and not a library call "
+                              "of this function (PyTorch has no int8 conv on CUDA)",
+             ms_is=f"sum over phase 30's {len(rows['q2'])} rows: every eligible conv site of "
+                   "task A's SD UNet and task D's t2v UNet, once each"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -144,10 +144,21 @@ def test_quantize_llama_matches_jax(jq):
 
 @pytest.mark.parametrize("key", ["q8", "qa8"])
 def test_w8a8_w4a8_not_ported(key):
-    with pytest.raises(NotImplementedError, match="A17"):
-        tq.matmul_maybe_quantized(torch.zeros(2, 4),
-                                  {key: torch.zeros(4, 4, dtype=torch.int8),
-                                   "s": torch.ones(1, 4)})
+    """The W8A8 ("q8") and W4A8 ("qa8") leaves are served now (they raised
+    before the port had them): each gives its dequantized product to within
+    its activation quantization, about 1/127 of x's largest value a row
+    (tests/test_torch_quantized_variants.py holds them bit for bit against JAX)."""
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(3, 32).astype(np.float32))
+    w = torch.from_numpy(rs.randn(32, 16).astype(np.float32))
+    if key == "q8":
+        leaf = tq.quantize_int8_a8(w)
+    else:
+        leaf = tq.promote_int4({"w": tq.quantize_int4(w)}, a8=True)["w"]
+    assert key in leaf
+    got = tq.matmul_maybe_quantized(x, leaf)
+    want = x @ tq.dequantize(leaf)
+    assert (got - want).abs().max() <= 0.02 * want.abs().max()
 
 
 def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:

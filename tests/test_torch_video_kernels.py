@@ -98,8 +98,12 @@ def test_temporal_conv_rejects_bad_taps():
         tc.temporal_conv_k3(x, torch.zeros((2, 8, 8)))
     with pytest.raises(ValueError, match="do not match"):
         tc.temporal_conv_k3(x, torch.zeros((3, 4, 8)))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tc.temporal_conv_k3(x, {"q8t": torch.zeros((3, 8, 8)), "s": torch.ones(8)})
+    # the W8A8 taps are no bad taps: their dict takes the q8t route (zero
+    # taps give zeros; tests/test_torch_quantized_variants.py holds the route
+    # against JAX's)
+    y = tc.temporal_conv_k3(x, {"q8t": torch.zeros((3, 8, 8), dtype=torch.int8),
+                                "s": torch.ones(8)})
+    assert tuple(y.shape) == (1, 2, 3, 8) and not y.any()
 
 
 # ---------------------------------------------------------------- B7 on the CPU

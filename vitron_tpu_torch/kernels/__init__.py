@@ -17,4 +17,6 @@ LAUNCH_COUNTERS = (
     ("temporal_conv_k3", "temporal_conv", "launches"),
     ("frame_attention", "temporal_attention", "launches"),
     ("conv3x3_same", "conv2d", "launches"),
+    ("w4a8_matmul", "w4a8_matmul", "launches"),
+    ("conv2d_w8a8", "conv2d_w8a8", "launches"),
 )

@@ -64,6 +64,10 @@ _SIGNATURES = {
     "vt_frame_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, w, y, B, H, W, C, D, bb, bh, bw, out_f32, stream
     "vt_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q4, s, static_sx, y, xq, sx, acc, ticket, M, K2, N, splits, is_bf16, stream
+    "vt_w4a8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, w, ssx, y, B, H, W, C, Co, stride, pad, is_bf16, stream
+    "vt_conv2d_w8a8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

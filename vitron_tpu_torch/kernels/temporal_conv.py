@@ -25,8 +25,13 @@ the bias requiring grad) it goes through `TemporalConvK3`, the port of the
 JAX `custom_vjp` (`_tconv_bwd` :158-171): dx is the same conv (the kernel on
 the card, one more launch) of the cotangent with the frame-flipped,
 transposed taps, dw three float32 einsums, and the bias gradient the sum of
-the cotangent. `launches` counts kernel launches. The W8A8 `{"q8t", "s"}`
-weights wait for the quantized variants.
+the cotangent. `launches` counts kernel launches.
+
+The W8A8 taps (`quantization.quantize_tconv`'s {"q8t": int8 [3, C, Co],
+"s": [Co]}) take `_tconv_w8a8`, JAX's form (:109): x quantized once per row,
+three int8 tap products with int32 sums (`quantization.int_dot`, the XLA
+dot: `torch._int_mm` on the card), each scaled and cast to x's dtype, then
+shifted by a frame and added. Serving only, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,16 +40,14 @@ from typing import Optional
 
 import torch
 
-from vitron_tpu_torch.kernels import _build
+from vitron_tpu_torch.kernels import _build, quantization
+from vitron_tpu_torch.kernels.w4a8_matmul import quantize_rows
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 
 
 def _taps(w: torch.Tensor) -> torch.Tensor:
     """[3, C, Co] or [3, 1, C, Co] -> [3, C, Co]."""
-    if isinstance(w, dict):
-        raise NotImplementedError("quantized temporal-conv weights (W8A8) are not ported yet "
-                                  "(ROADMAP A17)")
     if w.dim() == 4:
         if w.shape[1] != 1:
             raise ValueError(f"temporal_conv_k3: torch-layout taps must be [3, 1, C, Co], got "
@@ -108,8 +111,30 @@ class TemporalConvK3(torch.autograd.Function):
         return dx, dw, db
 
 
+def _tconv_w8a8(x4: torch.Tensor, w) -> torch.Tensor:
+    """x4 [B, F, N, C] with the {"q8t", "s"} taps -> [B, F, N, Co] in x's dtype."""
+    b, f, n, c = x4.shape
+    xq, sx = quantize_rows(x4.reshape(-1, c))
+    sw = w["s"].to(torch.float32)
+
+    def tap(d):
+        acc = quantization.int_dot(xq, w["q8t"][d])
+        return (acc.to(torch.float32) * sx * sw).to(x4.dtype).reshape(b, f, n, -1)
+
+    y = tap(1)
+    y0 = torch.nn.functional.pad(tap(0)[:, :-1], (0, 0, 0, 0, 1, 0))
+    y2 = torch.nn.functional.pad(tap(2)[:, 1:], (0, 0, 0, 0, 0, 1))
+    return y + y0 + y2
+
+
 def temporal_conv_k3(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, F, ..., C] -> [B, F, ..., Co]: the frame-axis k=3 SAME conv."""
+    if isinstance(w, dict):
+        shape = x.shape
+        n = math.prod(shape[2:-1])
+        out = _tconv_w8a8(x.reshape(shape[0], shape[1], n, shape[-1]), w)
+        out = out.reshape(shape[:-1] + (out.shape[-1],))
+        return out if bias is None else out + bias.to(out.dtype)
     w = _taps(w)
     shape = x.shape
     if x.dim() < 3 or w.shape[1] != shape[-1]:

@@ -12,7 +12,9 @@ and masked latent as 5 extra UNet input channels), and the VAE decode.
 source resize), the random draws from an explicit `torch.Generator` (the
 initial latent x_T and, for inpainting, one noise tensor per step), then
 `run` (the device half), which takes those draws as inputs: a caller can
-hand it the same x_T and noise as the JAX `run` body draws.
+hand it the same x_T and noise as the JAX `run` body draws. Under
+`VITRON_UNET_QUANT=w8a8` the constructor quantizes both UNets' convs
+(`unet2d.quantize_params`), as JAX's does.
 
 `GligenStylePipeline` (:283) is the text + image grounded pipeline of
 GLIGEN's style checkpoints: each box carries a phrase's pooled CLIP text
@@ -92,6 +94,10 @@ class GligenPipeline:
     def __init__(self, cfg: GligenConfig, unet_params, vae_params, text_params,
                  inpaint_unet_params=None, tokenizer=None):
         self.cfg = cfg
+        if unet2d.quant_default():  # VITRON_UNET_QUANT=w8a8: the convs on Q2
+            unet_params = unet2d.quantize_params(unet_params)
+            if inpaint_unet_params is not None:
+                inpaint_unet_params = unet2d.quantize_params(inpaint_unet_params)
         self.unet_params = unet_params
         self.inpaint_unet_params = inpaint_unet_params
         self.vae_params = vae_params

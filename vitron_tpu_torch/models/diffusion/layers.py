@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from vitron_tpu_torch.kernels import flash_attention as _fa
 from vitron_tpu_torch.kernels import geglu_ff as _gf
 from vitron_tpu_torch.kernels.group_norm import group_norm_sums
-from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized
+from vitron_tpu_torch.kernels.quantization import conv2d_w8a8, matmul_maybe_quantized
 
 # ---------------------------------------------------------------- primitives
 
@@ -68,10 +68,13 @@ def conv2d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, stride: int = 1
            padding: int = 0) -> torch.Tensor:
     """x [B, H, W, C_in] @ w [kh, kw, C_in, C_out] (HWIO), weights cast to
     x.dtype. 1x1 stride-1 convs are matmuls; the rest run in the
-    channels-last layout, so the NHWC tensor is neither copied in nor out."""
+    channels-last layout, so the NHWC tensor is neither copied in nor out.
+    A quantized weight (the {"qc", "s"} dict of
+    `quantization.quantize_conv2d`) takes the W8A8 path (Q2 on the card),
+    the bias added after, as in JAX."""
     if isinstance(w, dict):
-        raise NotImplementedError("quantized conv weights (W8A8) are not ported yet "
-                                  "(ROADMAP A17)")
+        out = conv2d_w8a8(x, w, stride=stride, padding=padding)
+        return out if b is None else out + b.to(out.dtype)
     if w.shape[0] == w.shape[1] == 1 and stride == 1 and padding == 0:
         out = x @ w[0, 0].to(x.dtype)
         return out if b is None else out + b.to(out.dtype)
@@ -159,10 +162,13 @@ def self_attention(p: Dict[str, Any], x, heads: int) -> torch.Tensor:
 
 def geglu_ff(p: Dict[str, Any], x) -> torch.Tensor:
     """FeedForward with GEGLU: the fused kernel on CUDA, its plain version
-    (the same arithmetic as the JAX XLA form) on the CPU."""
+    (the same arithmetic as the JAX XLA form) on the CPU. Quantized {"q8"}
+    weights take JAX's plain form through `matmul_maybe_quantized`."""
     if isinstance(p["proj_w"], dict):
-        raise NotImplementedError("quantized feed-forward weights (W8A8) are not ported "
-                                  "yet (ROADMAP A17)")
+        h = matmul_maybe_quantized(x, p["proj_w"]) + p["proj_b"]
+        a, gate = h.chunk(2, dim=-1)
+        h = a * F.gelu(gate, approximate="none")
+        return matmul_maybe_quantized(h, p["out_w"]) + p["out_b"]
     return _gf.geglu_ff(x, p["proj_w"], p["proj_b"], p["out_w"], p["out_b"])
 
 

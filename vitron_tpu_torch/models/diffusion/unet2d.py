@@ -5,12 +5,14 @@ same param tree and the same static block plan (`block_plan`), so the
 forward walks the blocks exactly as the JAX one unrolls them. One UNet
 serves GLIGEN generation (4 input channels), inpainting (9) and plain SD
 (no fuser params). `convert_ldm_unet` (:338) reads an ldm / GLIGEN state
-dict into that tree; `quantize_params` (W8A8) waits for ROADMAP A17.
+dict into that tree. `quantize_params` (W8A8: the 3x3 convs to int8 for
+Q2) serves the image UNet under `VITRON_UNET_QUANT=w8a8` (`quant_default`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -271,6 +273,42 @@ def forward(params: Dict[str, Any], cfg: UNetConfig, x: torch.Tensor, timesteps:
 def grounding_tokens(params, boxes, masks, text_embeddings) -> torch.Tensor:
     """position_net wrapper."""
     return position_net(params["position_net"], boxes, masks, text_embeddings)
+
+
+# ----------------------------------------------------------- quantization
+
+
+def quantize_params(params: Dict[str, Any], min_channels: int = 64) -> Dict[str, Any]:
+    """W8A8 quantization of the SD image UNet: spatial convs only. Every
+    floating [3, 3, ci, co] leaf with ci, co >= min_channels becomes the
+    {"qc", "s"} dict `layers.conv2d` sends to Q2; conv_in and the out conv
+    (4 or 9 channels), the attention and feed-forward products, the
+    position net and the norms stay as they are. Applying it twice changes
+    nothing (an int8 "qc" is not floating, and a {"qc", "s"} dict is kept
+    whole). Inference only. `VITRON_UNET_QUANT=w8a8` (`quant_default`)
+    opts serving in."""
+    from vitron_tpu_torch.kernels.quantization import quantize_conv2d
+
+    def eligible(v) -> bool:
+        return (torch.is_tensor(v) and v.dim() == 4 and v.is_floating_point()
+                and v.shape[0] == 3 and v.shape[1] == 3
+                and v.shape[2] >= min_channels and v.shape[3] >= min_channels)
+
+    def walk(p):
+        if isinstance(p, dict):
+            if "qc" in p and "s" in p:
+                return p
+            return {k: (quantize_conv2d(v) if eligible(v) else walk(v)) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v) for v in p)
+        return p
+
+    return walk(params)
+
+
+def quant_default() -> bool:
+    """VITRON_UNET_QUANT=w8a8 opts serving into the quantized image UNet."""
+    return os.environ.get("VITRON_UNET_QUANT", "") == "w8a8"
 
 
 # ------------------------------------------------------------------ convert

@@ -26,8 +26,10 @@ tokens from the image embedding, for a context of 77 + 64 + 4 tokens.
 
 `convert_torch` (:730-896) reads a reference UNetSD_T2VBase / UNetSD_I2VGen
 state dict into the param tree (its transformer blocks are the SD UNet's
-without a fuser: `layers.convert_transformer_block`). Waits: `quantize_params` (W8A8, ROADMAP
-A17); the TPU layout experiment `_temporal_mha_nmajor`
+without a fuser: `layers.convert_transformer_block`). `quantize_params` (W8A8:
+the 3x3 convs to int8 for Q2, and on request the transformer products and
+the temporal taps) serves it under `VITRON_VUNET_QUANT=w8a8`
+(`quant_default`). The TPU layout experiment `_temporal_mha_nmajor`
 (`VITRON_TATTN=nmajor`), which computes the same function as the default
 path, is not ported.
 """
@@ -36,6 +38,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -534,6 +537,69 @@ def init_params(gen: torch.Generator, cfg: UNetSDVideoConfig, device) -> Dict[st
             "conv1_w": conv(3, cd * 8, cd * 16), "conv1_b": zeros(cd * 16),
             "conv2_w": conv(3, cd * 16, cfg.context_dim), "conv2_b": zeros(cfg.context_dim)}
     return params
+
+
+# ----------------------------------------------------------- quantization
+
+_QUANT_DOT_KEYS = frozenset((
+    "to_q", "to_k", "to_v", "out_w",     # spatial/temporal attention
+    "proj_w",                            # GEGLU FF up-projection
+    "proj_in_w", "proj_out_w",           # transformer in/out projections
+))
+
+
+def quantize_params(params: Dict[str, Any], min_channels: int = 64,
+                    min_dot_dim: Optional[int] = None,
+                    min_tconv_dim: Optional[int] = None) -> Dict[str, Any]:
+    """W8A8 serving quantization of a video UNet, spatial convs only by
+    default: every floating [3, 3, ci, co] leaf with ci, co >= min_channels
+    becomes the {"qc", "s"} dict `layers.conv2d` sends to Q2. Two more
+    classes, as in JAX, only when asked for: the transformer products of
+    `_QUANT_DOT_KEYS` with both dims >= min_dot_dim ({"q8", "s"}, the
+    per-row W8A8 dot) and the temporal conv taps [3, 1, c, co] with dims >=
+    min_tconv_dim ({"q8t", "s"}). The rest (conv_in and out, the embedding
+    MLPs, the norms) stays as it is. Applying it twice changes nothing (the
+    int8 leaves are not floating, and a quantized dict is kept whole).
+    Inference only; `VITRON_VUNET_QUANT=w8a8` (`quant_default`) opts the
+    video pipelines in."""
+    from vitron_tpu_torch.kernels.quantization import (quantize_conv2d, quantize_int8_a8,
+                                                       quantize_tconv)
+
+    def floating(v) -> bool:
+        return torch.is_tensor(v) and v.is_floating_point()
+
+    def conv_eligible(v) -> bool:
+        return (floating(v) and v.dim() == 4 and v.shape[0] == 3 and v.shape[1] == 3
+                and v.shape[2] >= min_channels and v.shape[3] >= min_channels)
+
+    def dot_eligible(k, v) -> bool:
+        return (min_dot_dim is not None and k in _QUANT_DOT_KEYS and floating(v)
+                and v.dim() == 2 and min(v.shape) >= min_dot_dim)
+
+    def tconv_eligible(v) -> bool:
+        return (min_tconv_dim is not None and floating(v) and v.dim() == 4
+                and v.shape[0] == 3 and v.shape[1] == 1
+                and v.shape[2] >= min_tconv_dim and v.shape[3] >= min_tconv_dim)
+
+    def walk(p):
+        if isinstance(p, dict):
+            if ("qc" in p or "q8" in p or "q8t" in p) and "s" in p:
+                return p
+            return {k: (quantize_conv2d(v) if conv_eligible(v)
+                        else quantize_int8_a8(v) if dot_eligible(k, v)
+                        else quantize_tconv(v) if tconv_eligible(v)
+                        else walk(v))
+                    for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v) for v in p)
+        return p
+
+    return walk(params)
+
+
+def quant_default() -> bool:
+    """VITRON_VUNET_QUANT=w8a8 opts serving into the quantized video UNet."""
+    return os.environ.get("VITRON_VUNET_QUANT", "") == "w8a8"
 
 
 # ------------------------------------------------------------------ convert

@@ -21,8 +21,9 @@ sampler would run one more step, from alpha 0, and give NaN; ROADMAP C6),
 and I2V resizes a request image of any size to `cfg.size` square on the
 host (the JAX pipeline fails on a non-square one; C7). The pipelines take
 param trees: `unet_sd_video.convert_torch`, `vae.convert_ldm_vae` and
-`clip_text.convert_hf_clip_text` read them from checkpoint state dicts. The
-W8A8 UNet (`VITRON_VUNET_QUANT`, A17) waits.
+`clip_text.convert_hf_clip_text` read them from checkpoint state dicts.
+Under `VITRON_VUNET_QUANT=w8a8` both constructors quantize their UNet's
+convs (`unet_sd_video.quantize_params`), as JAX's do.
 """
 from __future__ import annotations
 
@@ -97,6 +98,8 @@ class Text2VideoPipeline:
     def __init__(self, cfg: Text2VideoConfig, unet_params, vae_params, text_params,
                  tokenizer=None):
         self.cfg = cfg
+        if unet_sd_video.quant_default():  # VITRON_VUNET_QUANT=w8a8: the convs on Q2
+            unet_params = unet_sd_video.quantize_params(unet_params)
         self.unet_params = unet_params
         self.vae_params = vae_params
         self.text_params = text_params
@@ -187,6 +190,8 @@ class Image2VideoPipeline:
     def __init__(self, cfg: Image2VideoConfig, unet_params, vae_params, text_params,
                  tokenizer=None, image_embedder: Optional[Callable] = None):
         self.cfg = cfg
+        if unet_sd_video.quant_default():
+            unet_params = unet_sd_video.quantize_params(unet_params)
         self.unet_params = unet_params
         self.vae_params = vae_params
         self.text_params = text_params

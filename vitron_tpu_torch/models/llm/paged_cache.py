@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized as _mm
+from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models.llm.llama import (KVCache, LlamaConfig, _layer_params, apply_rope,
                                                forward_tokens, rms_norm, rope_cos_sin)
 from vitron_tpu_torch.runtime.graphs import Chunk
@@ -225,8 +226,9 @@ class _StepChunk:
         lengths, token = self.lengths.clone(), self.last.clone()
         for i in range(n):
             emb = srv.params["embed"][token][:, None]
-            logits, k_new, v_new = decode_step_gathered(srv.params, cfg, emb, lengths[:, None],
-                                                        k_all, v_all, lengths + 1)
+            logits, k_new, v_new = decode_step_gathered(srv.decode_params, cfg, emb,
+                                                        lengths[:, None], k_all, v_all,
+                                                        lengths + 1)
             k_all[:, row, lengths] = k_new   # dense-view append
             v_all[:, row, lengths] = v_new
             wr_blocks = self.table[row, lengths // bs]   # pool mirror
@@ -252,6 +254,9 @@ class PagedServer:
     def __init__(self, params, cfg: LlamaConfig, num_blocks: int = 256,
                  block_size: int = 16, max_blocks_per_seq: int = 32, device=None):
         self.params = params
+        # the decode chunks' tree: W4A8 leaves when VITRON_W4A8=1 (read here,
+        # once), where the JAX package promotes inside its chunk program
+        self.decode_params = promote_int4(params)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embed"].device
         self.pool = PagedPool.create(cfg, num_blocks, block_size, device=self.device)

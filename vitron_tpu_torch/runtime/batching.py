@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.llm.paged_cache import PagedServer, sample_token_batched
@@ -98,6 +99,9 @@ class ContinuousBatcher:
             raise NotImplementedError("serving over a device mesh is not ported yet "
                                       "(ROADMAP A16)")
         self.params = params
+        # the admission programs' tree: W4A8 leaves when VITRON_W4A8=1 (read
+        # here, once), where the JAX package promotes inside them
+        self._promoted = promote_int4(params)
         self.cfg = cfg
         llm_params = params["llm"] if "llm" in params else params
         self.device = torch.device(device) if device is not None else llm_params["embed"].device
@@ -139,7 +143,7 @@ class ContinuousBatcher:
         a = job.arrays
         cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len, device=self.device)
         logits, cache = vitron_model.forward(
-            self.params, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
+            self._promoted, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
             a["positions"], a["attn_mask"], images=a["images"], videos=a["videos"],
             block_perm=a["block_perm"], region_boxes=a["region_boxes"],
             region_block_idx=a["region_block_idx"], cache=cache)
@@ -150,7 +154,7 @@ class ContinuousBatcher:
         projector + splice, no decoder)."""
         a = job.arrays
         return vitron_model.spliced_embeds(
-            self.params, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
+            self._promoted, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
             images=a["images"], videos=a["videos"], block_perm=a["block_perm"],
             region_boxes=a["region_boxes"], region_block_idx=a["region_block_idx"])
 
@@ -160,7 +164,7 @@ class ContinuousBatcher:
         job, p = adm.job, self.prefill_chunk
         start, end = adm.i * p, min((adm.i + 1) * p, job.pad_len)
         a = job.arrays
-        llm = self.params["llm"] if "llm" in self.params else self.params
+        llm = self._promoted["llm"] if "llm" in self._promoted else self._promoted
         logits, _ = llama.forward(llm, self.cfg.llm, adm.embeds[:, start:end],
                                   a["positions"][:, start:end],
                                   attn_mask=a["attn_mask"][:, start:end], cache=adm.cache)

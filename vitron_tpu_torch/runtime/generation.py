@@ -30,6 +30,12 @@ prefill and one chunk.
 `batcher=` hands a single-row request to a `ContinuousBatcher`
 (runtime/batching.py).
 
+With VITRON_W4A8=1 (read once, when the Generator is built) the decode
+chunks, the speculative graphs and `scan` run on `decode_params`, the
+W4A8 promotion of the packed int4 weights (Q1), where the JAX package
+calls `promote_int4` inside those programs; `generate`'s prefill and the
+per-token path keep B1's int4 leaves, as JAX's unpromoted programs do.
+
 Speculative decoding (runtime/speculative.py) follows the JAX package's
 policy: `speculative=None` speculates on every greedy single-row request
 unless `VITRON_SPEC` is "0"; with "1" (the default) it probes first -- the
@@ -57,6 +63,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.llm.paged_cache import sample_token_batched
@@ -163,8 +170,8 @@ class _DecodeChunk:
         self.spec: Dict[Any, "_SpecChunk"] = {}  # speculative graphs on this chunk's cache
 
     def _step(self, i: int) -> None:
-        logits, _ = vitron_model.decode_step(self.g.params, self.g.cfg, self.token, self.pos,
-                                             self.cache, self.index)
+        logits, _ = vitron_model.decode_step(self.g.decode_params, self.g.cfg, self.token,
+                                             self.pos, self.cache, self.index)
         if self.sampled:
             nxt = sample_token_batched(logits[:, -1], self.temps, self.top_ps, self.greedy,
                                        self.u[i])
@@ -231,8 +238,8 @@ class _SpecChunk:
         self.run = graphs.Chunk(self._body, self._warmup, dev, g._stream, g._pool)
 
     def _forward(self) -> None:
-        spec_mod.verify_forward(self.g.params, self.g.cfg, self.state, self.cache, self.k,
-                                self.ngram, self.eos)
+        spec_mod.verify_forward(self.g.decode_params, self.g.cfg, self.state, self.cache,
+                                self.k, self.ngram, self.eos)
 
     def _body(self) -> None:
         for _ in range(self.forwards):
@@ -272,6 +279,10 @@ class Generator:
 
     def __init__(self, params: Dict[str, Any], cfg: vitron_model.VitronConfig, device=None):
         self.params = params
+        # the tree of the decode chunks, the speculative graphs and `scan`:
+        # W4A8 leaves when VITRON_W4A8=1 (read here, once), where the JAX
+        # package promotes inside those programs
+        self.decode_params = promote_int4(params)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else \
             params["llm"]["embed"].device
@@ -300,13 +311,14 @@ class Generator:
         return self.chunks.get((n, b, t, sampled), lambda: _DecodeChunk(self, n, b, t, sampled))
 
     def _prefill(self, cache, token_ids, media_idx, use_media, positions, attn_mask, seq_lens,
-                 images=None, videos=None, **kwargs) -> torch.Tensor:
+                 images=None, videos=None, params=None, **kwargs) -> torch.Tensor:
         """Multimodal prefill into `cache` (reset first) -> the logits at
-        each row's last real position [B, V]."""
+        each row's last real position [B, V]; `params` defaults to the
+        generator's own."""
         cache.valid.zero_()
         cache.index = 0
         logits, _ = vitron_model.forward(
-            self.params, self.cfg,
+            self.params if params is None else params, self.cfg,
             plan_token_ids=self._t(token_ids, torch.int64),
             plan_media_idx=self._t(media_idx, torch.int64),
             plan_use_media=self._t(use_media, torch.bool),
@@ -605,7 +617,8 @@ class Generator:
             chunk = self._chunk(n_new - 1, b, t, temperature != 0.0) if n_new > 1 else None
             cache = chunk.cache if chunk is not None else llama.KVCache.create(
                 self.cfg.llm, b, max_len=t, device=self.device)
-            next_logits = self._prefill(cache, *plan_arrays, images=images, videos=videos)
+            next_logits = self._prefill(cache, *plan_arrays, images=images, videos=videos,
+                                        params=self.decode_params)
             token = sample_token(next_logits, temperature, top_p, temperature == 0.0, gen)
             if chunk is None:
                 return token[:, None]

@@ -45,6 +45,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.models.llm import llama
 
@@ -325,6 +326,7 @@ def speculative_decode(params, cfg: vitron_model.VitronConfig, plan_arrays, n_ne
     [n_new] with -1 past the first EOS, n_emitted, n_forwards); tokens per
     forward is n_emitted / n_forwards."""
     token_ids, media_idx, use_media, positions, attn_mask, seq_lens = plan_arrays
+    params = promote_int4(params)  # W4A8 leaves when VITRON_W4A8=1, as the JAX entry's
     b, pad_len = np.shape(token_ids)
     if b != 1:
         raise ValueError("speculative_decode is the single-stream path (B=1); "

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from vitron_tpu_torch.constants import IGNORE_INDEX
+from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.train import data as data_mod
 from vitron_tpu_torch.train import lora as lora_mod
@@ -105,6 +106,10 @@ def make_lora_train_step(cfg: vitron_model.VitronConfig, train_cfg: TrainConfig,
 
     def step(trainable, base, batch):
         optimizer.zero_grad()
+        # a8=False whatever VITRON_W4A8 says: the W4A8 serving path quantizes
+        # activations, which would perturb the gradients (the packed base
+        # stays B1's, as it is)
+        base = promote_int4(base, a8=False)
         loss = loss_fn(trainable, base, batch)
         loss.backward()
         optimizer.step()
