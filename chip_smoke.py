@@ -342,6 +342,26 @@ Phases (any failure exits non-zero and prints no `ok` line):
    `video_w8a8_sites` conv, the opt-in q8 dot and q8t taps bit-equal to
    their exact sums; (c) after 17b, tiny quantized SD and t2v UNets on the
    CPU and the card (W8A8_CPU_GPU_TOL, Q2's launches at every site).
+31. The mesh (A16's serving half) on a one-rank NCCL group over a store at
+   127.0.0.1 (`nccl_group`; the card takes no second rank), every
+   collective issued: (a) after 29, phase 6's system after `install_mesh`
+   gives the 128 greedy tokens it gave without the mesh, its decode chunk
+   a CUDA graph holding the collectives (launches exact); a
+   ContinuousBatcher on the mesh co-batches two requests to the tokens of
+   one without it (the lockstep broadcasts issued); a RING_PREFILL-token
+   prefill at attn_impl="ring" within FLASH_ROW_REL of "flash" (launches
+   exact); the memory plan's per-device rows for MESH_PLAN_CHIPS cards;
+   after 15, task D's t2v tree through `shard_video_step` over the
+   one-rank (cfg, frames) mesh equal to one plain CFG call, bit for bit
+   (launches exact); these runs' launches are the `mesh` path's. (b) The
+   ring's device half at RING_SHAPE (Vicuna-7B widths) in RING_BLOCKS
+   blocks: every rank's body run here, B2 with its LSE a block, merged in
+   float32, each query row within FLASH_ROW_REL of B2 over the whole
+   sequence. (c) The video's device half at the t2v levels' widths,
+   VIDEO_FRAMES frames in MESH_SLICES slices: the halo'd B6 (VIDEO_TOL),
+   B8's slice sums (GN_TOL) and B7 on the gathered frames (exact) against
+   their whole forms. (d) The dryrun's legs at 2 and 4 NCCL ranks where
+   the machine has the cards; with one, the phase says why not.
 Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
 and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
@@ -6807,6 +6827,289 @@ def phase_w8a8_cpu_vs_card(torch, card: str):
               f"{rel}, Q2 launches {n}")
 
 
+# ------------------------------------------------------------------ phase 31: the mesh
+
+MESH_BATCH_NEW = 32    # tokens of each of the batcher's two co-batched requests on the mesh
+MESH_BATCH_CHUNK = 16
+RING_PREFILL = 512     # tokens of the Vicuna-7B ring-vs-flash prefill
+RING_SHAPE = (1, 4096, 32, 128)  # B, S, N, D: the ring's device half at Vicuna-7B widths
+RING_BLOCKS = 4
+MESH_SLICES = (2, 4)   # frame slices of the video device half
+MESH_PLAN_CHIPS = 4    # the deployment whose per-device rows the plan prints
+
+
+def nccl_group(torch):
+    """A one-rank NCCL process group on a store at 127.0.0.1 (an OS-chosen
+    port): the mesh path's collectives, each issued, on this card."""
+    import socket
+
+    from vitron_tpu_torch.core import distributed as vdist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    vdist.initialize(vdist.DistributedConfig(coordinator_address=f"127.0.0.1:{port}",
+                                             num_processes=1, process_id=0), backend="nccl")
+
+
+def mesh_batch(torch, system, mesh, plans, sampling):
+    """Two requests co-batched by a ContinuousBatcher (on `mesh` or one
+    device) -> (their tokens, mean batch occupancy)."""
+    from vitron_tpu_torch.runtime.batching import ContinuousBatcher
+
+    gen_ = system.engine.generator
+    batcher = ContinuousBatcher(gen_.params, gen_.cfg, chunk=MESH_BATCH_CHUNK, max_active=4,
+                                num_blocks=256, device=gen_.device, mesh=mesh)
+    try:
+        futs = [batcher.submit(p, sampling=sampling) for p in plans]
+        toks = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        return toks, batcher.stats()["mean_batch_occupancy"]
+    finally:
+        batcher.close()
+
+
+def phase_mesh_chat(torch, card: str, system, params, cfg) -> dict:
+    """Phase 31 (a), chat: phase 6's Vicuna-7B int4 + ViT-L/14 system on a
+    one-rank NCCL serving mesh (`install_mesh`: every leaf a Shard, each
+    layer's fsdp all-gathers, the Megatron all-reduces and the vocab
+    gathers issued on this card) gives the greedy tokens it gave without the
+    mesh, its decode replaying CUDA graphs that hold the collectives; its
+    batcher co-batches two requests (rank 0's lockstep broadcasts issued) to
+    the tokens of the batcher without the mesh; a prefill at
+    attn_impl="ring" (B2 with its LSE over the one-rank context axis)
+    matches "flash"; the memory plan prints per-device rows. -> the mesh
+    path's launches (the chat, the batcher and the ring prefill)."""
+    import dataclasses
+
+    from vitron_tpu_torch.models.llm import llama
+    from vitron_tpu_torch.runtime.generation import DEFAULT_DECODE_CHUNK, SamplingConfig
+    from vitron_tpu_torch.runtime.memory_plan import MemoryPlan, kv_cache_bytes, tree_bytes
+    from vitron_tpu_torch.runtime.sharded_serving import install_mesh, serving_mesh
+
+    image = np.random.RandomState(0).randint(0, 256, (336, 448, 3), np.uint8)
+    sampling = SamplingConfig(greedy=True, max_new_tokens=NEW_TOKENS, eos_ids=())
+    batch_sampling = SamplingConfig(greedy=True, max_new_tokens=MESH_BATCH_NEW, eos_ids=())
+    plans = [system.engine.plan_turn(p)[0] for p in (SERVE_SHORT, PROMPT)]
+    want, _ = timed_chat(torch, system, image, sampling)
+    want_batch, _ = mesh_batch(torch, system, None, plans, batch_sampling)
+    total = tree_bytes(params)
+
+    nccl_group(torch)
+    mesh = serving_mesh(1)
+    install_mesh(system, mesh)
+    gen_ = system.engine.generator
+    per_forward, n_layers = 7 * cfg.llm.num_layers + 1, cfg.llm.num_layers
+    steps = -(-(NEW_TOKENS - 1) // DEFAULT_DECODE_CHUNK) * DEFAULT_DECODE_CHUNK
+    counted = collections.Counter()
+    timed_chat(torch, system, image, sampling)  # captures the chunk on the mesh
+    reset_launches()
+    got, t_req = timed_chat(torch, system, image, sampling)
+    counted.update(expect_launches({"int4_matmul": per_forward * (1 + steps),
+                                    "flash_attention": n_layers}, "31 (a) mesh chat"))
+    check(got["reply"]["tokens"] == want["reply"]["tokens"],
+          "31 (a): the mesh's greedy tokens differ from the system's without it")
+    graph = gen_.last_chunk.run
+    check(graph.graph is not None, "31 (a): the mesh's decode chunk is not a CUDA graph")
+    _, t_prefill = timed_chat(torch, system, image,
+                              SamplingConfig(greedy=True, max_new_tokens=1, eos_ids=()))
+    decode_tok_s = (NEW_TOKENS - 1) / (t_req - t_prefill)
+
+    reset_launches()
+    got_batch, occupancy = mesh_batch(torch, system, mesh, plans, batch_sampling)
+    counted.update(read_launches())
+    check(got_batch == want_batch, f"31 (a): the mesh batcher's tokens differ: {got_batch} "
+          f"!= {want_batch}")
+    check(occupancy > 1.0, f"31 (a): the batcher did not co-batch (occupancy {occupancy})")
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    ids = torch.randint(3, cfg.llm.vocab_size, (1, RING_PREFILL), generator=g, device="cuda")
+    pos = torch.arange(RING_PREFILL, device="cuda")[None]
+    llm = gen_.params["llm"]
+    flash, _ = llama.forward_tokens(llm, cfg.llm, ids, positions=pos)
+    reset_launches()
+    ring, _ = llama.forward_tokens(llm, dataclasses.replace(cfg.llm, attn_impl="ring"), ids,
+                                   positions=pos, mesh=mesh)
+    counted.update(expect_launches({"int4_matmul": per_forward, "flash_attention": n_layers},
+                                   "31 (a) ring prefill"))
+    err, rel = rel_err(ring, flash)
+    check(rel <= FLASH_ROW_REL, f"31 (a): ring prefill logits {rel:.3e} from flash's")
+
+    plan = MemoryPlan(budget_bytes=torch.cuda.get_device_properties(0).total_memory,
+                      chips=MESH_PLAN_CHIPS)
+    plan.add("llm+towers (fsdp x tp)", total, sharded=True)
+    plan.add("paged-kv-pool (tp)", kv_cache_bytes(n_layers, 1, 512 * 16, cfg.llm.num_kv_heads,
+                                                  cfg.llm.head_dim), shard_factor=2)
+    print(plan.report(), flush=True)
+    check(plan.fits and "GiB/chip" in plan.report(), "31 (a): the per-device plan")
+    print(f"31 (a) mesh chat: mesh {mesh.shape} (one NCCL rank), {NEW_TOKENS} greedy tokens as "
+          f"without the mesh in {t_req:.3f} s (the decode chunk's graph holds "
+          f"{graph.launches_per_call} kernel launches and the collectives), prefill request "
+          f"(1 token) {t_prefill:.3f} s, decode {decode_tok_s:.1f} tok/s (phase 6 without the "
+          f"mesh: {MEASURED.get('decode_tok_s', float('nan')):.1f}); batcher: 2 "
+          f"requests x {MESH_BATCH_NEW} tokens co-batched (mean occupancy {occupancy}) as "
+          f"without the mesh; ring prefill[{RING_PREFILL}] vs flash: max |err| {err:.3e} "
+          f"(rel {rel:.3e} <= {FLASH_ROW_REL:.3e}) [{card}]", flush=True)
+    return dict(counted)
+
+
+def phase_mesh_video(torch, card: str, pipe) -> dict:
+    """Phase 31 (a), video: task D's resident t2v tree through
+    `shard_video_step` over the one-rank (cfg, frames) mesh gives the bits
+    of one plain CFG UNet call. -> its launches."""
+    from vitron_tpu_torch.distributed import video_sharding as vs
+    from vitron_tpu_torch.models.diffusion import clip_text, unet_sd_video
+
+    cfg = pipe.cfg
+    lh, lw = cfg.latent_hw
+    ctx2 = clip_text.encode(pipe.text_params, cfg.text, pipe.tokenize(["a red car", ""]))
+    g = torch.Generator(device=pipe.device).manual_seed(31)
+    x = torch.randn((1, cfg.num_frames, lh, lw, cfg.unet.in_dim), generator=g,
+                    device=pipe.device)
+    xx, tt = torch.cat([x, x]), torch.full((2,), 501.0, device=pipe.device)
+
+    def step(p, x, t, c):
+        return unet_sd_video.forward(p, cfg.unet, x, t, y=c)
+
+    want = step(pipe.unet_params, xx, tt, ctx2)
+    mesh = vs.create_video_mesh(1)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = vs.shard_video_step(step, mesh)(pipe.unet_params, xx, tt, ctx2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per_call = video_counts(cfg.unet, lh, lw, cfg.text.max_length)
+    launches = expect_launches(per_call, "31 (a) mesh video step")
+    check(torch.equal(got, want), "31 (a): the sharded t2v step differs from the plain call")
+    print(f"31 (a) mesh video: the {cfg.num_frames}-frame t2v CFG step through "
+          f"shard_video_step over {mesh.shape} (one NCCL rank) equals the plain call bit for "
+          f"bit, {dt:.3f} s [{card}]", flush=True)
+    return launches
+
+
+def phase_mesh_ring_half(torch, card: str) -> None:
+    """Phase 31 (b): the ring's device half at Vicuna-7B widths. S split
+    into RING_BLOCKS blocks, each rank's body run here for every rank: B2
+    with its LSE on each block (non-causal on an earlier shard's, causal on
+    its own, a later one skipped), merged by LSE in float32; every query row
+    within B2's per-row limit of B2 over the whole sequence."""
+    from vitron_tpu_torch.distributed.ring_attention import block_attend, merge
+    from vitron_tpu_torch.kernels import flash_attention as fa
+
+    b, s, n, d = RING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    sl = s // RING_BLOCKS
+    blk = [t.split(sl, dim=1) for t in (q, k, v)]
+
+    def ring():
+        outs = []
+        for r in range(RING_BLOCKS):
+            acc = None
+            for i in range(RING_BLOCKS):
+                src = (r - i) % RING_BLOCKS
+                if src <= r:
+                    acc = merge(acc, *block_attend(blk[0][r], blk[1][src], blk[2][src], scale,
+                                                   src == r))
+            outs.append(acc[0].to(q.dtype))
+        return torch.cat(outs, dim=1)
+
+    whole = fa._forward(q, k, v, None, 0, scale, True, None, False)[0]
+    got = ring()
+    worst = flash_row_rel(got, whole)
+    ring_ms = cuda_ms(torch, ring, iters=5, warmup=1)
+    whole_ms = cuda_ms(torch, lambda: fa._forward(q, k, v, None, 0, scale, True, None, False),
+                       iters=5, warmup=1)
+    print(f"31 (b) ring half: S {s} in {RING_BLOCKS} blocks, {n} heads, D {d}, bf16: "
+          f"{RING_BLOCKS * (RING_BLOCKS + 1) // 2} B2-with-LSE blocks merged, worst row "
+          f"{worst:.3e} of B2 over the whole sequence (limit {FLASH_ROW_REL:.3e}); the "
+          f"{RING_BLOCKS} ranks' blocks in turn {ring_ms:.3f} ms, B2 whole {whole_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    check(worst <= FLASH_ROW_REL, f"31 (b): ring rows {worst:.3e} from B2's")
+
+
+def phase_mesh_video_half(torch, card: str) -> None:
+    """Phase 31 (c): the video's device half at the t2v levels' widths, the
+    {VIDEO_FRAMES} frames of a CFG pair in 2 and 4 slices: the halo'd B6 of
+    each slice equals B6 over all frames, B8's slice sums add to the whole's
+    (float32 sums in another order: GN_TOL), and B7 on the gathered frames
+    equals B7 on all of them."""
+    from vitron_tpu_torch.distributed.video_sharding import halo_conv
+    from vitron_tpu_torch.kernels.group_norm import group_norm_sums
+    from vitron_tpu_torch.kernels.temporal_attention import frame_attention
+    from vitron_tpu_torch.kernels.temporal_conv import temporal_conv_k3
+    from vitron_tpu_torch.models.diffusion.unet_sd_video import UNetSDVideoConfig
+
+    ucfg = UNetSDVideoConfig.t2v()
+    lh, lw = VIDEO_LATENT
+    g = torch.Generator(device="cuda").manual_seed(33)
+    worst = {"tconv": 0.0, "gn": 0.0, "tattn": 0.0}
+    exact_tconv = True
+    for level, mult in enumerate(ucfg.dim_mult):
+        c, h, w = ucfg.dim * mult, -(-lh // 2 ** level), -(-lw // 2 ** level)
+        x = torch.randn((2, VIDEO_FRAMES, h, w, c), generator=g, device="cuda")
+        wt = torch.randn((3, c, c), generator=g, device="cuda") / (3 * c) ** 0.5
+        bias = torch.randn((c,), generator=g, device="cuda")
+        whole = temporal_conv_k3(x, wt, bias)
+        sums = group_norm_sums(x.reshape(2, -1, c).contiguous())
+        qkv = [torch.randn((2, VIDEO_FRAMES, h * w, c), generator=g, device="cuda")
+               for _ in range(3)]
+        heads = c // ucfg.head_dim
+        att = frame_attention(*qkv, heads, ucfg.head_dim ** -0.5)
+        for n in MESH_SLICES:
+            fl = VIDEO_FRAMES // n
+            zero = torch.zeros_like(x[:, :1])
+            parts, part_sums = [], 0
+            for i in range(n):
+                xs = x[:, i * fl:(i + 1) * fl]
+                prev = x[:, i * fl - 1:i * fl] if i else zero
+                nxt = x[:, (i + 1) * fl:(i + 1) * fl + 1] if i + 1 < n else zero
+                parts.append(halo_conv(xs, wt, bias, prev, nxt))
+                part_sums = part_sums + group_norm_sums(xs.reshape(2, -1, c).contiguous())
+            got = torch.cat(parts, dim=1)
+            exact_tconv &= torch.equal(got, whole)
+            worst["tconv"] = max(worst["tconv"], rel_err(got, whole)[1])
+            worst["gn"] = max(worst["gn"], rel_err(part_sums, sums)[1])
+            gathered = [torch.cat(t.split(fl, dim=1), dim=1) for t in qkv]
+            got_att = frame_attention(*gathered, heads, ucfg.head_dim ** -0.5)
+            worst["tattn"] = max(worst["tattn"], rel_err(got_att, att)[1])
+    print(f"31 (c) video half: t2v levels {ucfg.dim_mult} x {ucfg.dim} at {lh}x{lw}, "
+          f"{VIDEO_FRAMES} frames in {MESH_SLICES} slices, float32: halo'd B6 rel "
+          f"{worst['tconv']:.3e} (bit-equal: {exact_tconv}), B8 slice sums rel "
+          f"{worst['gn']:.3e}, gathered B7 rel {worst['tattn']:.3e} [{card}]", flush=True)
+    check(worst["tconv"] <= VIDEO_TOL["float32"], f"31 (c): halo'd B6 {worst['tconv']:.3e}")
+    check(worst["gn"] <= GN_TOL, f"31 (c): B8 slice sums {worst['gn']:.3e}")
+    check(worst["tattn"] == 0.0, f"31 (c): gathered B7 {worst['tattn']:.3e}")
+
+
+def phase_mesh_multi(torch, card: str) -> None:
+    """Phase 31 (d): the dryrun legs at 2 and 4 NCCL ranks where the machine
+    has the cards; on one card, why not."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"31 (d): one card (torch.cuda.device_count() == {n}): NCCL refuses two ranks on "
+              f"one device, so the 2- and 4-rank legs (ring, 7B-geometry sharded decode, routed "
+              f"sharded serving, video step) run on gloo CPU ranks in tests/test_torch_*.py and "
+              f"`python -m vitron_tpu_torch.apps.dryrun_multichip --spawn N --device cpu`, not "
+              f"here [{card}]", flush=True)
+        return
+    for ranks in (2, 4):
+        if ranks > n:
+            print(f"31 (d): {ranks} ranks need {ranks} cards, have {n}", flush=True)
+            continue
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "vitron_tpu_torch.apps.dryrun_multichip",
+                              "--spawn", str(ranks)], capture_output=True, text=True,
+                             timeout=600)
+        print(out.stdout[-4000:], flush=True)
+        check(out.returncode == 0, f"31 (d): dryrun at {ranks} ranks: {out.stderr[-2000:]}")
+        print(f"31 (d): dryrun legs at {ranks} NCCL ranks OK in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def timed_phase(card: str, what: str, fn, *args):
     """fn(*args) with its seconds printed."""
     t0 = time.perf_counter()
@@ -6861,6 +7164,9 @@ def main() -> int:
         spec = phase_spec(torch, card, *chat_system)
         w4a8, rows["q1"] = timed_phase(card, "29 W4A8 decode", phase_w4a8, torch, card,
                                        *chat_system, MEASURED["decode_tok_s"])
+        with mock.patch.dict(os.environ, {"VITRON_SPEC": "0"}):  # the plain decode
+            mesh = collections.Counter(timed_phase(card, "31 (a) mesh chat", phase_mesh_chat,
+                                                   torch, card, *chat_system))
         del chat_system
         torch.cuda.empty_cache()
         phase_cpu_vs_card(torch, card)
@@ -6923,6 +7229,16 @@ def main() -> int:
         timed_phase(card, "26 (b) t2v .pth", phase_t2v_checkpoint, torch, card, pipe, root)
         torch.cuda.empty_cache()
         task_d = phase_task_d(torch, card, pipe)
+        mesh.update(timed_phase(card, "31 (a) mesh video", phase_mesh_video, torch, card, pipe))
+        from vitron_tpu_torch.core import distributed as vdist
+
+        vdist.shutdown()
+        timed_phase(card, "31 (b) ring half", phase_mesh_ring_half, torch, card)
+        timed_phase(card, "31 (c) video half", phase_mesh_video_half, torch, card)
+        timed_phase(card, "31 (d) multi-card legs", phase_mesh_multi, torch, card)
+        for k in ("int4_matmul", "flash_attention", "geglu_ff", "temporal_conv_k3",
+                  "frame_attention", "group_norm_sums"):
+            check(mesh[k] > 0, f"31: the mesh path launched no {k}")
         w8a8_d, q2_video = timed_phase(card, "30 (b) W8A8 task D", phase_w8a8_task_d, torch,
                                        card, pipe)
         rows["q2"] += q2_video
@@ -7019,6 +7335,7 @@ def main() -> int:
                 "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
                 "train_video": train_video[name], "train_i2vgen": train_i2vgen[name],
                 "weights": weights[name], "mpt": mpt[name], "w4a8": w4a8[name],
+                "mesh": mesh[name],
                 "w8a8": w8a8_a[name] + w8a8_d[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")

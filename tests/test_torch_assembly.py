@@ -177,7 +177,7 @@ def test_tokenizer_device_and_mesh_seams(weights, monkeypatch):
     """tokenizer=None without transformers is a MissingWeightsError naming
     the package; a given tokenizer is used as it is; the default device
     without a card is an error, never the CPU; mesh "auto" on one device is
-    JAX's "skipped" row, any other mesh names A16."""
+    JAX's "skipped" row, a mesh that is no Mesh, "auto" or None is refused."""
     import sys
 
     base = str(weights / "vicuna-7b")
@@ -189,7 +189,7 @@ def test_tokenizer_device_and_mesh_seams(weights, monkeypatch):
                                        mesh="auto", **_kw(weights))
     assert sys_.engine.tokenizer is tok
     assert rep.rows["mesh"] == {"status": "skipped", "detail": "single device — replicated"}
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="mesh must be"):
         tasm.build_mllm_system(base, device="cpu", memory_plan=HOST, tokenizer=tok,
                                mesh=object(), **_kw(weights))
     if not torch.cuda.is_available():
@@ -198,19 +198,19 @@ def test_tokenizer_device_and_mesh_seams(weights, monkeypatch):
 
 
 def test_mesh_over_several_cards_is_refused_before_loading(weights, capsys, monkeypatch):
-    """With more than one card, `--mesh auto` (the default) is refused
-    naming A16 before any checkpoint is read (the base dir here does not
-    exist, which a load would report first), and both entry points exit 2
-    with the message."""
+    """With more than one card in one process (no process group), `--mesh
+    auto` (the default) is refused naming torchrun before any checkpoint is
+    read (the base dir here does not exist, which a load would report
+    first), and both entry points exit 2 with the message."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     absent = str(weights / "absent")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(tasm.MeshUnavailable, match="torchrun"):
         tasm.build_mllm_system(absent, mesh="auto", tokenizer=tcli.DemoTokenizer())
     for main in (tcli.main, tserve.main):
         args = ["--base-model", absent, "--device", "cuda"]
         assert main(args + (["--prompt", "hi"] if main is tcli.main else [])) == 2
-        assert "A16" in capsys.readouterr().err
+        assert "torchrun" in capsys.readouterr().err
 
 
 def test_cli_base_model_matches_jax_cli(weights, float32_llms, tmp_path, capsys, monkeypatch):

@@ -161,6 +161,14 @@ def test_rms_norm_rounds_like_jax():
 
 
 def test_ring_not_ported():
-    with pytest.raises(NotImplementedError, match="A16"):
-        tl.LlamaConfig.tiny(attn_impl="ring")
+    """attn_impl="ring" is ported (tests/test_torch_ring_attention.py runs
+    it over gloo ranks); without a mesh it is the einsum path, as in JAX."""
+    cfg = tl.LlamaConfig.tiny(attn_impl="ring")
+    params = tl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ids = torch.randint(1, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(16)[None].expand(2, 16)
+    ring, _ = tl.forward_tokens(params, cfg, ids, positions=pos)
+    dense, _ = tl.forward_tokens(params, dataclasses.replace(cfg, attn_impl="xla"), ids,
+                                 positions=pos)
+    assert torch.equal(ring, dense)
     assert dataclasses.replace(tl.LlamaConfig.vicuna_7b(), attn_impl="flash").head_dim == 128

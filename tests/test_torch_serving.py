@@ -464,7 +464,8 @@ def test_short_prompt_admitted_during_staged_admission(engine):
 
 def test_batcher_close_and_mesh(engine):
     """close() joins the loop thread, then fails what it did not finish;
-    submit after close raises; a mesh is not ported (A16)."""
+    submit after close raises; a mesh that is no `core.mesh.Mesh` is
+    refused."""
     batcher = ContinuousBatcher(engine.generator.params, engine.generator.cfg, chunk=4,
                                 num_blocks=64)
     plan, _, _, _, _ = engine.plan_turn("hello there")
@@ -475,7 +476,7 @@ def test_batcher_close_and_mesh(engine):
         fut.result(timeout=WAIT)
     with pytest.raises(RuntimeError, match="closed"):
         batcher.submit(plan)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="Mesh"):
         ContinuousBatcher(engine.generator.params, engine.generator.cfg, mesh=object())
 
 

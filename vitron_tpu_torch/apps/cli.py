@@ -16,7 +16,9 @@ app's flags, and a missing component they need is exit 2 with the reason. The im
 [H, W, 3] array saved with numpy (`--image x.npy`) or, if none is given,
 random pixels from `--seed`. It runs on the card unless `--device cpu` asks
 for the CPU: `cuda` (the default) on a machine without a CUDA device is an
-error, never a switch to the CPU.
+error, never a switch to the CPU. Under `torchrun --nproc-per-node N` every
+rank runs the same turn on the serving mesh (`--mesh auto`) and rank 0
+prints it.
 """
 from __future__ import annotations
 
@@ -100,19 +102,18 @@ def main(argv=None) -> int:
     if not args.demo and not args.base_model and not args.weights:
         print("error: provide --weights DIR, --base-model or --demo", file=sys.stderr)
         return 2
+    from vitron_tpu_torch.apps.serve import build_app_system
+    from vitron_tpu_torch.core import distributed as vdist
+    from vitron_tpu_torch.runtime.assembly import MeshUnavailable, MissingWeightsError
     from vitron_tpu_torch.runtime.generation import SamplingConfig
 
-    if args.demo:
-        system = build_demo_system(device, args.seed)
-    else:
-        from vitron_tpu_torch.apps.serve import build_serving_system
-        from vitron_tpu_torch.runtime.assembly import MissingWeightsError
-
-        try:
-            system, report = build_serving_system(args)
-        except (MissingWeightsError, NotImplementedError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2
+    vdist.initialize(backend="gloo" if device.type == "cpu" else "nccl")  # under torchrun
+    try:
+        system, report = build_app_system(args, device)
+    except (MissingWeightsError, NotImplementedError, MeshUnavailable) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if report is not None and vdist.is_primary():
         print(report.summary(), file=sys.stderr)
     if args.image:
         image = np.load(args.image)
@@ -123,6 +124,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     result = system.chat(args.prompt, image=image, region_box=args.bbox,
                          sampling=sampling, gen=gen)
+    if not vdist.is_primary():
+        return 0
     print(f"[status] {result['status']}")
     if result.get("task"):
         print(f"[task]   {result['task']}")

@@ -29,6 +29,15 @@ paths (the tokenizers through `transformers`); a component they need that is
 missing, or the package, exits with code 2 and the reason. The device
 defaults to `cuda`; without a CUDA device that is an error (exit 2), never a
 switch to the CPU.
+
+Over several cards, one process a card:
+
+    torchrun --nproc-per-node 4 -m vitron_tpu_torch.apps.serve --weights weights/ --mesh auto
+
+Each rank joins the process group (`core/distributed.py`: NCCL, or gloo
+with `--device cpu`), loads the weights and shards the LLM over the serving
+mesh (`runtime/sharded_serving.py`); rank 0 serves HTTP and the other ranks
+follow its batcher in lockstep (`sharded_serving.follow`).
 """
 from __future__ import annotations
 
@@ -354,6 +363,22 @@ def build_serving_system(args):
                                       video_tower=args.video_tower, **kw)
 
 
+def build_app_system(args, device):
+    """The serve / CLI system: the demo (with the serving mesh over the
+    process group under `--mesh auto`) -> (system, None), or the
+    checkpoints' (`build_serving_system`) -> (system, report)."""
+    if not args.demo:
+        return build_serving_system(args)
+    from vitron_tpu_torch.apps.cli import build_demo_system
+    from vitron_tpu_torch.runtime.sharded_serving import install_mesh, resolve_serving_mesh
+
+    system = build_demo_system(device, args.seed)
+    mesh = resolve_serving_mesh("auto" if args.mesh == "auto" else None)
+    if mesh is not None:
+        install_mesh(system, mesh)
+    return system, None
+
+
 def add_checkpoint_args(p) -> None:
     """The serve / CLI checkpoint flags."""
     p.add_argument("--weights", metavar="DIR",
@@ -371,7 +396,8 @@ def add_checkpoint_args(p) -> None:
                    help="checkpoint geometry (tiny: the synthetic test shapes; real: bf16 "
                         "towers)")
     p.add_argument("--mesh", choices=("auto", "none"), default="auto",
-                   help="auto: one device (a mesh over several is ROADMAP A16)")
+                   help="auto: shard the LLM over the process group's ranks (torchrun); one "
+                        "device in a single process")
     p.add_argument("--allow-random-towers", action="store_true",
                    help="permit missing vision towers (smoke tests only: image questions "
                         "are answered by a random-init tower)")
@@ -396,23 +422,26 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available", file=sys.stderr)
         return 2
-    if args.demo:
-        from vitron_tpu_torch.apps.cli import build_demo_system
-
-        serve(build_demo_system(device, args.seed), args.host, args.port)
-        return 0
-    if not args.weights and not args.base_model:
+    if not (args.demo or args.weights or args.base_model):
         print("error: provide --weights DIR (the A-G deployment), --base-model (chat only) "
               "or --demo", file=sys.stderr)
         return 2
-    from vitron_tpu_torch.runtime.assembly import MissingWeightsError
+    from vitron_tpu_torch.core import distributed as vdist
+    from vitron_tpu_torch.runtime.assembly import MeshUnavailable, MissingWeightsError
 
+    vdist.initialize(backend="gloo" if device.type == "cpu" else "nccl")  # under torchrun
     try:
-        system, report = build_serving_system(args)
-    except (MissingWeightsError, NotImplementedError) as e:
+        system, report = build_app_system(args, device)
+    except (MissingWeightsError, NotImplementedError, MeshUnavailable) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    print(report.summary(), flush=True)
+    if not vdist.is_primary():
+        from vitron_tpu_torch.runtime.sharded_serving import follow
+
+        follow(system)
+        return 0
+    if report is not None:
+        print(report.summary(), flush=True)
     serve(system, args.host, args.port)
     return 0
 

@@ -25,6 +25,7 @@ import os
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels import flash_attention as _fa
@@ -35,12 +36,18 @@ from vitron_tpu_torch.kernels.quantization import conv2d_w8a8, matmul_maybe_quan
 # ---------------------------------------------------------------- primitives
 
 
-def group_norm(x: torch.Tensor, scale, bias, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+def group_norm(x: torch.Tensor, scale, bias, groups: int = 32, eps: float = 1e-6,
+               frames=None) -> torch.Tensor:
     """x [B, ..., C]: normalise over the spatial dims and each group of C/G
-    channels, from float32 (sum, sum of squares) per (sample, channel)."""
+    channels, from float32 (sum, sum of squares) per (sample, channel).
+    `frames` (a `video_sharding.FramesGroup`): x holds this rank's frames of
+    dim 1, and the sums are all-reduced over the group first."""
     b, c = x.shape[0], x.shape[-1]
     n = math.prod(x.shape[1:-1]) * (c // groups)
     st = group_norm_sums(x.reshape(b, -1, c).contiguous())
+    if frames is not None:
+        torch.distributed.all_reduce(st, group=frames.group)
+        n *= frames.size
     g1 = st[:, 0].reshape(b, groups, c // groups).sum(-1)
     g2 = st[:, 1].reshape(b, groups, c // groups).sum(-1)
     mu = g1 / n

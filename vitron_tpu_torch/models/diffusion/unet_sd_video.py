@@ -32,6 +32,13 @@ the temporal taps) serves it under `VITRON_VUNET_QUANT=w8a8`
 (`quant_default`). The TPU layout experiment `_temporal_mha_nmajor`
 (`VITRON_TATTN=nmajor`), which computes the same function as the default
 path, is not ported.
+
+Under `distributed/video_sharding.shard_video_step` a rank runs `forward` on
+its (cfg, frames) block of the latent: the temporal conv, the (F, H, W)
+group norms and the frame attention then exchange frames with the rest of
+the frames group (that module's docstring), and the i2vgen image streams
+give each frame its global position and run their adapter transformer on
+the gathered frames.
 """
 from __future__ import annotations
 
@@ -44,8 +51,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from vitron_tpu_torch.core.mesh import all_gather
+from vitron_tpu_torch.distributed.video_sharding import (frame_attention, frames_group,
+                                                         local_frames)
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized as mmq
-from vitron_tpu_torch.kernels.temporal_attention import frame_attention
 from vitron_tpu_torch.models.diffusion import unet2d
 from vitron_tpu_torch.models.diffusion.layers import (basic_transformer_block, conv2d, conv_w,
                                                       convert_ln, convert_transformer_block,
@@ -248,7 +257,7 @@ def temporal_transformer(p: Dict[str, Any], x: torch.Tensor, heads: int) -> torc
     over F, H, W) -> per-frame linear proj_in -> blocks of frame
     self-attention x 2 and GEGLU FF -> proj_out -> residual. x [B, F, H, W, C]."""
     b, f, h, w, c = x.shape
-    xn = group_norm(x, p["norm_s"], p["norm_b"])
+    xn = group_norm(x, p["norm_s"], p["norm_b"], frames=frames_group())
     y = mmq(xn.reshape(b, f, h * w, c), p["proj_in_w"]) + p["proj_in_b"]
     for blk in p["blocks"]:
         # with context_dim None, attn2 is self-attention too
@@ -344,13 +353,14 @@ def _image_streams(params, cfg: UNetSDVideoConfig, x, f: int, ctx, image, local_
     context with the 64 local-image tokens and the global tokens appended."""
     b, _, h, w, _ = x.shape
     dtype = x.dtype
+    fg = frames_group()  # x holds frames [first, first + f) of `total`
+    first, total = (fg.index * f, fg.size * f) if fg is not None else (0, f)
     li = local_image.to(dtype)                              # [B, H, W, 4]
-    xi = li[:, None]
-    if f > 1:
-        # frame 0 = the latent; frame k = the constant k / (f - 1)
-        pos = torch.arange(1, f, dtype=dtype, device=x.device) / (f - 1)
-        xi = torch.cat([xi, pos[None, :, None, None, None].expand(
-            b, f - 1, h, w, li.shape[-1])], dim=1)
+    # frame 0 = the latent; frame k = the constant k / (total - 1)
+    frame = torch.arange(first, first + f, device=x.device)
+    pos = frame.to(dtype) / max(total - 1, 1)
+    xi = torch.where((frame == 0)[None, :, None, None, None], li[:, None],
+                     pos[None, :, None, None, None].expand(b, f, h, w, li.shape[-1]))
     xi = xi.reshape((b * f,) + xi.shape[2:])
     cp = params["local_concat"]
     xi = conv2d(xi, cp["conv0_w"], cp["conv0_b"], padding=1)
@@ -359,7 +369,12 @@ def _image_streams(params, cfg: UNetSDVideoConfig, x, f: int, ctx, image, local_
     cd = xi.shape[-1]
     # (b h w) sequences of f frames for the adapter transformer
     tok = xi.reshape(b, f, h, w, cd).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, cd)
-    tok = transformer_v2(params["local_temporal"], tok, heads=2, dim_head=cd)
+    if fg is not None:  # the adapter attends over every frame of the video
+        tok = local_frames(transformer_v2(params["local_temporal"],
+                                          all_gather(tok, fg.group, dim=1), heads=2,
+                                          dim_head=cd), fg)
+    else:
+        tok = transformer_v2(params["local_temporal"], tok, heads=2, dim_head=cd)
     concat = tok.reshape(b, h, w, f, cd).permute(0, 3, 1, 2, 4) * 2.0  # added twice upstream
     x = torch.cat([x, concat.to(dtype)], dim=-1)
 

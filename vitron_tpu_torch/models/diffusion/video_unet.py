@@ -19,17 +19,19 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from vitron_tpu_torch.kernels.temporal_conv import temporal_conv_k3
+from vitron_tpu_torch.distributed.video_sharding import frames_group, temporal_conv_k3
 from vitron_tpu_torch.models.diffusion.layers import group_norm
 
 
 def temporal_conv_block(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """x [B, F, H, W, C] -> the same shape: 4 x (GN -> SiLU -> k=3 conv over
     F) with an identity residual; taps [3, 1, C, C] (the torch layout) or
-    [3, C, C], cast to x's dtype, or the W8A8 {"q8t", "s"} dict as it is."""
+    [3, C, C], cast to x's dtype, or the W8A8 {"q8t", "s"} dict as it is.
+    Under a frames group x holds this rank's frames
+    (`distributed/video_sharding.py`)."""
     identity = x
     for i in range(4):
-        x = group_norm(x, p[f"norm{i}_s"], p[f"norm{i}_b"], eps=1e-5)
+        x = group_norm(x, p[f"norm{i}_s"], p[f"norm{i}_b"], eps=1e-5, frames=frames_group())
         x = F.silu(x)
         w = p[f"conv{i}_w"]
         x = temporal_conv_k3(x, w if isinstance(w, dict) else w.to(x.dtype),

@@ -10,8 +10,17 @@ Attention is `attn_impl="xla"` (the einsum path, `_attend_xla`) or
 `"flash"`, which sends multi-token calls (prefill, cached chunks, the
 speculative verify window of `decode_step`, whose q_offset the kernel reads
 on the device) to the hand CUDA flash kernel; single-token decode stays on
-the einsum path, as in the JAX package. `"ring"` is not ported yet (ROADMAP
-A16).
+the einsum path, as in the JAX package. `"ring"` runs the prefill's
+attention over the mesh's `context` axis (`distributed/ring_attention.py`:
+B2 with its LSE on each block), given a `mesh`; without one, or with a
+cache, it is the einsum path, as in the JAX package.
+
+On a mesh (`runtime/sharded_serving.install_mesh`) the leaves are `Shard`s
+placed by `LLAMA_SHARDING_RULES`: each layer all-gathers its fsdp blocks just
+before its products, and the attention and MLP run Megatron-split on this
+rank's heads and hidden units when their weights are split over `tensor`
+(`distributed/tensor_parallel.py`), so the KV cache holds this rank's KV
+heads (`local_kv_heads`).
 
 The no-cache `forward` is differentiable (the trainer's path): the int4
 projections and flash attention carry their own `autograd.Function`s, and
@@ -28,10 +37,32 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vitron_tpu_torch.core.mesh import FSDP_AXIS, TENSOR_AXIS, gather_params
+from vitron_tpu_torch.distributed import tensor_parallel as tp
 from vitron_tpu_torch.kernels.flash_attention import flash_attention
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized
 
-ATTN_IMPLS = ("xla", "flash")
+ATTN_IMPLS = ("xla", "flash", "ring")
+
+# Sharding rules: param-path substring -> spec (JAX's LLAMA_SHARDING_RULES).
+# Column-parallel projections split the output dim over `tensor`;
+# row-parallel the input dim. `fsdp` shards the complementary dim ZeRO-3
+# style. Stacked per-layer weights are [L, in, out] -> the layer dim stays
+# unsharded.
+LLAMA_SHARDING_RULES = (
+    ("embed", (TENSOR_AXIS, FSDP_AXIS)),
+    ("wq", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wk", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wv", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wo", (None, TENSOR_AXIS, FSDP_AXIS)),
+    ("gate", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("up", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("down", (None, TENSOR_AXIS, FSDP_AXIS)),
+    ("lm_head", (FSDP_AXIS, TENSOR_AXIS)),
+    ("norm", ()),
+)
+ATTN_WEIGHTS = (("wq", "wk", "wv"), "wo")
+MLP_WEIGHTS = (("gate", "up"), "down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +76,13 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     max_seq_len: int = 4096
-    attn_impl: str = "xla"  # "xla" | "flash"
+    attn_impl: str = "xla"  # "xla" | "flash" | "ring"
+    context_axis: str = "context"  # mesh axis for attn_impl="ring"
     remat: bool = False  # recompute each layer in the backward (no-cache forward only)
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.attn_impl == "ring":
-            raise NotImplementedError("attn_impl='ring' is not ported yet (ROADMAP A16)")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
@@ -155,9 +185,10 @@ class KVCache:
 
     @staticmethod
     def create(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
-               device=None) -> "KVCache":
+               device=None, kv_heads: Optional[int] = None) -> "KVCache":
+        """kv_heads: this rank's KV heads on a mesh (`local_kv_heads`)."""
         max_len = max_len or cfg.max_seq_len
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.num_kv_heads, cfg.head_dim)
         return KVCache(
             k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
@@ -182,9 +213,20 @@ def _attend_xla(q, k, v, mask, scale):
     return out.reshape(b, s, n, d)
 
 
-def _attend(q, k, v, mask, scale, impl: str, kv_mask=None, q_offset=0):
+def _attend(q, k, v, mask, scale, impl: str, kv_mask=None, q_offset=0, mesh=None,
+            context_axis: str = "context"):
     """mask: dense [B,1,S,T] (einsum path); kv_mask/q_offset: the flash
-    kernel's equivalent (causal in key-slot space + per-slot validity)."""
+    kernel's equivalent (causal in key-slot space + per-slot validity).
+
+    impl="ring" with a mesh (the no-cache prefill only): ring attention
+    over `context_axis`, which assumes densely packed rows (no padding
+    mask), as the JAX package's does. K/V keep their own KV heads on the
+    ring and B2 takes the GQA."""
+    if impl == "ring" and q.shape[1] > 1 and mesh is not None:
+        from vitron_tpu_torch.distributed.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh, axis_name=context_axis, scale=float(scale),
+                              causal=True)
     if impl == "flash" and q.shape[1] > 1:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                kv_mask=kv_mask, q_offset=q_offset, scale=float(scale))
@@ -197,15 +239,52 @@ def _layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
                    else leaf[i]) for name, leaf in layers.items()}
 
 
+def tp_groups(lp: Dict[str, Any], cfg: LlamaConfig):
+    """(attention group, MLP group): the `tensor` process group of each
+    block whose weights form the Megatron split (and, for attention, whose
+    KV heads divide over it), else None. lp: one layer's leaves or the
+    stacked ones."""
+    attn = tp.pair_group(lp, *ATTN_WEIGHTS)
+    if attn is not None and cfg.num_kv_heads % tp.group_size(attn):
+        attn = None
+    return attn, tp.pair_group(lp, *MLP_WEIGHTS)
+
+
+def local_kv_heads(params: Dict[str, Any], cfg: LlamaConfig) -> int:
+    """The KV heads this rank's attention (and so its KV cache) holds."""
+    layers = params["layers"]
+    if not any(tp.sharded(w) for w in layers.values()):
+        return cfg.num_kv_heads
+    attn, _ = tp_groups(layers, cfg)
+    return cfg.num_kv_heads // tp.group_size(attn)
+
+
+def materialize_layer(lp: Dict[str, Any], cfg: LlamaConfig):
+    """One layer's leaves ready for its products -> (leaves, attention
+    group, MLP group): plain leaves as they are; on a mesh the fsdp blocks
+    all-gathered, and the `tensor` blocks kept where the block runs
+    Megatron-split (gathered whole where it cannot)."""
+    if not any(tp.sharded(w) for w in lp.values()):
+        return lp, None, None
+    attn, mlp = tp_groups(lp, cfg)
+    split = set(ATTN_WEIGHTS[0] + (ATTN_WEIGHTS[1],)) if attn is not None else set()
+    if mlp is not None:
+        split |= set(MLP_WEIGHTS[0] + (MLP_WEIGHTS[1],))
+    out = {name: tp.gather(w, (TENSOR_AXIS,) if name in split else ())
+           for name, w in lp.items()}
+    return out, attn, mlp
+
+
 def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor,
             positions: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-            cache: Optional[KVCache] = None):
+            cache: Optional[KVCache] = None, mesh=None):
     """Run the decoder -> (logits float32 [B,S,V], cache).
 
     Without a cache: causal prefill over S. With a cache: writes this
     chunk's K/V at cache.index (in place) and attends over the whole cache
     window; prefill chunks and single-token decode share this path.
-    `decode_step` is the single-token step at a device-held slot.
+    `decode_step` is the single-token step at a device-held slot. `mesh`
+    carries the `context` axis of attn_impl="ring".
     """
     b, s, _ = input_embeds.shape
     x = input_embeds.to(cfg.compute_dtype)
@@ -235,7 +314,8 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Tensor
             cache.k[li, :, start:start + s] = k.to(cache.k.dtype)
             cache.v[li, :, start:start + s] = v.to(cache.v.dtype)
             k, v = cache.k[li], cache.v[li]
-        return _attend(q, k, v, mask, scale, cfg.attn_impl, kv_mask=kv_mask, q_offset=q_offset)
+        return _attend(q, k, v, mask, scale, cfg.attn_impl, kv_mask=kv_mask, q_offset=q_offset,
+                       mesh=mesh if cache is None else None, context_axis=cfg.context_axis)
 
     def layer(x, lp, li):
         return _block(x, lp, cfg, cos, sin, lambda q, k, v: attend(q, k, v, li))
@@ -296,24 +376,26 @@ def decode_step(params: Dict[str, Any], cfg: LlamaConfig, input_embeds: torch.Te
 
 def _block(x, lp, cfg: LlamaConfig, cos, sin, attend):
     """One decoder layer on x [B, S, H]; attend(q, k, v) gives the attention
-    output [B, S, N, D] (and writes the cache where there is one)."""
+    output [B, S, N, D] (and writes the cache where there is one). On a
+    mesh q/k/v hold this rank's heads and the row products all-reduce."""
     b, s, h = x.shape
+    lp, attn_group, mlp_group = materialize_layer(lp, cfg)
     xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = matmul_maybe_quantized(xn, lp["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = matmul_maybe_quantized(xn, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn_out = attend(q, k, v)
-    x = x + matmul_maybe_quantized(attn_out.reshape(b, s, h), lp["wo"])
+    x = x + tp.row_linear(attn_out.reshape(b, s, -1), lp["wo"], attn_group)
     xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     gate = F.silu(matmul_maybe_quantized(xn, lp["gate"]))
-    return x + matmul_maybe_quantized(gate * matmul_maybe_quantized(xn, lp["up"]), lp["down"])
+    return x + tp.row_linear(gate * matmul_maybe_quantized(xn, lp["up"]), lp["down"], mlp_group)
 
 
 def _head(params, cfg: LlamaConfig, x) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return matmul_maybe_quantized(x, params["lm_head"]).to(torch.float32)
+    x = rms_norm(x, gather_params(params["final_norm"]), cfg.rms_norm_eps)
+    return tp.linear(x, params["lm_head"]).to(torch.float32)
 
 
 def forward_tokens(params, cfg: LlamaConfig, token_ids: torch.Tensor, **kw):

@@ -20,6 +20,11 @@ bucket and replayed on the card, the same steps run eagerly on the CPU. The
 attention of `decode_step_gathered` is plain torch einsums, as it is XLA
 einsums in the JAX package (no Pallas kernel); its projections go through
 the int4 kernel (B1) at M = the active batch.
+
+On a mesh (`runtime/sharded_serving.install_mesh`) the pool holds this
+rank's KV heads (the head axis on `tensor`, JAX's `paged_pool_shardings`)
+and each decode layer gathers its fsdp blocks and runs Megatron-split, as
+`llama.forward` does.
 """
 from __future__ import annotations
 
@@ -33,8 +38,11 @@ import torch.nn.functional as F
 
 from vitron_tpu_torch.kernels.quantization import matmul_maybe_quantized as _mm
 from vitron_tpu_torch.kernels.quantization import promote_int4
+from vitron_tpu_torch.core.mesh import gather_params
+from vitron_tpu_torch.distributed import tensor_parallel as tp
 from vitron_tpu_torch.models.llm.llama import (KVCache, LlamaConfig, _layer_params, apply_rope,
-                                               forward_tokens, rms_norm, rope_cos_sin)
+                                               forward_tokens, local_kv_heads, materialize_layer,
+                                               rms_norm, rope_cos_sin)
 from vitron_tpu_torch.runtime.graphs import Chunk
 from vitron_tpu_torch.runtime.telemetry import ProgramCache
 
@@ -50,8 +58,10 @@ class PagedPool:
 
     @staticmethod
     def create(cfg: LlamaConfig, num_blocks: int, block_size: int = 16,
-               device=None) -> "PagedPool":
-        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+               device=None, kv_heads: Optional[int] = None) -> "PagedPool":
+        """kv_heads: this rank's KV heads on a mesh (`llama.local_kv_heads`)."""
+        shape = (cfg.num_layers, num_blocks, block_size, kv_heads or cfg.num_kv_heads,
+                 cfg.head_dim)
         return PagedPool(
             k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
@@ -130,23 +140,22 @@ def decode_step_gathered(params: Dict[str, Any], cfg: LlamaConfig, token_embeds:
     [L, B, T, KV, D]. step_n gathers the block table once per n-token chunk
     and carries the dense view through its steps."""
     b = token_embeds.shape[0]
-    h = cfg.hidden_size
     x = token_embeds.to(cfg.compute_dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     scale = 1.0 / (cfg.head_dim ** 0.5)
     t = k_all.shape[2]
     key_pos = torch.arange(t, device=x.device)[None, :]
     valid = key_pos < (lengths[:, None] - 1)   # existing tokens only
-    kv_heads = cfg.num_kv_heads
-    groups = cfg.num_heads // kv_heads
+    kv_heads = k_all.shape[3]  # this rank's on a mesh
+    groups = cfg.num_heads // cfg.num_kv_heads
     neg = torch.finfo(torch.float32).min
     layers = params["layers"]
     k_news, v_news = [], []
     for li in range(cfg.num_layers):
-        lp = _layer_params(layers, li)
+        lp, attn_group, mlp_group = materialize_layer(_layer_params(layers, li), cfg)
         layer_k, layer_v = k_all[li], v_all[li]
         xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = _mm(xn, lp["wq"]).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+        q = _mm(xn, lp["wq"]).reshape(b, 1, kv_heads * groups, cfg.head_dim)
         k_new = _mm(xn, lp["wk"]).reshape(b, 1, kv_heads, cfg.head_dim)
         v_new = _mm(xn, lp["wv"]).reshape(b, 1, kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
@@ -163,13 +172,14 @@ def decode_step_gathered(params: Dict[str, Any], cfg: LlamaConfig, token_embeds:
         p_hist, p_self = probs[..., :t], probs[..., t:]
         out = torch.einsum("bkgst,btkd->bskgd", p_hist, layer_v.to(q.dtype))
         out = out + torch.einsum("bkgs,bskd->bskgd", p_self[..., 0], v_new)
-        x = x + _mm(out.reshape(b, 1, h), lp["wo"])
+        x = x + tp.row_linear(out.reshape(b, 1, -1), lp["wo"], attn_group)
         xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mm(F.silu(_mm(xn, lp["gate"])) * _mm(xn, lp["up"]), lp["down"])
+        x = x + tp.row_linear(F.silu(_mm(xn, lp["gate"])) * _mm(xn, lp["up"]), lp["down"],
+                              mlp_group)
         k_news.append(k_new[:, 0])
         v_news.append(v_new[:, 0])
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _mm(x[:, 0], params["lm_head"]).to(torch.float32)
+    x = rms_norm(x, gather_params(params["final_norm"]), cfg.rms_norm_eps)
+    logits = tp.linear(x[:, 0], params["lm_head"]).to(torch.float32)
     return logits, torch.stack(k_news), torch.stack(v_news)
 
 
@@ -259,7 +269,9 @@ class PagedServer:
         self.decode_params = promote_int4(params)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embed"].device
-        self.pool = PagedPool.create(cfg, num_blocks, block_size, device=self.device)
+        self.kv_heads = local_kv_heads(params, cfg)
+        self.pool = PagedPool.create(cfg, num_blocks, block_size, device=self.device,
+                                     kv_heads=self.kv_heads)
         self.max_blocks = max_blocks_per_seq
         self.seqs: Dict[int, PagedSequence] = {}
         self.last_token: Dict[int, int] = {}
@@ -301,7 +313,8 @@ class PagedServer:
         mask = torch.zeros((1, bucket), dtype=torch.bool, device=self.device)
         mask[0, :n] = True
         pos = torch.arange(bucket, device=self.device)[None]
-        cache = KVCache.create(self.cfg, 1, max_len=bucket, device=self.device)
+        cache = KVCache.create(self.cfg, 1, max_len=bucket, device=self.device,
+                               kv_heads=self.kv_heads)
         forward_tokens(self.params, self.cfg, ids, positions=pos, attn_mask=mask, cache=cache)
         self._import_cache(sid, cache.k, cache.v, n)
         return sid

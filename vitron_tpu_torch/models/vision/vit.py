@@ -18,6 +18,7 @@ from typing import Any, Dict
 
 import torch
 
+from vitron_tpu_torch.core.mesh import FSDP_AXIS, TENSOR_AXIS
 from vitron_tpu_torch.models.llm.llama import dense_init
 
 
@@ -59,6 +60,22 @@ class ViTConfig:
                     num_heads=4, intermediate_size=64, num_frames=4)
         base.update(kw)
         return ViTConfig(**base)
+
+
+# Stacked per-layer weights are [L, in, out]; biases and norms replicate
+# (JAX's VIT_SHARDING_RULES). A sharded tower is gathered whole before it
+# runs (`vitron_model.encode_media`).
+VIT_SHARDING_RULES = (
+    ("patch_proj", (None, TENSOR_AXIS)),
+    ("pos_emb", ()),
+    ("t_emb", ()),
+    ("wq", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wk", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wv", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("wo", (None, TENSOR_AXIS, FSDP_AXIS)),
+    ("fc1", (None, FSDP_AXIS, TENSOR_AXIS)),
+    ("fc2", (None, TENSOR_AXIS, FSDP_AXIS)),
+)
 
 
 def _attn_block_init(gen, h, l, dtype, device):

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from vitron_tpu_torch.core.mesh import gather_params
 from vitron_tpu_torch.mm.splice import apply_splice
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.vision import projector as projector_mod
@@ -57,6 +58,15 @@ class VitronConfig:
         return VitronConfig(**base)
 
 
+# JAX's VITRON_SHARDING_RULES: the llama rules under "llm/", then the ViT
+# rules. Rules match by substring, so "llm/wq" matches no stacked LLM leaf
+# ("llm/layers/wq"): the LLM's attention projections take the ViT rules
+# (the same specs) and its MLP and norms no rule (replicated), as in JAX.
+VITRON_SHARDING_RULES = tuple(
+    [("llm/" + k if not k.startswith("llm") else k, s) for k, s in llama.LLAMA_SHARDING_RULES]
+) + vit.VIT_SHARDING_RULES
+
+
 def init_params(gen: torch.Generator, cfg: VitronConfig, device) -> Dict[str, Any]:
     """Random weights at the config's full width, made on `device` from
     `gen` (a generator on that device). The projector and region extractor
@@ -83,7 +93,11 @@ def encode_media(params: Dict[str, Any], cfg: VitronConfig,
     (image_feats [n_blocks, P, H_llm], region_feats [n_blocks, 1, H_llm] or
     None). Images give one block, videos `T` consecutive blocks; block_perm
     maps the [images.., video frames..] concat order to planner order.
-    Region features pool the RAW tower features, not the projected ones."""
+    Region features pool the RAW tower features, not the projected ones.
+    On a mesh the towers, projector and region extractor are gathered whole
+    here (fsdp: all-gathered before use)."""
+    params = {k: gather_params(params[k]) for k in
+              ("image_tower", "video_tower", "projector", "region") if k in params}
     raw_blocks = []
     with torch.no_grad():  # the towers are frozen
         if images is not None and images.shape[0] > 0:
@@ -128,15 +142,16 @@ def spliced_embeds(params: Dict[str, Any], cfg: VitronConfig, plan_token_ids: to
 def forward(params: Dict[str, Any], cfg: VitronConfig, plan_token_ids, plan_media_idx,
             plan_use_media, positions, attn_mask, images=None, videos=None,
             block_perm=None, region_boxes=None, region_block_idx=None,
-            cache: Optional[llama.KVCache] = None):
+            cache: Optional[llama.KVCache] = None, mesh=None):
     """Multimodal prefill: encode media, splice, run the decoder ->
-    (logits, cache)."""
+    (logits, cache). `mesh` enables the LLM's ring attention
+    (cfg.llm.attn_impl="ring") over its `context` axis."""
     embeds = spliced_embeds(
         params, cfg, plan_token_ids, plan_media_idx, plan_use_media,
         images=images, videos=videos, block_perm=block_perm,
         region_boxes=region_boxes, region_block_idx=region_block_idx)
     return llama.forward(params["llm"], cfg.llm, embeds, positions,
-                         attn_mask=attn_mask, cache=cache)
+                         attn_mask=attn_mask, cache=cache, mesh=mesh)
 
 
 def decode_step(params: Dict[str, Any], cfg: VitronConfig, token_ids: torch.Tensor,

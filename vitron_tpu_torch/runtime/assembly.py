@@ -49,8 +49,11 @@ the same way; without that dir the backends that need it are skipped, as in
 JAX), `image_embedder` (task G's global image embedding, ROADMAP C4; JAX
 registers none, which gives zeros), `device` (default `cuda`; without a
 CUDA device that is an error, never a switch to the CPU) and the system's
-`memory_plan`. A mesh over more than one device is not ported (ROADMAP
-A16). `NLAAtlasStore` keeps JAX's atlas grid (one grid for the foreground
+`memory_plan`. `mesh` ("auto", a `core.mesh.Mesh` or None) shards the
+resident LLM over the ranks of the process group (`sharded_serving`: one
+process a device, under torchrun); "auto" without a group on a machine with
+more than one card is refused, since one process cannot drive the others.
+`NLAAtlasStore` keeps JAX's atlas grid (one grid for the foreground
 and background atlases, ROADMAP C4).
 """
 from __future__ import annotations
@@ -253,16 +256,39 @@ def _load_mllm(base: pathlib.Path, lora: pathlib.Path, clip_dir: pathlib.Path,
     return params, cfg, tokenizer if tokenizer is not None else auto_tokenizer(base)
 
 
-def _check_mesh(device: torch.device, mesh) -> None:
-    """One device only: more than one device (or any mesh but "auto") is
-    not ported (ROADMAP A16). Checked before anything is read."""
+class MeshUnavailable(RuntimeError):
+    """A mesh was asked for that this process cannot build."""
+
+
+def _resolve_mesh(device: torch.device, mesh):
+    """The serving mesh for `mesh` (`sharded_serving.resolve_serving_mesh`),
+    before anything is read: "auto" in a process without a group on a
+    machine with several cards is refused (run one process a card)."""
+    import torch.distributed as dist
+
+    from vitron_tpu_torch.runtime.sharded_serving import resolve_serving_mesh
+
+    if (mesh == "auto" and not dist.is_initialized() and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise MeshUnavailable(
+            f"mesh 'auto' over {torch.cuda.device_count()} cards needs one process a card: "
+            f"launch with torchrun --nproc-per-node {torch.cuda.device_count()} (or pass "
+            f"mesh=None for one card)")
+    return resolve_serving_mesh(mesh)
+
+
+def _apply_mesh(system, mesh, resolved, report: "AssemblyReport") -> None:
+    """JAX's `_apply_mesh`: the LLM sharded over the mesh ("loaded"), or
+    "skipped" on one device."""
+    from vitron_tpu_torch.runtime.sharded_serving import install_mesh
+
     if mesh is None:
         return
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh != "auto" or count > 1:
-        raise NotImplementedError(
-            f"serving over a mesh ({mesh!r}, {count} {device.type} devices) is not ported "
-            f"yet (ROADMAP A16): pass mesh=None")
+    if resolved is not None:
+        install_mesh(system, resolved)
+        report.add("mesh", "loaded", f"LLM sharded over {resolved.shape}")
+    else:
+        report.add("mesh", "skipped", "single device — replicated")
 
 
 def resolve_device(device) -> torch.device:
@@ -295,7 +321,7 @@ def build_mllm_system(
     from vitron_tpu_torch.runtime.system import VitronSystem
 
     device = resolve_device(device)
-    _check_mesh(device, mesh)
+    resolved = _resolve_mesh(device, mesh)
     report = AssemblyReport()
     missing = pathlib.Path("/nonexistent")
     params, cfg, tokenizer = _load_mllm(
@@ -304,10 +330,9 @@ def build_mllm_system(
         pathlib.Path(clip_tower) if clip_tower else missing,
         pathlib.Path(video_tower) if video_tower else missing,
         geometry, quantize, allow_random_towers, report, device, tokenizer)
-    if mesh is not None:  # "auto" on one device: JAX's row
-        report.add("mesh", "skipped", "single device — replicated")
     system = VitronSystem(VitronEngine(params, cfg, tokenizer, device=device),
                           memory_plan=memory_plan)
+    _apply_mesh(system, mesh, resolved, report)
     return system, report
 
 
@@ -624,7 +649,7 @@ def build_system_from_weights(
     from vitron_tpu_torch.runtime.system import VitronSystem
 
     device = resolve_device(device)
-    _check_mesh(device, mesh)
+    resolved = _resolve_mesh(device, mesh)
     w = pathlib.Path(weights_dir)
     if not w.is_dir():
         raise MissingWeightsError(f"weights dir {w} does not exist")
@@ -636,8 +661,7 @@ def build_system_from_weights(
         geometry, quantize, allow_random_towers, report, device, tokenizer)
     system = VitronSystem(VitronEngine(params, cfg, tokenizer, device=device),
                           memory_plan=memory_plan)
-    if mesh is not None:  # "auto" on one device: JAX's row
-        report.add("mesh", "skipped", "single device — replicated")
+    _apply_mesh(system, mesh, resolved, report)
     if clip_tok is None:
         report.add("clip_tokenizer", "missing",
                    "clip_tokenizer/ absent — SEEM/GLIGEN/video backends skipped")

@@ -36,8 +36,21 @@ time); and `close()` fails the futures while the loop thread may still run
 Sampling: a request's first token and its decode columns draw their
 uniforms from the request's own `torch.Generator` when it gives one (else
 from the batcher's, seeded with `seed`), so a sampled request gives the
-same tokens whichever requests share its chunks. Multi-device serving (a
-`mesh`) is not ported (ROADMAP A16), nor is speculative decode here.
+same tokens whichever requests share its chunks. Speculative decode is not
+used here.
+
+On a mesh (`mesh=`, `runtime/sharded_serving.install_mesh`'s params) the
+pool holds this rank's KV heads, and with more than one rank every rank
+runs its own batcher in lockstep: rank 0 runs the loop thread and, before
+each device step, broadcasts one fixed-size int64 control tensor
+(`sharded_serving.Lockstep`) that names the step (an admission with its
+token ids, sampling state and first uniform, then its plan and media
+tensors; a staged admission's step; a decode chunk with its rows' sampling
+state and uniforms) and the sequences that finished since the last one;
+the other ranks run `follow()`, which repeats each step on the same inputs
+and so issues the same collectives. Rank 0's loop sends a no-op when it has
+been idle for `HEARTBEAT_S` (the followers' broadcast would time out
+otherwise) and a stop when it ends.
 """
 from __future__ import annotations
 
@@ -52,11 +65,20 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from vitron_tpu_torch.core.mesh import Mesh
 from vitron_tpu_torch.kernels.quantization import promote_int4
 from vitron_tpu_torch.models import vitron_model
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.llm.paged_cache import PagedServer, sample_token_batched
 from vitron_tpu_torch.runtime.generation import SamplingConfig, uniforms
+from vitron_tpu_torch.runtime.sharded_serving import Lockstep, f64_bits, from_f64_bits
+
+HEARTBEAT_S = 1.0
+# lockstep ops (slot 0 of the control tensor)
+NOOP, STOP, ADMIT, STAGE, STEP, DECODE = range(6)
+_MEDIA_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8)
+_MEDIA_DIMS = 6
+_JOB_HEADER = 8 + 2 * (_MEDIA_DIMS + 2)  # `_job_header`'s slots
 
 
 @dataclasses.dataclass
@@ -69,6 +91,7 @@ class _Job:
     future: "concurrent.futures.Future"
     sid: Optional[int] = None
     out: Optional[List[int]] = None
+    u0: Optional[torch.Tensor] = None  # the first token's uniform [1]
 
     @property
     def pad_len(self) -> int:
@@ -90,14 +113,14 @@ class ContinuousBatcher:
     """Owns the LLM device loop for a serving process.
 
     params/cfg are the full Vitron tree + config (the LLM sub-tree drives
-    the paged decode pool). Thread-safe `submit`; one daemon loop thread."""
+    the paged decode pool). Thread-safe `submit`; one daemon loop thread,
+    on rank 0 of a mesh (the other ranks call `follow`)."""
 
     def __init__(self, params, cfg, num_blocks: int = 512, block_size: int = 16,
                  chunk: int = 16, max_active: int = 8, seed: int = 0, mesh=None,
                  prefill_chunk: int = 256, device=None):
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not ported yet "
-                                      "(ROADMAP A16)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a core.mesh.Mesh, got {type(mesh).__name__}")
         self.params = params
         # the admission programs' tree: W4A8 leaves when VITRON_W4A8=1 (read
         # here, once), where the JAX package promotes inside them
@@ -122,26 +145,41 @@ class ContinuousBatcher:
                        "admit_steps": 0, "admit_step_s_sum": 0.0,
                        "admit_step_s_max": 0.0}
         self._stop = threading.Event()
+        # the lockstep of a mesh's ranks: finished sids wait for the next op
+        # (at most the active sequences and the staged one)
+        self._fin_slots = max_active + 1
+        self._finished: List[int] = []
+        self._lockstep = None
+        if mesh is not None:
+            self._lockstep = Lockstep(2 + self._fin_slots + max(
+                _JOB_HEADER, 1 + (3 + chunk) * max_active), self.device)
+        self.leader = self._lockstep is None or self._lockstep.primary
         self._thread = threading.Thread(target=self._loop, daemon=True, name="vitron-batcher")
-        self._thread.start()
+        if self.leader:
+            self._thread.start()
 
     # --------------------------------------------------------- device fns
 
     def _sample0(self, job: _Job, logits: torch.Tensor) -> int:
-        """The first token from the prefill's next-token logits [1, V]."""
+        """The first token from the prefill's next-token logits [1, V], by
+        the uniform drawn for it (`_draw_u0`)."""
         s = job.sampling
         greedy = bool(s.greedy or s.temperature == 0.0)
         f = lambda v: torch.tensor([v], dtype=torch.float32, device=self.device)  # noqa: E731
         tok = sample_token_batched(logits, f(s.temperature), f(s.top_p),
-                                   torch.tensor([greedy], device=self.device),
-                                   self._uniforms(job, 1))
+                                   torch.tensor([greedy], device=self.device), job.u0)
         return int(tok[0])
+
+    def _draw_u0(self, job: _Job) -> None:
+        if job.u0 is None:
+            job.u0 = self._uniforms(job, 1)
 
     def _prefill_fn(self, job: _Job):
         """Fused admission: encode + splice + prefill into a dense cache of
         the pad bucket + sample the first token."""
         a = job.arrays
-        cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len, device=self.device)
+        cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len, device=self.device,
+                                     kv_heads=self.server.kv_heads)
         logits, cache = vitron_model.forward(
             self._promoted, self.cfg, a["token_ids"], a["media_idx"], a["use_media"],
             a["positions"], a["attn_mask"], images=a["images"], videos=a["videos"],
@@ -224,7 +262,8 @@ class ContinuousBatcher:
         request it did not finish."""
         with self._lock:
             self._stop.set()
-        self._thread.join()
+        if self._thread.is_alive():
+            self._thread.join()
         jobs = list(self._active.values()) + list(self._long)
         if self._admitting is not None:
             jobs.append(self._admitting.job)
@@ -241,6 +280,13 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- loop
 
     def _loop(self) -> None:
+        try:
+            self._serve()
+        finally:
+            self._publish(STOP)
+
+    def _serve(self) -> None:
+        idle_since = time.monotonic()
         with torch.no_grad():
             while not self._stop.is_set():
                 admitted = self._admit_pending()
@@ -260,8 +306,13 @@ class ContinuousBatcher:
                     try:
                         job = self._queue.get(timeout=0.05)
                     except queue.Empty:
+                        if (self._lockstep is not None
+                                and time.monotonic() - idle_since > HEARTBEAT_S):
+                            self._publish(NOOP)
+                            idle_since = time.monotonic()
                         continue
                     self._take(job)
+                idle_since = time.monotonic()
 
     def _room(self) -> bool:
         return len(self._active) + (self._admitting is not None) < self.max_active
@@ -327,7 +378,10 @@ class ContinuousBatcher:
 
     def _admit(self, job: _Job) -> None:
         try:
-            self._to_device(job)
+            if self.leader:
+                self._to_device(job)
+                self._draw_u0(job)
+                self._publish(ADMIT, job)
             tok0, cache = self._timed_admit_step("admit_fused", lambda: self._prefill_fn(job))
             self._activate(job, tok0, cache.k, cache.v)
         except Exception as e:
@@ -338,9 +392,11 @@ class ContinuousBatcher:
         """Stage a long-prompt admission: its steps run on later loop
         iterations, one at a time."""
         try:
-            self._to_device(job)
+            if self.leader:
+                self._to_device(job)
+                self._publish(STAGE, job)
             cache = llama.KVCache.create(self.cfg.llm, 1, max_len=job.pad_len,
-                                         device=self.device)
+                                         device=self.device, kv_heads=self.server.kv_heads)
             self._admitting = _Admission(job=job, cache=cache,
                                          n_chunks=max(1, -(-job.seq_len // self.prefill_chunk)))
         except Exception as e:
@@ -354,6 +410,11 @@ class ContinuousBatcher:
         adm = self._admitting
         job = adm.job
         try:
+            if self.leader:
+                last = adm.embeds is not None and adm.i + 1 >= adm.n_chunks
+                if last:
+                    self._draw_u0(job)
+                self._publish(STEP, u0=job.u0 if last else None)
             if adm.embeds is None:
                 adm.embeds = self._timed_admit_step("admit_embed", lambda: self._embed_fn(job))
                 return
@@ -373,6 +434,8 @@ class ContinuousBatcher:
         job.out = [tok0]
         with self._lock:
             self._stats["admitted"] += 1
+        if not self.leader:  # rank 0 decides when a sequence finishes
+            return
         if self._job_done_after(job, tok0):
             self._finish(job)
         else:
@@ -390,6 +453,8 @@ class ContinuousBatcher:
         if job.sid in self._active:
             del self._active[job.sid]
         self.server.finish(job.sid)
+        if self._lockstep is not None:
+            self._finished.append(job.sid)
         with self._lock:
             self._stats["finished"] += 1
         if not job.future.done():
@@ -404,6 +469,7 @@ class ContinuousBatcher:
             sampling[sid] = (s.temperature, s.top_p, bool(s.greedy or s.temperature == 0.0))
         sampling["uniforms"] = torch.stack(
             [self._uniforms(self._active[sid], self.chunk) for sid in ids], dim=1)
+        self._publish(DECODE, sampling=(ids, sampling))
         toks = self.server.step_n(self.chunk, sampling=sampling)
         emitted = 0
         for sid, ts in toks.items():
@@ -422,3 +488,130 @@ class ContinuousBatcher:
             self._stats["slot_tokens"] += b * self.chunk
             self._stats["emitted_tokens"] += emitted
         self._trace_event("decode")
+
+    # --------------------------------------------------------- lockstep
+
+    def _publish(self, op: int, job: Optional[_Job] = None, u0=None, sampling=None) -> None:
+        """Rank 0: broadcast the next device step (and the sequences that
+        finished since the last one) to the following ranks."""
+        if self._lockstep is None:
+            return
+        fin, self._finished = self._finished, []
+        if len(fin) > self._fin_slots:
+            raise RuntimeError(f"lockstep: {len(fin)} finished sequences in one message")
+        head = [op, len(fin)] + fin + [0] * (self._fin_slots - len(fin))
+        if op in (ADMIT, STAGE):
+            self._lockstep.send(head + self._job_header(job))
+            self._send_job(job)
+        elif op == STEP:
+            self._lockstep.send(head + ([1, int(f64_bits(u0.cpu())[0])] if u0 is not None
+                                        else [0, 0]))
+        elif op == DECODE:
+            ids, smp = sampling
+            rows = []
+            for sid in ids:
+                t, p, g = smp[sid]
+                rows += f64_bits([t, p]).tolist() + [int(g)]
+            rows += [0] * (3 * (self.max_active - len(ids)))
+            u = f64_bits(smp["uniforms"].cpu().numpy()).tolist()
+            self._lockstep.send(head + [len(ids)] + rows + u)
+        else:
+            self._lockstep.send(head)
+
+    def _job_header(self, job: _Job) -> List[int]:
+        a, s = job.arrays, job.sampling
+        greedy = bool(s.greedy or s.temperature == 0.0)
+        head = [job.pad_len, job.seq_len, *f64_bits([s.temperature, s.top_p]).tolist(),
+                int(greedy), int(f64_bits(job.u0.cpu())[0]) if job.u0 is not None else 0,
+                -1 if a["block_perm"] is None else int(a["block_perm"].shape[0]),
+                -1 if a["region_boxes"] is None else int(a["region_boxes"].shape[0])]
+        for name in ("images", "videos"):
+            t = a[name]
+            if t is None:
+                head += [0] * (_MEDIA_DIMS + 2)
+            else:
+                head += ([t.dim()] + list(t.shape) + [0] * (_MEDIA_DIMS - t.dim())
+                         + [_MEDIA_DTYPES.index(t.dtype)])
+        return head
+
+    def _send_job(self, job: _Job) -> None:
+        a, send = job.arrays, self._lockstep.send_tensor
+        send(torch.stack([a[k].reshape(-1).to(torch.int64) for k in
+                          ("token_ids", "media_idx", "use_media", "positions", "attn_mask")]))
+        for name in ("block_perm", "region_boxes", "region_block_idx", "images", "videos"):
+            if a[name] is not None:
+                send(a[name])
+
+    def _recv_job(self, args) -> _Job:
+        """A follower's copy of the job rank 0 published (arrays on the device)."""
+        pad_len, seq_len, temp, top_p, greedy, u0, n_perm, n_region = (int(v) for v in args[:8])
+        recv = self._lockstep.recv_tensor
+        plan = recv((5, pad_len), torch.int64)
+        a = dict(token_ids=plan[0][None], media_idx=plan[1][None],
+                 use_media=plan[2].bool()[None], positions=plan[3][None],
+                 attn_mask=plan[4].bool()[None], block_perm=None, region_boxes=None,
+                 region_block_idx=None, images=None, videos=None)
+        if n_perm >= 0:
+            a["block_perm"] = recv((n_perm,), torch.int64)
+        if n_region >= 0:
+            a["region_boxes"] = recv((n_region, 4), torch.float32)
+            a["region_block_idx"] = recv((n_region,), torch.int64)
+        off = 8
+        for name in ("images", "videos"):
+            nd = int(args[off])
+            if nd:
+                a[name] = recv(args[off + 1:off + 1 + nd],
+                               _MEDIA_DTYPES[int(args[off + 1 + _MEDIA_DIMS])])
+            off += _MEDIA_DIMS + 2
+        temp, top_p = from_f64_bits([temp, top_p]).tolist()
+        job = _Job(arrays=a, seq_len=seq_len,
+                   sampling=SamplingConfig(temperature=temp, top_p=top_p, greedy=bool(greedy)),
+                   stopper=None, gen=None, future=concurrent.futures.Future())
+        job.u0 = self._uniform_of(u0)
+        return job
+
+    def _uniform_of(self, bits) -> torch.Tensor:
+        return torch.as_tensor(from_f64_bits([bits]).astype(np.float32), device=self.device)
+
+    def follow(self) -> None:
+        """A following rank's loop: repeat each device step rank 0
+        broadcasts, on the same inputs, until rank 0 stops."""
+        if self.leader:
+            raise RuntimeError("follow() runs on the ranks after rank 0 of a mesh")
+        args0 = 2 + self._fin_slots
+        with torch.no_grad():
+            while True:
+                ctrl = self._lockstep.recv()
+                for sid in ctrl[2:2 + int(ctrl[1])]:
+                    self.server.finish(int(sid))
+                op, args = int(ctrl[0]), ctrl[args0:]
+                if op == STOP:
+                    return
+                if op == ADMIT:
+                    self._admit(self._recv_job(args))
+                elif op == STAGE:
+                    self._start_admission(self._recv_job(args))
+                elif op == STEP:
+                    if args[0]:
+                        self._admitting.job.u0 = self._uniform_of(args[1])
+                    self._admit_step()
+                elif op == DECODE:
+                    self._follow_decode(args)
+
+    def _follow_decode(self, args) -> None:
+        b = int(args[0])
+        ids = sorted(self.server.seqs)
+        if len(ids) != b:
+            raise RuntimeError(f"lockstep lost: {len(ids)} sequences here, {b} on rank 0")
+        sampling: Dict[Any, Any] = {}
+        for r, sid in enumerate(ids):
+            t, p = from_f64_bits(args[1 + 3 * r: 3 + 3 * r]).tolist()
+            sampling[sid] = (t, p, bool(args[3 + 3 * r]))
+        u0 = 1 + 3 * self.max_active
+        u = from_f64_bits(args[u0:u0 + self.chunk * b]).astype(np.float32)
+        sampling["uniforms"] = torch.as_tensor(u.reshape(self.chunk, b), device=self.device)
+        try:
+            self.server.step_n(self.chunk, sampling=sampling)
+        except Exception:  # rank 0 fails its active jobs and drops them
+            for sid in list(self.server.seqs):
+                self.server.finish(sid)

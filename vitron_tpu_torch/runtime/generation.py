@@ -157,7 +157,8 @@ class _DecodeChunk:
     def __init__(self, g: "Generator", n: int, b: int, t: int, sampled: bool):
         dev = g.device
         self.g, self.n, self.sampled = g, n, sampled
-        self.cache = llama.KVCache.create(g.cfg.llm, b, max_len=t, device=dev)
+        self.cache = llama.KVCache.create(g.cfg.llm, b, max_len=t, device=dev,
+                                          kv_heads=g.kv_heads())
         self.token = torch.zeros((b, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((b, 1), dtype=torch.int64, device=dev)
         self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -302,6 +303,22 @@ class Generator:
         # one request at a time owns the chunks' static buffers
         self._lock = threading.Lock()
 
+    def set_params(self, params: Dict[str, Any]) -> None:
+        """Replace the params (`sharded_serving.install_mesh` places them on
+        a mesh): the decode tree is promoted anew and the chunks, whose
+        caches and graphs were made for the old params, are dropped."""
+        with self._lock:
+            self.params = params
+            self.decode_params = promote_int4(params)
+            self.chunks = ProgramCache("generator-chunk", max_entries=DECODE_GRAPHS)
+            self.last_chunk = None
+
+    def kv_heads(self) -> int:
+        """The KV heads of this rank's caches: all of them on one device,
+        this rank's block on a mesh whose attention splits over `tensor`
+        (the caches' placement follows the params `install_mesh` placed)."""
+        return llama.local_kv_heads(self.params["llm"], self.cfg.llm)
+
     def _t(self, a, dtype=None) -> torch.Tensor:
         if torch.is_tensor(a):
             return a.to(self.device, dtype)
@@ -410,7 +427,7 @@ class Generator:
             else:
                 cache = llama.KVCache.create(self.cfg.llm, b,
                                              max_len=pad_len + sampling.max_new_tokens,
-                                             device=self.device)
+                                             device=self.device, kv_heads=self.kv_heads())
             next_logits = self._prefill(cache, *arrays, images=images, videos=videos, **kwargs)
             token = sample_token(next_logits, sampling.temperature, sampling.top_p,
                                  sampling.greedy, gen)[:, None]
@@ -616,7 +633,7 @@ class Generator:
         with self._lock:
             chunk = self._chunk(n_new - 1, b, t, temperature != 0.0) if n_new > 1 else None
             cache = chunk.cache if chunk is not None else llama.KVCache.create(
-                self.cfg.llm, b, max_len=t, device=self.device)
+                self.cfg.llm, b, max_len=t, device=self.device, kv_heads=self.kv_heads())
             next_logits = self._prefill(cache, *plan_arrays, images=images, videos=videos,
                                         params=self.decode_params)
             token = sample_token(next_logits, temperature, top_p, temperature == 0.0, gen)

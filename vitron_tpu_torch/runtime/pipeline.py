@@ -94,7 +94,8 @@ class ServingPipeline:
 
             self.batcher = ContinuousBatcher(
                 gen.params, gen.cfg, chunk=decode_chunk, max_active=max_active,
-                num_blocks=num_kv_blocks, device=gen.device)
+                num_blocks=num_kv_blocks, device=gen.device,
+                mesh=getattr(system, "serving_mesh", None))
             system.engine.batcher = self.batcher
         self._prep = concurrent.futures.ThreadPoolExecutor(
             num_workers, thread_name_prefix="vitron-prep")

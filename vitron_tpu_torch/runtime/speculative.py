@@ -337,7 +337,7 @@ def speculative_decode(params, cfg: vitron_model.VitronConfig, plan_arrays, n_ne
         return (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))).to(dev, dtype)
 
     cache = llama.KVCache.create(cfg.llm, 1, max_len=max_cache_len or (pad_len + n_new + k + 1),
-                                 device=dev)
+                                 device=dev, kv_heads=llama.local_kv_heads(params["llm"], cfg.llm))
     logits, cache = vitron_model.forward(
         params, cfg, t(token_ids, torch.int64), t(media_idx, torch.int64),
         t(use_media, torch.bool), t(positions, torch.int64), t(attn_mask, torch.bool),

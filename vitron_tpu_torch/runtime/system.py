@@ -47,6 +47,7 @@ class VitronSystem:
         The memory plan is that device's (`MemoryPlan.for_device`, which
         knows no budget off the card: a CPU system passes `memory_plan`)."""
         self.engine = engine
+        self.serving_mesh = None  # set by sharded_serving.install_mesh
         self.registry = BackendRegistry()
         gen = getattr(engine, "generator", None)
         if gen is not None:
