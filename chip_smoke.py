@@ -362,6 +362,16 @@ Phases (any failure exits non-zero and prints no `ok` line):
    B8's slice sums (GN_TOL) and B7 on the gathered frames (exact) against
    their whole forms. (d) The dryrun's legs at 2 and 4 NCCL ranks where
    the machine has the cards; with one, the phase says why not.
+32. (run after 19, on its tree) the sharded train step (A16b):
+   `make_train_step` with lora.trainable_filter() (the projector and the
+   region extractor, no LoRA factors) under AdamW after
+   clip_by_global_norm(1.0), TRAIN_MESH_STEPS steps of TRAIN_BATCH rows of
+   TRAIN_SEQ (the first with a box) plain, then as many from the same
+   start on a one-rank NCCL mesh after shard_params(...,
+   VITRON_SHARDING_RULES), every collective of the step issued: the
+   losses and every updated leaf bit-equal, each arm's launches exact, its
+   step seconds and peak; then the dry run's train leg on that group; the
+   mesh arm's launches are the `train_mesh` path's.
 Then one line lists each bf16 B2 row (the 22 of phases 3, 4, 5b, 5d, 18
 and 21 that every main path's type gives it) with its kernel ms beside
 F.scaled_dot_product_attention's. The line before the last is a JSON object
@@ -3067,7 +3077,8 @@ def phase_cpu_vs_card(torch, card: str):
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 TRAIN_SEQ = 2048     # pad_len: the recipe's model_max_length
 TRAIN_BATCH = 2      # the recipe's 16 (trainer.py:46) cut for the smoke's time
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
+TRAIN_MESH_STEPS = 2  # phase 32's steps in each arm
 TRAIN_REMAT = False  # per-layer recomputation; on when a step's peak would pass ~70 GB
 TRAIN_LOSS_RTOL = 1e-6  # the same step twice from the same state
 TRAIN_CPU_GPU_TOL = {"loss": 1e-4, "grad": 1e-3}  # grad: max |card - cpu| / max |cpu|
@@ -3320,35 +3331,48 @@ def int4_dequant_ms(torch, llm) -> float:
     return layers["wq"]["q4"].shape[0] * per_layer + ms(llm["lm_head"]["q4"], llm["lm_head"]["s"])
 
 
-def phase_train(torch, card: str):
-    """The LoRA trainer at full width: Trainer.fit on VitronConfig.serving
-    (Vicuna-7B, packed int4 projections and lm_head, flash attention;
-    bf16 ViT-L/14), LoRA r 128 over the seven targets plus the projector and
-    the region extractor, AdamW with warmup-cosine, TRAIN_BATCH rows of
-    TRAIN_SEQ, TRAIN_STEPS steps, twice from the same state."""
-    import gc
-    import pathlib
-    import tempfile
-
-    from vitron_tpu_torch.apps.cli import DemoTokenizer
-    from vitron_tpu_torch.models import vitron_model
+def train_config():
+    """The training phases' model: VitronConfig.serving (Vicuna-7B, packed
+    int4 projections and lm_head, flash attention; bf16 ViT-L/14)."""
     from vitron_tpu_torch.models.llm.llama import LlamaConfig
     from vitron_tpu_torch.models.vitron_model import VitronConfig
-    from vitron_tpu_torch.train.data import SupervisedDataset
-    from vitron_tpu_torch.train.trainer import TrainConfig, Trainer, make_lora_train_step
+
+    return VitronConfig.serving(llm=LlamaConfig.vicuna_7b(
+        attn_impl="flash", max_seq_len=TRAIN_SEQ, remat=TRAIN_REMAT))
+
+
+def train_base(torch) -> dict:
+    """`train_config`'s random weights on the card (seed 0) without the video
+    tower (image conversations only): phases 19 and 32 share them."""
+    from vitron_tpu_torch.models import vitron_model
 
     dev = torch.device("cuda")
-    cfg = VitronConfig.serving(llm=LlamaConfig.vicuna_7b(
-        attn_impl="flash", max_seq_len=TRAIN_SEQ, remat=TRAIN_REMAT))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    base = random_int4_llm(torch, vitron_model.init_params(gen, cfg, dev), gen, dev)
-    del base["video_tower"]  # image conversations only
+    base = random_int4_llm(torch, vitron_model.init_params(gen, train_config(), dev), gen, dev)
+    del base["video_tower"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"train: Vicuna-7B int4 + ViT-L/14 bf16 random weights built on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return base
+
+
+def phase_train(torch, card: str, base):
+    """The LoRA trainer at full width: Trainer.fit on `train_config` over
+    `base`, LoRA r 128 over the seven targets plus the projector and the
+    region extractor, AdamW with warmup-cosine, TRAIN_BATCH rows of
+    TRAIN_SEQ, TRAIN_STEPS steps, twice from the same state."""
+    import pathlib
+    import tempfile
+
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.train.data import SupervisedDataset
+    from vitron_tpu_torch.train.trainer import TrainConfig, Trainer, make_lora_train_step
+
+    dev = torch.device("cuda")
+    cfg = train_config()
     tc = TrainConfig(batch_size=TRAIN_BATCH, pad_len=TRAIN_SEQ, save_steps=10 ** 9)
 
     class CountingTrainer(Trainer):
@@ -3439,10 +3463,117 @@ def phase_train(torch, card: str):
     check(seen[1][3] > 0.0 and seen[1][4], "step 2 left the LoRA b or the projector unmoved")
     check(all(launches[k] == v for k, v in {"conv3x3_same": 0, **want}.items()),
           f"training launches {launches} != {want}")
-    del base
+    return launches
+
+
+def phase_train_mesh(torch, card: str, base):
+    """Phase 32, the sharded train step at full width: `make_train_step` with
+    lora.trainable_filter() over phase 19's tree (no LoRA factors: the
+    projector and the region extractor train through the frozen int4 LLM
+    and the frozen tower), AdamW after clip_by_global_norm(1.0), on
+    TRAIN_BATCH rows of TRAIN_SEQ (the first with a box), TRAIN_MESH_STEPS
+    steps without a mesh, then as many from the same start on a one-rank
+    NCCL mesh after shard_params(..., VITRON_SHARDING_RULES): every
+    collective of the sharded step issued (the fsdp gathers, Megatron's f
+    and g, the lm_head's vocab gather, the embedding lookup's all-reduce,
+    the supervised count, the gradients, the clip's sums over their axes).
+    The losses and every updated projector and region leaf must be
+    bit-equal. Then the dry run's train leg on the same group. -> the mesh
+    arm's launches."""
+    import pathlib
+    import tempfile
+    import types
+
+    from vitron_tpu_torch.apps import dryrun_multichip as dm
+    from vitron_tpu_torch.apps.cli import DemoTokenizer
+    from vitron_tpu_torch.core import distributed as vdist
+    from vitron_tpu_torch.core.mesh import create_mesh, gather_params, shard_params
+    from vitron_tpu_torch.models.vitron_model import VITRON_SHARDING_RULES
+    from vitron_tpu_torch.train import lora
+    from vitron_tpu_torch.train import train_step as ts
+    from vitron_tpu_torch.train.data import SupervisedDataset
+    from vitron_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SupervisedDataset(str(train_dataset(pathlib.Path(tmp) / "mesh.json", TRAIN_BATCH, 32,
+                                                 TRAIN_WORDS, boxes=1)),
+                               DemoTokenizer(), model_max_length=TRAIN_SEQ)
+        builder = types.SimpleNamespace(model_cfg=cfg, device=dev, train_cfg=TrainConfig(
+            batch_size=TRAIN_BATCH, pad_len=TRAIN_SEQ))
+        batch = Trainer._build_batch(builder, ds, list(range(TRAIN_BATCH)),
+                                     train_media_loader(132, cfg.image_tower.image_size), None)
+    trained = ("projector", "region")
+
+    def copy(tree):
+        return ts.map_leaves(lambda _, t: t.detach().clone(), tree)
+
+    start = {k: copy(base[k]) for k in trained}
+
+    def fresh():
+        return {**base, **{k: copy(start[k]) for k in trained}}
+
+    per_step = train_step_launches(cfg.llm)
+    want = {k: v * TRAIN_MESH_STEPS for k, v in per_step.items()}
+
+    def arm(name, tree):
+        flt = lora.trainable_filter()
+        step = ts.make_train_step(cfg, ts.make_optimizer(ts.set_trainable(tree, flt)), flt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, secs = [], []
+        for _ in range(TRAIN_MESH_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(tree, batch))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = expect_launches({"geglu_ff": 0, "group_norm_sums": 0, **want}, f"32 {name}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"32 {name}: losses {[float(x) for x in losses]}, step "
+              f"{statistics.median(secs):.3f} s (median of "
+              f"{', '.join(f'{x:.3f}' for x in secs)}), peak {peak:.2f} GiB, launches a step "
+              f"{per_step} [{card}]", flush=True)
+        check(all(np.isfinite(float(x)) for x in losses), f"32 {name}: a loss is not finite")
+        return torch.stack(losses), launches, statistics.median(secs), peak
+
+    plain_tree = fresh()
+    plain = arm("plain step", plain_tree)
+    nccl_group(torch)
+    try:
+        mesh = create_mesh()
+        mesh_tree = shard_params(fresh(), mesh, VITRON_SHARDING_RULES)
+        sharded = arm(f"sharded step on the one-rank NCCL mesh {mesh.shape}", mesh_tree)
+        moved = dict(ts.named_leaves(gather_params({k: mesh_tree[k] for k in trained})))
+        before = dict(ts.named_leaves(start))
+        after = dict(ts.named_leaves({k: plain_tree[k] for k in trained}))
+        differ = ["/".join(p) for p, t in after.items() if not torch.equal(moved[p], t)]
+        still = ["/".join(p) for p, t in after.items() if torch.equal(t, before[p])]
+        print(f"32: sharded against plain: losses bit-equal "
+              f"{torch.equal(sharded[0], plain[0])}, updated leaves that differ {differ}, "
+              f"leaves the plain step left as they were {still}; step {sharded[2]:.3f} s "
+              f"against {plain[2]:.3f}, peak {sharded[3]:.2f} GiB against {plain[3]:.2f} "
+              f"(+{sharded[3] - plain[3]:.2f}: the gathered int4 copies the backward keeps, "
+              f"remat {cfg.llm.remat}) [{card}]", flush=True)
+        check(torch.equal(sharded[0], plain[0]),
+              f"32: the sharded losses {sharded[0].tolist()} != the plain {plain[0].tolist()}")
+        check(not differ, f"32: updated leaves differ from the plain step's: {differ}")
+        check(not still, f"32: the plain step left {still} as they were")
+        del mesh_tree, moved
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            dm.leg_train(dev)
+        print(f"32: the dry run's train leg on the one-rank NCCL group in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    finally:
+        vdist.shutdown()
+    del plain_tree
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return sharded[1]
 
 
 def fan_in_scaled(tower):
@@ -6188,7 +6319,7 @@ MPT_PREFIX = 256  # prompt positions of the prefix-LM prefill
 MPT_CPU_LAYERS = 2
 MPT_CPU_PROMPT = 32
 MPT_CPU_NEW = 8
-W4A8_CPU_NEW = 16
+W4A8_CPU_NEW = 8  # phase 29 (b)'s greedy tokens on the CPU (~2-3 s each there)
 W4A8_EAGER_NEW = 33  # the eager steps (~15 tok/s) against the graphed scan: 32 of them
 # the 2-layer W4A8 prefill's logits on the CPU and the card: float32 on both
 # and exact int32 sums, but each activation row is rounded to int8 from
@@ -6516,7 +6647,7 @@ def phase_w4a8(torch, card: str, system, params, cfg, plain_tok_s: float):
 def phase_w4a8_cpu_vs_card(torch, card: str):
     """Phase 29 (b): a 2-layer full-width float32 Vicuna (int4 at the init's
     scale) under VITRON_W4A8=1 on the CPU and the card: `Generator.scan`'s
-    W4A8 prefill logits within W4A8_CPU_GPU_TOL and its 16 greedy tokens
+    W4A8 prefill logits within W4A8_CPU_GPU_TOL and its W4A8_CPU_NEW greedy tokens
     the same, or first different at a near-tie of the CPU's logits."""
     from vitron_tpu_torch.models.llm import llama
     from vitron_tpu_torch.models.llm.llama import LlamaConfig
@@ -7291,7 +7422,12 @@ def main() -> int:
     rows["flash"] += train_rows.pop("flash_lse")
     rows["int4"] += train_rows.pop("int4_train")
     rows.update(train_rows)
-    train = phase_train(torch, card)
+    base = train_base(torch)
+    train = phase_train(torch, card, base)
+    train_mesh = timed_phase(card, "32 sharded train step", phase_train_mesh, torch, card, base)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_cpu_vs_card(torch, card)
     diffusion_rows = timed_phase(card, "21 diffusion trainers' kernels",
                                  phase_diffusion_train_kernels, torch, card)
@@ -7335,7 +7471,7 @@ def main() -> int:
                 "seem_backbones": backbones[name], "train_gligen": train_gligen[name],
                 "train_video": train_video[name], "train_i2vgen": train_i2vgen[name],
                 "weights": weights[name], "mpt": mpt[name], "w4a8": w4a8[name],
-                "mesh": mesh[name],
+                "mesh": mesh[name], "train_mesh": train_mesh[name],
                 "w8a8": w8a8_a[name] + w8a8_d[name]}
 
     rows["flash"] += rows.pop("flash_gligen") + rows.pop("flash_vae") + rows.pop("flash_vae_i2v")

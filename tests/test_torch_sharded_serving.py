@@ -172,12 +172,18 @@ def test_kv_cache_sharding_falls_back_when_indivisible(ranks):
 
 
 def test_dryrun_serving_legs(tmp_path):
-    """`apps/dryrun_multichip`'s legs on 2 ranks (the 7B-geometry leg is
-    run by hand: `--spawn N --device cpu`): the ring and the video step
-    within JAX's dryrun bound of 1e-3, two co-batched chats and a routed
-    task-D step served by rank 0 while rank 1 follows."""
+    """`apps/dryrun_multichip.run_legs` on 2 ranks (the 7B-geometry leg at
+    one layer): the sharded train step first, as in JAX, its line first
+    and its loss finite and the same on both ranks; the ring and the video
+    step within JAX's dryrun bound of 1e-3, two co-batched chats and a
+    routed task-D step served by rank 0 while rank 1 follows."""
     outs = torch_dist.run(2, "torch_mesh_bodies:dryrun_legs", tmp=tmp_path, timeout=600)
-    for rank, (ring_err, toks, video_err) in enumerate(outs):
+    lines = outs[0][0]
+    assert lines[0].startswith("train step sharded: mesh=(1,1,2) loss=") and lines[0].endswith(
+        " OK"), lines[:2]
+    assert outs[1][0] == []
+    assert np.isfinite(outs[0][1]) and outs[0][1] == outs[1][1]
+    for rank, (_, _, ring_err, toks, video_err) in enumerate(outs):
         assert ring_err < 1e-3 and video_err < 1e-3
         assert (toks is None) == (rank > 0)
-    assert [len(t) for t in outs[0][1]] == [4, 4]
+    assert [len(t) for t in outs[0][3]] == [4, 4]

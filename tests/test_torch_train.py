@@ -416,6 +416,80 @@ def test_train_step_matches_jax(tmp_path):
     assert not np.array_equal(got[("projector", "w1")], start[("projector", "w1")])
 
 
+def _as_adamw_moves(got: dict, want: dict, lr: float, steps: int) -> None:
+    """Leaves after `steps` AdamW steps at `lr` against JAX's: each element
+    within 5e-5, but for at most 1 in 1,000 of a leaf and every element of
+    a key bias, and those within 2 lr a step. AdamW moves an element by
+    about lr whatever its gradient's size, so one whose gradient lies in the
+    rounding noise (a key bias's is 0 in exact arithmetic) may move the
+    other way on either side."""
+    for path, w in want.items():
+        diff = np.abs(got[path] - w)
+        assert float(diff.max()) <= 2 * lr * steps, (path, float(diff.max()))
+        if path[-1] != "bk":
+            assert (diff > 5e-5).mean() <= 1e-3, (path, int((diff > 5e-5).sum()))
+
+
+def test_unfiltered_step_trains_the_towers_as_jax(tmp_path):
+    """make_train_step without a trainable_filter, as JAX's dryrun runs it:
+    every float leaf trains, the vision towers too (`encode_media` keeps
+    their graph where a tower leaf requires a gradient). Two AdamW steps at
+    lr 1e-3 from JAX's initial tree: the same losses, the leaves as JAX's
+    (`_as_adamw_moves`), and the towers moved by 2 lr on both sides."""
+    import jax
+
+    from vitron_tpu.models import vitron_model as jvm
+    from vitron_tpu.train import train_step as jstep
+
+    jcfg, tcfg = _configs()
+    jparams = jvm.init_params(jax.random.PRNGKey(0), jcfg)
+    start = dict(tstep.named_leaves(_np_tree(jparams)))
+    tparams = from_jax(_np_tree(jparams), "cpu")
+    jb, tb, _ = _batches(tmp_path, jcfg, tcfg, jparams, tparams, None)
+    jopt = jstep.make_optimizer(lr=1e-3)
+    jfn = jax.jit(jstep.make_train_step(jcfg, jopt))
+    trainable = tstep.set_trainable(tparams)
+    assert len(trainable) == len(start)
+    tfn = tstep.make_train_step(tcfg, tstep.make_optimizer(trainable, lr=1e-3))
+    state = jopt.init(jparams)
+    for _ in range(2):
+        jparams, state, want_loss = jfn(jparams, state, jb)
+        loss = tfn(tparams, tb)
+        assert abs(float(loss) - float(want_loss)) <= LOSS_RTOL * abs(float(want_loss))
+    want = dict(tstep.named_leaves(_np_tree(jparams)))
+    got = dict(tstep.named_leaves(to_numpy(tparams)))
+    _as_adamw_moves(got, want, 1e-3, 2)
+    for path in (("image_tower", "patch_proj"), ("image_tower", "layers", "attn", "wq"),
+                 ("image_tower", "layers", "fc1")):
+        for tree in (got, want):
+            assert abs(float(np.abs(tree[path] - start[path]).max()) - 2e-3) <= 1e-5, path
+
+
+def test_filtered_step_keeps_the_towers_out_of_the_backward(tmp_path):
+    """set_trainable with lora.trainable_filter: only the projector and the
+    region extractor require gradients, the towers run under no_grad (no
+    tower leaf gets a .grad) and stay as they were, the projector moves."""
+    import jax
+
+    from vitron_tpu.models import vitron_model as jvm
+
+    jcfg, tcfg = _configs()
+    jparams = jvm.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = from_jax(_np_tree(jparams), "cpu")
+    _, tb, _ = _batches(tmp_path, jcfg, tcfg, jparams, tparams, None)
+    trainable = tstep.set_trainable(tparams, tlora.trainable_filter())
+    assert {p[0] for p, t in tstep.named_leaves(tparams) if t.requires_grad} == {"projector",
+                                                                                 "region"}
+    assert len(trainable) == sum(t.requires_grad for t in tstep.leaves(tparams))
+    start = {p: t.detach().clone() for p, t in tstep.named_leaves(tparams)}
+    tstep.make_train_step(tcfg, tstep.make_optimizer(trainable, lr=1e-3),
+                          tlora.trainable_filter())(tparams, tb)
+    for path, t in tstep.named_leaves(tparams):
+        if path[0] in ("image_tower", "video_tower"):
+            assert t.grad is None and torch.equal(t, start[path]), path
+    assert not torch.equal(tparams["projector"]["w1"], start[("projector", "w1")])
+
+
 def test_fit_matches_jax(tmp_path):
     """Three Trainer.fit steps from JAX's initial factors (B = 0): the losses
     and the saved artifacts. The first step runs at the warmup's learning

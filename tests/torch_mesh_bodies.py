@@ -179,10 +179,17 @@ def video_checks(cases, cfg_parallel):
 
 
 def dryrun_legs():
-    """`apps/dryrun_multichip`'s ring, routed-serving and video legs."""
+    """`apps/dryrun_multichip.run_legs` with one 7B-width layer -> (the lines
+    rank 0 printed, the train loss, the ring error, the chats' tokens, the
+    video error)."""
+    import contextlib
+    import io
+
     from vitron_tpu_torch.apps import dryrun_multichip as dm
 
-    dev = torch.device("cpu")
-    with torch.no_grad():
-        return dm.leg_ring(dev), dm.leg_routed_serving(dev), dm.leg_video_sharded_step(dev)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = dm.run_legs(torch.device("cpu"), layers=1)
+    return (printed.getvalue().splitlines(), out["train"], out["ring"],
+            out["routed sharded serving"], out["video unet sharded step"])
 

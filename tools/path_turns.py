@@ -101,7 +101,9 @@ def main() -> int:
     _build.lib()
     print(f"{args.label}: {_build.library_path()} on {card}", flush=True)
     if args.train:
-        smoke.phase_train(torch, f"{args.label}, {card}")
+        # a checkout from before phase 32 builds phase 19's tree inside phase_train
+        base = (smoke.train_base(torch),) if hasattr(smoke, "train_base") else ()
+        smoke.phase_train(torch, f"{args.label}, {card}", *base)
         return 0
     dev = torch.device("cuda")
     with torch.no_grad():

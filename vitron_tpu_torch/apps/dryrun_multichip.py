@@ -1,4 +1,4 @@
-"""Multi-device dry run: the serving legs of the JAX package's
+"""Multi-device dry run: the legs of the JAX package's
 `__graft_entry__.dryrun_multichip`, on the port's process groups.
 
     torchrun --nproc-per-node 4 -m vitron_tpu_torch.apps.dryrun_multichip
@@ -8,6 +8,11 @@ Under torchrun each rank joins the group from the environment (NCCL, one
 card a rank); `--spawn N` starts N processes itself (gloo with `--device
 cpu`, NCCL on N cards otherwise) on a store at 127.0.0.1. Legs, in order:
 
+- train: JAX's first leg. The tiny Vitron (JAX's `_tiny_cfg`) on a (data,
+  fsdp, tensor) mesh by JAX's factorisation (tensor 2 when N is even, data
+  2 when 4 divides N, fsdp the rest), placed by `VITRON_SHARDING_RULES`,
+  one unfiltered AdamW step (lr 1e-4, the global-norm clip) of
+  `make_train_step` on JAX's two-row example batch split on `data`;
 - ring: the tiny llama's prefill with attn_impl="ring" over an n-way
   `context` axis against the dense logits;
 - 7b sharded decode: Vicuna-7B widths (4 layers), fsdp x tensor placement
@@ -20,8 +25,7 @@ cpu`, NCCL on N cards otherwise) on a store at 127.0.0.1. Legs, in order:
 - video sharded step: the tiny t2v UNet step over `create_video_mesh`
   against the unsharded step.
 
-The train leg (JAX's first) is not ported here. Rank 0 prints one line a
-leg; the run fails if a leg does.
+Rank 0 prints one line a leg; the run fails if a leg does.
 """
 from __future__ import annotations
 
@@ -40,11 +44,86 @@ GIB = 1024 ** 3
 # the tiny configs at head dims the card's kernels take (B2: 64, B7: 32)
 TINY_LLAMA = dict(hidden_size=256, num_heads=4, num_kv_heads=4)
 TINY_VIDEO = dict(head_dim=32)
+# the train leg's LLM (JAX's `__graft_entry__._tiny_cfg`): einsum
+# attention, so no kernel constrains its head dim
+TINY_VITRON_LLM = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                       num_heads=4, num_kv_heads=4, max_seq_len=256,
+                       param_dtype=torch.float32, compute_dtype=torch.float32)
+TINY_VITRON_TOWER = dict(hidden_size=64, num_heads=4)
 
 
 def _say(msg: str) -> None:
     if dist.get_rank() == 0:
         print(msg, flush=True)
+
+
+def tiny_vitron():
+    """JAX's `__graft_entry__._tiny_cfg`."""
+    from vitron_tpu_torch.models.llm.llama import LlamaConfig
+    from vitron_tpu_torch.models.vision.vit import ViTConfig
+    from vitron_tpu_torch.models.vitron_model import VitronConfig
+
+    return VitronConfig(llm=LlamaConfig(**TINY_VITRON_LLM),
+                        image_tower=ViTConfig.tiny(**TINY_VITRON_TOWER),
+                        video_tower=ViTConfig.tiny(**TINY_VITRON_TOWER, add_time_attn=True))
+
+
+def example_batch(cfg, device, pad_len: int = 128):
+    """JAX's `__graft_entry__._example_batch` at batch 2: a row with an image
+    and a region, a row with four image slots; every text token a label; the
+    image and the video from RandomState 0 and 1; one region box."""
+    from vitron_tpu_torch.constants import IMAGE_TOKEN_INDEX, OBJS_TOKEN_INDEX
+    from vitron_tpu_torch.runtime.engine import MediaItem, prepare_batch
+
+    rows = [[1, 5, IMAGE_TOKEN_INDEX, 6, OBJS_TOKEN_INDEX, 7],
+            [1, 8, IMAGE_TOKEN_INDEX, IMAGE_TOKEN_INDEX, IMAGE_TOKEN_INDEX, IMAGE_TOKEN_INDEX, 9]]
+    s, nf = cfg.image_tower.image_size, cfg.video_tower.num_frames
+    media = [MediaItem("image", torch.from_numpy(
+                 np.random.RandomState(0).rand(s, s, 3).astype(np.float32))),
+             MediaItem("video", torch.from_numpy(
+                 np.random.RandomState(1).rand(nf, s, s, 3).astype(np.float32)))]
+    plan, images, videos, perm = prepare_batch(
+        rows, media, pad_to=pad_len, image_len=cfg.image_tower.num_patches,
+        labels=[[t if t >= 0 else -100 for t in row] for row in rows])
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
+
+    return {"token_ids": ints(plan.token_ids), "media_idx": ints(plan.media_idx),
+            "use_media": torch.as_tensor(plan.use_media, device=device),
+            "positions": ints(plan.position_ids),
+            "attn_mask": torch.as_tensor(plan.attention_mask, device=device),
+            "labels": ints(plan.labels), "images": images.to(device),
+            "videos": videos.to(device), "block_perm": ints(perm),
+            "region_boxes": torch.tensor([[2.0, 2.0, 20.0, 24.0]], device=device),
+            "region_block_idx": ints(plan.region_blocks)}
+
+
+def train_mesh_shape(n: int) -> dict:
+    """JAX's dryrun factorisation of n ranks into (data, fsdp, tensor)."""
+    tensor = 2 if n % 2 == 0 else 1
+    data = 2 if n % 4 == 0 else 1
+    return {"data": data, "fsdp": n // (tensor * data), "tensor": tensor}
+
+
+def leg_train(device) -> float:
+    """One unfiltered sharded train step of the tiny Vitron -> its loss."""
+    from vitron_tpu_torch.core.mesh import create_mesh, shard_params
+    from vitron_tpu_torch.models import vitron_model
+    from vitron_tpu_torch.train import train_step as ts
+
+    shape = train_mesh_shape(dist.get_world_size())
+    mesh = create_mesh(shape)
+    cfg = tiny_vitron()
+    params = vitron_model.init_params(torch.Generator(device=device).manual_seed(0), cfg, device)
+    params = shard_params(params, mesh, vitron_model.VITRON_SHARDING_RULES)
+    step = ts.make_train_step(cfg, ts.make_optimizer(ts.set_trainable(params), lr=1e-4))
+    loss = float(step(params, example_batch(cfg, device)))
+    if not np.isfinite(loss):
+        raise AssertionError(f"train step sharded: non-finite loss {loss}")
+    _say(f"train step sharded: mesh=({shape['data']},{shape['fsdp']},{shape['tensor']}) "
+         f"loss={loss:.4f} OK")
+    return loss
 
 
 def leg_ring(device) -> float:
@@ -225,16 +304,19 @@ def leg_video_sharded_step(device) -> float:
     return err
 
 
-def run_legs(device, layers: int = 4) -> None:
+def run_legs(device, layers: int = 4) -> dict:
+    """Every leg, in JAX's order -> each leg's result by name."""
     t0 = time.monotonic()
-    with torch.no_grad():
-        for name, fn in (("ring", leg_ring),
-                         ("7b sharded decode", lambda d: leg_7b_sharded_decode(d, layers)),
-                         ("routed sharded serving", leg_routed_serving),
-                         ("video unet sharded step", leg_video_sharded_step)):
-            fn(device)
-            _say(f"# {name}: {time.monotonic() - t0:.1f} s")
+    out = {}
+    for name, fn in (("train", leg_train), ("ring", leg_ring),
+                     ("7b sharded decode", lambda d: leg_7b_sharded_decode(d, layers)),
+                     ("routed sharded serving", leg_routed_serving),
+                     ("video unet sharded step", leg_video_sharded_step)):
+        with torch.set_grad_enabled(fn is leg_train):
+            out[name] = fn(device)
+        _say(f"# {name}: {time.monotonic() - t0:.1f} s")
     _say(f"dryrun_multichip({dist.get_world_size()}): OK")
+    return out
 
 
 def _rank_main(rank: int, n: int, port: int, backend: str, layers: int) -> None:
@@ -252,7 +334,8 @@ def _rank_main(rank: int, n: int, port: int, backend: str, layers: int) -> None:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="multi-device dry run of the serving path")
+    p = argparse.ArgumentParser(description="multi-device dry run: a sharded train step, "
+                                "then the serving legs")
     p.add_argument("--spawn", type=int, default=0,
                    help="start this many ranks here (without it: the torchrun env)")
     p.add_argument("--device", default="cuda", help="cuda (NCCL) or cpu (gloo)")

@@ -15,6 +15,15 @@ parameter is a `Shard`: this rank's block of the full tensor with the spec
 that cut it. The collectives are written out where the block is used
 (`distributed/tensor_parallel.py`, the llama forward).
 
+The collectives carry gradients (the sharded train step,
+`train/train_step.py`), each an `autograd.Function` taken only where its
+input requires a gradient, so a serving call runs the plain collective. The
+batch is split on `data` only, so every rank of an fsdp or tensor group
+sees the same rows and what follows a gather runs the same on each of them:
+the gradient of an all-gather is this rank's slice of the incoming one (a
+reduce-scatter would count it once a rank), and the gradient of an
+all-reduce (Megatron's "g") is the incoming one.
+
 A spec is a tuple with one entry a dim: None (replicated) or an axis name.
 `spec_for` and `fit_spec` are the JAX package's functions on paths and
 shapes; `fit_spec` replicates a dim whose axis size does not divide it, so
@@ -144,8 +153,7 @@ def fit_spec(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
 # ------------------------------------------------------------- collectives
 
 
-def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Concatenate every rank's `t` of `group` along `dim` (rank order)."""
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     t = t.contiguous()
     if dist.get_backend(group) == "nccl":
@@ -165,8 +173,51 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim).reshape(shape[:dim] + (n * shape[dim],) + shape[dim + 1:])
 
 
+class _AllGather(torch.autograd.Function):
+    """all-gather; backward: this rank's slice of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, t.shape[dim]
+        return _all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = dist.get_rank(ctx.group) * ctx.size
+        return g.narrow(ctx.dim, start, ctx.size), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Megatron's "g": all-reduce (sum), out of place; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Concatenate every rank's `t` of `group` along `dim` (rank order)."""
+    if _differentiable(t):
+        return _AllGather.apply(t, group, dim)
+    return _all_gather(t, group, dim)
+
+
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum `t` over `group` in place; returns it."""
+    """Sum `t` over `group` -> the sum: `t` itself, summed in place, unless
+    `t` requires a gradient (then a new tensor, the gradient passed as it
+    is)."""
+    if _differentiable(t):
+        return _AllReduce.apply(t, group)
     dist.all_reduce(t, group=group)
     return t
 
@@ -237,7 +288,7 @@ def lookup(table: Shard, ids: torch.Tensor) -> torch.Tensor:
         if a is not None:
             rows = all_gather(rows, table.mesh.group(a), dim=lead + d)
     if ax is not None:
-        all_reduce(rows, table.mesh.group(ax))
+        rows = all_reduce(rows, table.mesh.group(ax))
     return rows
 
 

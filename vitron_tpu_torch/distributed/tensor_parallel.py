@@ -8,14 +8,20 @@ out, for weights placed by the llama rules (`llama.LLAMA_SHARDING_RULES`):
 - `tensor` splits a column-parallel weight (wq / wk / wv / gate / up: the
   output dim) and a row-parallel one (wo / down: the input dim). A pair of
   them runs on this rank's heads or hidden units only, and the row
-  product's partial sums are all-reduced (`row_linear`): in float32 when
-  the group has more than one rank, so the shards' sums are added before
-  the one cast to the compute dtype;
+  product's partial sums are all-reduced (`row_linear`): in float32 (or
+  a wider input's type) when the group has more than one rank, so the
+  shards' sums are added before the one cast to the compute dtype;
 - a column-split weight used alone (lm_head, split by vocabulary) gives
   its block of the output, gathered along the last dim (`linear`).
 
 A pair whose specs do not form the Megatron split (an axis dropped by
 `fit_spec`, LoRA factors) is gathered whole and runs replicated.
+
+For training each collective carries its gradient (`core/mesh.py`): a
+gather's is this rank's slice, `row_linear`'s all-reduce ("g") passes it
+as it is, and `copy_to_group` (Megatron's "f": the identity, its gradient
+summed over the group) stands at the input of each column-split product,
+whose gradient with respect to that input is this rank's part only.
 """
 from __future__ import annotations
 
@@ -95,6 +101,31 @@ def gather(w, keep: Sequence[str] = ()):
     return w
 
 
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's "f": the identity; backward: the gradient summed over the
+    group (in float32 or wider past one rank, as `row_linear`'s partials)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = g.dtype if dist.get_world_size(ctx.group) == 1 else torch.promote_types(
+            g.dtype, torch.float32)
+        total = g.to(acc, memory_format=torch.contiguous_format, copy=True)
+        return all_reduce(total, ctx.group).to(g.dtype), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x at the input of a column-split product over `group`: as it is, and
+    in the backward the ranks' parts of its gradient summed."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToGroup.apply(x, group)
+    return x
+
+
 def row_linear(x: torch.Tensor, w, group) -> torch.Tensor:
     """x (this rank's block of the input dim) @ w (its rows), the partial
     sums all-reduced over `group`; `group` None is a plain product."""
@@ -102,7 +133,8 @@ def row_linear(x: torch.Tensor, w, group) -> torch.Tensor:
         return _mm(x, w)
     if dist.get_world_size(group) == 1:
         return all_reduce(_mm(x, w), group)
-    y = _mm(x.to(torch.float32), w if isinstance(w, dict) else w.to(torch.float32))
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = _mm(x.to(acc), w if isinstance(w, dict) else w.to(acc))
     return all_reduce(y, group).to(x.dtype)
 
 
@@ -114,5 +146,6 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
         return _mm(x, w)
     if role(w) != "col":
         return _mm(x, gather(w))
-    y = _mm(x, gather(w, keep=(TENSOR_AXIS,)))
-    return all_gather(y, mesh_of(w).group(TENSOR_AXIS), dim=y.dim() - 1)
+    group = mesh_of(w).group(TENSOR_AXIS)
+    y = _mm(copy_to_group(x, group), gather(w, keep=(TENSOR_AXIS,)))
+    return all_gather(y, group, dim=y.dim() - 1)

@@ -20,7 +20,8 @@ placed by `LLAMA_SHARDING_RULES`: each layer all-gathers its fsdp blocks just
 before its products, and the attention and MLP run Megatron-split on this
 rank's heads and hidden units when their weights are split over `tensor`
 (`distributed/tensor_parallel.py`), so the KV cache holds this rank's KV
-heads (`local_kv_heads`).
+heads (`local_kv_heads`). In training the input of each split block passes
+`tp.copy_to_group`, which sums its gradient over `tensor`.
 
 The no-cache `forward` is differentiable (the trainer's path): the int4
 projections and flash attention carry their own `autograd.Function`s, and
@@ -381,6 +382,8 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, attend):
     b, s, h = x.shape
     lp, attn_group, mlp_group = materialize_layer(lp, cfg)
     xn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    if attn_group is not None:
+        xn = tp.copy_to_group(xn, attn_group)
     q = matmul_maybe_quantized(xn, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
     k = matmul_maybe_quantized(xn, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
     v = matmul_maybe_quantized(xn, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
@@ -389,6 +392,8 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, attend):
     attn_out = attend(q, k, v)
     x = x + tp.row_linear(attn_out.reshape(b, s, -1), lp["wo"], attn_group)
     xn = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    if mlp_group is not None:
+        xn = tp.copy_to_group(xn, mlp_group)
     gate = F.silu(matmul_maybe_quantized(xn, lp["gate"]))
     return x + tp.row_linear(gate * matmul_maybe_quantized(xn, lp["up"]), lp["down"], mlp_group)
 

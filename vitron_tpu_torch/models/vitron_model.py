@@ -5,9 +5,11 @@ mm projector (+ region extractor on the raw tower features) -> sentinel
 splice -> Llama decoder. The host planner (`plan_splice`) emits fixed-shape
 gather maps; everything here runs on the parameters' device.
 
-`forward` is differentiable into the projector, the region extractor and
-the LLM (the trainer's LoRA bypass); the towers run under `no_grad`, so they
-stay frozen and keep no activations for the backward.
+`forward` is differentiable into every leaf that requires a gradient: the
+projector, the region extractor, the LLM (the trainer's LoRA bypass) and
+the towers, as JAX's is (its towers are frozen only by
+`train.lora.trainable_filter`). Where no tower leaf requires one, the
+towers run under `no_grad` and keep no activations for the backward.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from vitron_tpu_torch.core.mesh import gather_params
+from vitron_tpu_torch.core.mesh import Shard, gather_params, tree_paths
 from vitron_tpu_torch.mm.splice import apply_splice
 from vitron_tpu_torch.models.llm import llama
 from vitron_tpu_torch.models.vision import projector as projector_mod
@@ -83,6 +85,11 @@ def init_params(gen: torch.Generator, cfg: VitronConfig, device) -> Dict[str, An
     }
 
 
+def _requires_grad(leaf) -> bool:
+    t = leaf.local if isinstance(leaf, Shard) else leaf
+    return torch.is_tensor(t) and t.requires_grad
+
+
 def encode_media(params: Dict[str, Any], cfg: VitronConfig,
                  images: Optional[torch.Tensor], videos: Optional[torch.Tensor],
                  block_perm: Optional[torch.Tensor] = None,
@@ -95,11 +102,15 @@ def encode_media(params: Dict[str, Any], cfg: VitronConfig,
     maps the [images.., video frames..] concat order to planner order.
     Region features pool the RAW tower features, not the projected ones.
     On a mesh the towers, projector and region extractor are gathered whole
-    here (fsdp: all-gathered before use)."""
+    here (fsdp: all-gathered before use). The towers keep what a backward
+    needs only where one of their leaves requires a gradient."""
+    towers_train = torch.is_grad_enabled() and any(
+        _requires_grad(leaf) for k in ("image_tower", "video_tower") if k in params
+        for _, leaf in tree_paths(params[k]))
     params = {k: gather_params(params[k]) for k in
               ("image_tower", "video_tower", "projector", "region") if k in params}
     raw_blocks = []
-    with torch.no_grad():  # the towers are frozen
+    with torch.set_grad_enabled(towers_train):
         if images is not None and images.shape[0] > 0:
             raw_blocks.append(vit.forward_features(params["image_tower"], cfg.image_tower,
                                                    images))

@@ -22,6 +22,17 @@ trainers compose theirs:
 frozen tensors are in no group and take no state). An update overwrites the
 gradient it came from, tensor by tensor, so a step holds no second copy of
 the gradients.
+
+On a mesh (`Shard` leaves, `core/mesh.py`) `make_train_step` runs the
+function JAX's GSPMD step runs, with its collectives written out: each rank
+takes its `data` slice of the batch's rows (`shard_batch`; the media stay
+whole), divides its summed token loss by the count of supervised tokens of
+the whole batch, and sums its gradients over `data`; the mesh collectives
+carry the rest (a gather's gradient is this rank's slice, Megatron's "f"
+and "g" in the llama blocks). The optimizer steps each rank's block
+(`Shard.local`), so its moments follow the params' placement, as optax's
+on sharded params; `clip_by_global_norm` sums each block's squares over the
+axes that cut it.
 """
 from __future__ import annotations
 
@@ -31,8 +42,9 @@ from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Se
 import numpy as np
 import torch
 
+from vitron_tpu_torch.core.mesh import DATA_AXIS, Shard, all_reduce
 from vitron_tpu_torch.models import vitron_model
-from vitron_tpu_torch.train.losses import causal_lm_loss
+from vitron_tpu_torch.train.losses import causal_lm_sums
 
 Schedule = Callable[[int], float]
 
@@ -89,9 +101,12 @@ def map_leaves(fn: Callable[[Tuple, Any], Any], tree: Any, prefix: Tuple = ()) -
 
 class Transform(NamedTuple):
     """optax.GradientTransformation over a list of tensors. `update` may
-    overwrite the update tensors it is given."""
+    overwrite the update tensors it is given. `factored`: its state is
+    shaped by whole tensors (Adafactor's row and column moments), so it
+    cannot step a rank's block."""
     init: Callable[[List[torch.Tensor]], Any]
     update: Callable[[List[torch.Tensor], Any, List[torch.Tensor]], Tuple[List[torch.Tensor], Any]]
+    factored: bool = False
 
 
 def _stateless(fn) -> Transform:
@@ -123,7 +138,7 @@ def chain(*transforms: Transform) -> Transform:
             new.append(s)
         return updates, new
 
-    return Transform(init, update)
+    return Transform(init, update, any(t.factored for t in transforms))
 
 
 def clip(max_delta: float) -> Transform:
@@ -131,28 +146,53 @@ def clip(max_delta: float) -> Transform:
     return _stateless(lambda u, p: u.clamp_(-max_delta, max_delta))
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+Cuts = Optional[Sequence[Tuple[str, ...]]]
+
+
+def global_norm(tensors: Sequence[torch.Tensor], cuts: Cuts = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every element's square, summed in float32 a tensor
-    at a time (optax.global_norm); a 0-dim tensor on the tensors' device."""
-    return torch.sqrt(sum(t.to(torch.float32).square().sum() for t in tensors))
+    at a time (optax.global_norm); a 0-dim tensor on the tensors' device.
+    With `cuts` (per tensor, the mesh axes that cut it, or () for a whole
+    one) each tensor is a rank's block: its sum of squares is all-reduced
+    over those axes, and only those, so a replicated tensor counts once. The
+    sums are bucketed by their axes (one all-reduce an axis a bucket, in
+    the same order on every rank), then added tensor by tensor in order, as
+    without a mesh."""
+    sums = [t.to(torch.float32).square().sum() for t in tensors]
+    if cuts is not None:
+        buckets: Dict[Tuple[str, ...], List[int]] = {}
+        for i, axes in enumerate(cuts):
+            if axes:
+                buckets.setdefault(tuple(axes), []).append(i)
+        for axes in sorted(buckets):
+            idx = buckets[axes]
+            summed = torch.stack([sums[i] for i in idx])
+            for ax in axes:
+                summed = all_reduce(summed, mesh.group(ax))
+            for j, i in enumerate(idx):
+                sums[i] = summed[j]
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float, cuts: Cuts = None,
+                         mesh=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: t if the global norm is below
-    max_norm, else t / norm * max_norm. -> the norm before clipping."""
-    norm = global_norm(grads)
+    max_norm, else t / norm * max_norm (the norm over a mesh with `cuts`,
+    as `global_norm`). -> the norm before clipping."""
+    norm = global_norm(grads, cuts, mesh)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
     return norm
 
 
-def clip_by_global_norm(max_norm: float) -> Transform:
-    """optax.clip_by_global_norm over the transform's tensors."""
+def clip_by_global_norm(max_norm: float, cuts: Cuts = None, mesh=None) -> Transform:
+    """optax.clip_by_global_norm over the transform's tensors (rank blocks
+    cut by `cuts` on `mesh`, as `global_norm`). Its state keeps the last
+    norm before clipping."""
     def update(updates, state, params):
-        clip_by_global_norm_(updates, max_norm)
-        return updates, state
+        return updates, {"norm": clip_by_global_norm_(updates, max_norm, cuts, mesh)}
 
     return Transform(lambda params: {}, update)
 
@@ -263,7 +303,7 @@ def scale_by_factored_rms() -> Transform:
             u.mul_(row_factor.unsqueeze(d0)).mul_(v_col.rsqrt().unsqueeze(d1))
         return updates, {**state, "count": count + 1}
 
-    return Transform(init, update)
+    return Transform(init, update, factored=True)
 
 
 def clip_by_block_rms(threshold: float) -> Transform:
@@ -307,12 +347,16 @@ def apply_gradients(tx: Transform, params: Sequence[torch.Tensor], state: Any) -
     return state
 
 
+def _local(leaf):
+    return leaf.local if isinstance(leaf, Shard) else leaf
+
+
 def copy_grads(params: Any, grads: Optional[dict]) -> None:
     """Into `grads` (when given): a copy of each gradient of the tree under
-    its key path."""
+    its key path (of a `Shard`, its block's)."""
     if grads is not None:
-        grads.update({path: p.grad.detach().clone() for path, p in named_leaves(params)
-                      if p.grad is not None})
+        grads.update({path: _local(p).grad.detach().clone() for path, p in named_leaves(params)
+                      if _local(p).grad is not None})
 
 
 def zero_grad(params: Sequence[torch.Tensor]) -> None:
@@ -320,18 +364,39 @@ def zero_grad(params: Sequence[torch.Tensor]) -> None:
         p.grad = None
 
 
+def _placement(params: Sequence[Any]):
+    """(the mesh axes that cut each leaf, the mesh) of a list of tensors and
+    `Shard`s -> (None, None) where none is a Shard."""
+    meshes = [p.mesh for p in params if isinstance(p, Shard)]
+    if not meshes:
+        return None, None
+    cuts = [tuple(sorted({ax for ax in p.spec if ax is not None}))
+            if isinstance(p, Shard) else () for p in params]
+    return cuts, meshes[0]
+
+
 class Optimizer:
     """One transform chain per group of tensors (optax.multi_transform),
-    stepped by `apply_gradients`."""
+    stepped by `apply_gradients`. A group may hold `Shard`s: the chain
+    steps their blocks (`local`); a factored transform refuses them."""
 
-    def __init__(self, groups: Sequence[Tuple[Sequence[torch.Tensor], Transform]]):
-        self.groups = [(list(ps), tx) for ps, tx in groups]
+    def __init__(self, groups: Sequence[Tuple[Sequence[Any], Transform]]):
+        self.groups = []
+        for ps, tx in groups:
+            ps = list(ps)
+            if tx.factored and any(isinstance(p, Shard) for p in ps):
+                raise NotImplementedError(
+                    "a factored transform (Adafactor's row and column moments) cannot step a "
+                    "Shard's block: its moments are means over whole dims")
+            self.groups.append(([_local(p) for p in ps], tx))
         self.states = [tx.init(ps) for ps, tx in self.groups]
         self.count = 0
 
+    def tensors(self) -> List[torch.Tensor]:
+        return [p for ps, _ in self.groups for p in ps]
+
     def zero_grad(self) -> None:
-        for ps, _ in self.groups:
-            zero_grad(ps)
+        zero_grad(self.tensors())
 
     def step(self) -> None:
         for i, (ps, tx) in enumerate(self.groups):
@@ -346,46 +411,128 @@ class Optimizer:
         self.count = int(state["count"])
 
 
-def make_optimizer(params: Sequence[torch.Tensor], lr: float = 2e-4, weight_decay: float = 0.0,
+def make_optimizer(params: Sequence[Any], lr: float = 2e-4, weight_decay: float = 0.0,
                    b1: float = 0.9, b2: float = 0.999,
                    grad_clip: Optional[float] = 1.0) -> Optimizer:
     """AdamW of the reference finetune recipe (finetune_lora.sh:27-33) over
-    `params`, at a constant learning rate, after clip_by_global_norm."""
-    txs = [clip_by_global_norm(grad_clip)] if grad_clip else []
+    `params` (tensors, or `Shard`s: their blocks, with the clip's norm over
+    the mesh), at a constant learning rate, after clip_by_global_norm."""
+    params = list(params)
+    txs = [clip_by_global_norm(grad_clip, *_placement(params))] if grad_clip else []
     return Optimizer([(params, chain(*txs, adamw(lr, b1, b2, weight_decay=weight_decay)))])
 
 
-def forward_loss(params: Dict[str, Any], cfg: vitron_model.VitronConfig,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The multimodal forward on a training batch -> the causal-LM loss."""
+def set_trainable(params: Any, trainable_filter=None) -> List[Any]:
+    """requires_grad on each floating leaf that `trainable_filter(path)`
+    passes (every one without a filter), of a `Shard` on its block, and off
+    on the others -> the trainable leaves in tree order (what
+    `make_optimizer` takes)."""
+    out = []
+    for path, leaf in named_leaves(params):
+        t = _local(leaf)
+        if not torch.is_tensor(t):
+            continue
+        on = t.is_floating_point() and (trainable_filter is None or trainable_filter(path))
+        t.requires_grad_(on)
+        if on:
+            out.append(leaf)
+    return out
+
+
+# the batch arrays indexed by row, split on `data` (JAX's P("data")); the
+# media arrays stay whole on every rank, as JAX leaves them unplaced
+ROW_KEYS = ("token_ids", "media_idx", "use_media", "positions", "attn_mask", "labels")
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's `data` slice of the batch's row-indexed arrays."""
+    n, i = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+    out = dict(batch)
+    for k in ROW_KEYS:
+        rows = batch[k].shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over data={n}")
+        out[k] = batch[k].narrow(0, i * (rows // n), rows // n)
+    return out
+
+
+def tree_mesh(params: Any):
+    """The mesh of the first `Shard` leaf, or None."""
+    for _, leaf in named_leaves(params):
+        if isinstance(leaf, Shard):
+            return leaf.mesh
+    return None
+
+
+def forward_sums(params: Dict[str, Any], cfg: vitron_model.VitronConfig,
+                 batch: Dict[str, torch.Tensor]):
+    """The multimodal forward on a training batch -> (the summed token loss,
+    the count of supervised tokens)."""
     logits, _ = vitron_model.forward(
         params, cfg, batch["token_ids"], batch["media_idx"], batch["use_media"],
         batch["positions"], batch["attn_mask"], images=batch.get("images"),
         videos=batch.get("videos"), block_perm=batch.get("block_perm"),
         region_boxes=batch.get("region_boxes"), region_block_idx=batch.get("region_block_idx"))
-    return causal_lm_loss(logits, batch["labels"])
+    return causal_lm_sums(logits, batch["labels"])
+
+
+def forward_loss(params: Dict[str, Any], cfg: vitron_model.VitronConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The multimodal forward on a training batch -> the causal-LM loss."""
+    total, count = forward_sums(params, cfg, batch)
+    return total / torch.clamp(count, min=1)
 
 
 def _mask_grads(params: Dict[str, Any], trainable_filter) -> None:
     """Zero the gradients of the leaves the filter freezes."""
     for path, p in named_leaves(params):
+        p = _local(p)
         if p.grad is not None and not trainable_filter(path):
             p.grad.zero_()
 
 
+@torch.no_grad()
+def _sum_grads(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum each tensor's gradient over `group` (a tensor with none as
+    zeros, so that every rank issues the same all-reduces)."""
+    for p in tensors:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        all_reduce(p.grad, group)
+
+
 def make_train_step(cfg: vitron_model.VitronConfig, optimizer: Optimizer,
                     trainable_filter=None):
-    """-> step(params, batch) -> loss: one optimizer step over the tensors
-    the optimizer holds. batch: the plan tensors, labels and optional media.
-    With `trainable_filter(path) -> bool`, frozen leaves get zero gradients
-    (the reference freezes the towers, train.py:1185-1212)."""
+    """-> step(params, batch, grads=None) -> loss: one optimizer step over
+    the tensors the optimizer holds. batch: the plan tensors, labels and
+    optional media of the whole batch. With `trainable_filter(path) ->
+    bool`, frozen leaves get zero gradients (the reference freezes the
+    towers, train.py:1185-1212). Into `grads` (when given) go the gradients
+    the optimizer is handed (`copy_grads`).
 
-    def step(params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    Over `Shard` leaves the step runs on their mesh: this rank's `data` rows,
+    the loss of the whole batch (the summed token loss over the count of
+    supervised tokens all-reduced over `data`), the gradients summed over
+    `data` (at any size), and the loss returned all-reduced, so every rank
+    returns the whole batch's."""
+
+    def step(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+             grads: Optional[dict] = None) -> torch.Tensor:
         optimizer.zero_grad()
-        loss = forward_loss(params, cfg, batch)
-        loss.backward()
+        mesh = tree_mesh(params)
+        if mesh is None:
+            loss = forward_loss(params, cfg, batch)
+            loss.backward()
+        else:
+            data = mesh.group(DATA_AXIS)
+            total, count = forward_sums(params, cfg, shard_batch(batch, mesh))
+            loss = total / torch.clamp(all_reduce(count, data), min=1)
+            loss.backward()
+            _sum_grads(optimizer.tensors(), data)
+            loss = all_reduce(loss.detach(), data)
         if trainable_filter is not None:
             _mask_grads(params, trainable_filter)
+        copy_grads(params, grads)
         optimizer.step()
         return loss.detach()
 
